@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Drive nd_tpu_torch's SAR change path once on one CUDA device.
+
+    python3 chip_smoke.py          # from the repository root
+
+Phases (each prints its own line; any failure raises and exits non-zero):
+
+  1. the card (nvidia-smi name and power limit) and the kernel build
+     (nvcc, sm_90a) from ``nd_tpu_torch/csrc``;
+  2. the benchmark cube: 1024 x 1024 x 12 dual-pol covariance stack
+     (y, x, time, [C11, C12.re, C12.im, C22]) float32 from a seed, on
+     the card;
+  3. every kernel against its plain PyTorch version on the card, at the
+     path's shapes: sepconv in both layouts (max abs diff <= 1e-6
+     max|x|), NLMeans r=1/f=1, r=2/f=2, r=2/f=1 (rtol 1e-5, atol 1e-6),
+     the omnibus fast flags (mismatch rate <= 1e-5; also at k=40, two
+     flag planes) and the unpack_flags round trip at k=40;
+  4. exact omnibus (alpha 0.99, 9 looks, margin_eps 1e-4): 0
+     mismatches against the plain float64 'mixed' scan of the full grid;
+  5. ``SARChangePipeline(ml=3, n=1, alpha=0.9).forward``: 0 mismatches
+     against the plain path (plain multilook + 'mixed' scan);
+  6. the README chain, ``NLMeansFilter(r=2, f=1, sigma=2, h=3)`` then
+     ``OmnibusTest(ml=3, alpha=0.01)`` on a Dataset of the cube: NLMeans
+     within the tolerance above, the change map with 0 mismatches
+     against the plain scan of the same filtered data;
+  7. every kernel's launch counter rose during phases 4-6;
+  8. times from CUDA events (median of 7 after 2 warm-up runs) and
+     Mpix/s (y*x*time pixels) of each kernel and its plain version and
+     of phases 4-6, beside the card's name and power limit.
+
+Before the last line it prints one JSON object with the kernels
+(name, route, source, replaced TPU kernel, launches in phases 4-6,
+max abs error, ms and plain ms), then the nvidia-smi line. The last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits non-zero and prints no result.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+NY, NX, K = 1024, 1024, 12
+SEED = 0
+DEVICE = 'cuda'
+KERNELS = {
+    'sepconv': ('nd_tpu_torch/csrc/sepconv.cu',
+                'nd_tpu/ops/conv_pallas.py:576'),
+    'nlmeans': ('nd_tpu_torch/csrc/nlmeans.cu',
+                'nd_tpu/ops/nlmeans_pallas.py:408'),
+    'omnibus': ('nd_tpu_torch/csrc/omnibus.cu',
+                'nd_tpu/ops/change_pallas.py:399'),
+}
+
+
+def make_cube(ny, nx, k, seed=SEED):
+    """Synthetic S1 dual-pol C2 covariance cube (f32, PSD per pixel) with
+    an abrupt backscatter change half-way through the series."""
+    rng = np.random.RandomState(seed)
+    c11 = np.abs(rng.normal(1.0, 0.25, size=(ny, nx, k))) + 0.3
+    c22 = np.abs(rng.normal(1.0, 0.25, size=(ny, nx, k))) + 0.3
+    mag = 0.4 * np.sqrt(c11 * c22) * rng.uniform(0, 1, size=(ny, nx, k))
+    phase = rng.uniform(0, 2 * np.pi, size=(ny, nx, k))
+    c12r = mag * np.cos(phase)
+    c12i = mag * np.sin(phase)
+    c11[:, :, k // 2:] *= 2.5
+    c22[:, :, k // 2:] *= 2.5
+    return np.stack([c11, c12r, c12i, c22], axis=-1).astype(np.float32)
+
+
+def check(ok, *what):
+    """Fail the run (an explicit check: asserts vanish under -O)."""
+    if not ok:
+        raise RuntimeError('chip_smoke check failed: %r' % (what,))
+
+
+def phase(n, text):
+    print('phase %d: %s' % (n, text), flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this '
+              'script needs a CUDA device', file=sys.stderr)
+        return 2
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import nd_tpu_torch as ndt
+    from nd_tpu_torch import _build
+    from nd_tpu_torch.core import Dataset
+    from nd_tpu_torch.ops import change_cuda, conv_cuda, nlmeans_cuda
+    from nd_tpu_torch.ops.change import (change_detection,
+                                         change_detection_exact,
+                                         pack_flags)
+    from nd_tpu_torch.ops.conv import _separable_factors
+
+    counters = {'sepconv': conv_cuda, 'nlmeans': nlmeans_cuda,
+                'omnibus': change_cuda}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+
+    # ---- 1. card and build ----------------------------------------------
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    info = _build.build_info()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in info['log'].splitlines()
+            if 'registers' in ln or 'spill' in ln]
+    phase(1, 'card %s | torch %s cuda %s | kernels built=%s in %.1f s '
+          '(%s) from %s' % (card, torch.__version__, torch.version.cuda,
+                            info['built'], build_s,
+                            os.path.basename(info['path']),
+                            ', '.join(info['sources'])))
+    for ln in regs:
+        print('  ptxas: ' + ln)
+
+    # ---- 2. the cube ------------------------------------------------------
+    t0 = time.perf_counter()
+    cube = torch.from_numpy(make_cube(NY, NX, K)).to(dev)
+    torch.cuda.synchronize()
+    phase(2, 'cube %s %s on %s in %.1f s' % (tuple(cube.shape), cube.dtype,
+                                            torch.cuda.get_device_name(0),
+                                            time.perf_counter() - t0))
+
+    # ---- 3. kernels against their plain versions ---------------------------
+    err = {name: 0.0 for name in KERNELS}
+    ml_kernel = np.ones((3, 3), np.float32) / 9            # multilook
+    ml_taps = _separable_factors(np.flip(ml_kernel))
+    box_taps = _separable_factors(np.ones((3, 3)) / 9)     # BoxcarFilter
+    x_ml = cube.reshape(1, NY, NX, K * 4)
+    x_stack = cube.permute(3, 0, 1, 2).contiguous()        # (4, y, x, t)
+    for label, x, taps in (('(y,x,t,4) axes (0,1)', x_ml, ml_taps),
+                           ('(4,y,x,t) axes (1,2)', x_stack, box_taps)):
+        got = conv_cuda.sepconv2(x, taps[0], taps[1])
+        ref = conv_cuda.sepconv2_plain(x, taps[0], taps[1])
+        torch.cuda.synchronize()
+        diff = float((got - ref).abs().max())
+        bound = 1e-6 * float(x.abs().max())
+        check(diff <= bound, 'sepconv', label, diff, bound)
+        err['sepconv'] = max(err['sepconv'], diff)
+        phase(3, 'sepconv %s: max abs diff %.3g <= %.3g' % (label, diff,
+                                                            bound))
+    for r, f in ((1, 1), (2, 2), (2, 1)):
+        got = nlmeans_cuda.nlmeans_spatial(cube, (r, r), (f, f), 2.0, 3.0)
+        ref = nlmeans_cuda.nlmeans_spatial_plain(cube, (r, r), (f, f), 2.0,
+                                                 3.0)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        excess = float((diff - (1e-6 + 1e-5 * ref.abs())).max())
+        check(bool(torch.isfinite(got).all()) and excess <= 0, 'nlmeans',
+              r, f, excess)
+        err['nlmeans'] = max(err['nlmeans'], float(diff.max()))
+        phase(3, 'nlmeans r=%d f=%d: max abs diff %.3g (rtol 1e-5, atol '
+              '1e-6 held)' % (r, f, float(diff.max())))
+    small40 = torch.from_numpy(make_cube(256, 256, 40, seed=1)).to(dev)
+    for label, vals, kw in (
+            ('k=12 uncapped', cube, {}),
+            ('k=12 capped+margins', cube,
+             dict(return_margin=True, max_rounds=change_cuda._round_cap(K))),
+            ('k=40 uncapped', small40, {})):
+        k = vals.shape[2]
+        out = change_cuda.change_detection_fast(vals, 0.99, n=9,
+                                                return_packed=True, **kw)
+        got = out[0] if kw else out
+        c_tab, s_tab = change_cuda.omnibus_tables(k, 9, 0.99)
+        ref = change_cuda.omnibus_plain(
+            vals, c_tab, s_tab, 9.0, kw.get('max_rounds', k - 1),
+            bool(kw))
+        torch.cuda.synchronize()
+        rate = float((change_cuda.unpack_flags(got, k)
+                      != change_cuda.unpack_flags(ref[0], k)).float().mean())
+        check(rate <= 1e-5, 'omnibus flags', label, rate)
+        line = 'omnibus fast flags %s: mismatch rate %.3g <= 1e-5' % (
+            label, rate)
+        if kw:
+            gm, rm = out[1], ref[1]
+            fin = torch.isfinite(gm) & torch.isfinite(rm)
+            check(bool((torch.isneginf(gm) == torch.isneginf(rm)).all()),
+                  'omnibus -inf margins', label)
+            mdiff = float((gm[fin] - rm[fin]).abs().max())
+            err['omnibus'] = max(err['omnibus'], mdiff)
+            line += '; margins max abs diff %.3g' % mdiff
+        phase(3, line)
+    flags40 = torch.rand((NY, NX, 40), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) > 0.7
+    packed40 = pack_flags(flags40)
+    check(packed40.shape[0] == 2
+          and bool((change_cuda.unpack_flags(packed40, 40) == flags40).all()),
+          'unpack_flags round trip at k=40')
+    phase(3, 'unpack_flags round trip at k=40 (2 planes): exact')
+    del small40, flags40, packed40
+
+    # ---- 4-6. the main path, counted ------------------------------------------
+    for mod in counters.values():
+        mod.reset_launches()
+
+    exact, suspects = change_detection_exact(cube, 0.99, n=9,
+                                             margin_eps=1e-4,
+                                             return_count=True)
+    mixed = change_detection(cube, 0.99, n=9, stat_dtype='mixed')
+    mism = int((exact != mixed).sum())
+    check(mism == 0, 'exact omnibus mismatches', mism)
+    check(int(exact.sum()) > 0, 'the bench cube shows no change')
+    phase(4, 'exact omnibus: %d mismatches vs plain f64 mixed scan; %d '
+          'suspects rescanned; %d changes' % (mism, suspects,
+                                              int(exact.sum())))
+
+    model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9).to(dev)
+    fwd = model(cube)
+
+    def plain_forward(values):
+        looked = conv_cuda.sepconv2_plain(
+            values.reshape(1, NY, NX, K * 4), ml_taps[0],
+            ml_taps[1]).reshape(values.shape)
+        return change_detection(looked, 0.9, n=9)
+
+    ref = plain_forward(cube)
+    mism = int((fwd != ref).sum())
+    check(fwd.shape == (NY, NX, K) and fwd.dtype == torch.bool,
+          'pipeline forward output', fwd.shape, fwd.dtype)
+    check(mism == 0, 'pipeline forward mismatches', mism)
+    phase(5, 'SARChangePipeline.forward: %d mismatches vs plain path; %d '
+          'changes' % (mism, int(fwd.sum())))
+
+    names = ('C11', 'C12__re', 'C12__im', 'C22')
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(names)})
+    nlm = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.01)
+    flt = nlm.apply(ds)
+    change = omn.apply(flt)
+    stacked = torch.stack([flt[v].data for v in names], -1)
+    ref_nl = nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (1, 1), 2.0,
+                                                3.0)
+    excess = float(((stacked - ref_nl).abs()
+                    - (1e-6 + 1e-5 * ref_nl.abs())).max())
+    check(excess <= 0, 'README NLMeans', excess)
+
+    def plain_omnibus(fds):
+        st = torch.stack([fds[v].data for v in names])       # (4, y, x, t)
+        looked = conv_cuda.sepconv2_plain(st, box_taps[0], box_taps[1])
+        return change_detection(looked.permute(1, 2, 3, 0).contiguous(),
+                                0.01, n=9)
+
+    ref_ch = plain_omnibus(flt)
+    mism = int((change.data != ref_ch).sum())
+    check(change.dims == ('y', 'x', 'time')
+          and change.data.device == cube.device, 'README change map',
+          change.dims, change.data.device)
+    check(mism == 0, 'README omnibus mismatches', mism)
+    phase(6, 'README chain: NLMeans within rtol 1e-5/atol 1e-6 of plain; '
+          'OmnibusTest %d mismatches vs plain scan of the same filtered '
+          'data; %d changes' % (mism, int(change.data.sum())))
+
+    # ---- 7. the path went through every kernel ----------------------------------
+    launches = {name: mod.launches for name, mod in counters.items()}
+    check(all(n > 0 for n in launches.values()),
+          'a kernel of the path was not launched', launches)
+    phase(7, 'launches in phases 4-6: %s' % json.dumps(launches))
+
+    # ---- 8. times ------------------------------------------------------------
+    def cuda_ms(fn, reps=7, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def expand_stack(arr):
+        return Dataset({v: (('y', 'x', 'time'), arr[..., i])
+                        for i, v in enumerate(names)})
+
+    mpix = NY * NX * K / 1e6
+    cap = change_cuda._round_cap(K)
+    timed = [
+        ('sepconv (y,x,t,4)', 'sepconv',
+         lambda: conv_cuda.sepconv2(x_ml, *ml_taps),
+         lambda: conv_cuda.sepconv2_plain(x_ml, *ml_taps)),
+        ('sepconv (4,y,x,t)', None,
+         lambda: conv_cuda.sepconv2(x_stack, *box_taps),
+         lambda: conv_cuda.sepconv2_plain(x_stack, *box_taps)),
+        ('nlmeans r=1 f=1', None,
+         lambda: nlmeans_cuda.nlmeans_spatial(cube, (1, 1), (1, 1), 2., 3.),
+         lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (1, 1), (1, 1),
+                                                    2., 3.)),
+        ('nlmeans r=2 f=2', None,
+         lambda: nlmeans_cuda.nlmeans_spatial(cube, (2, 2), (2, 2), 2., 3.),
+         lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (2, 2),
+                                                    2., 3.)),
+        ('nlmeans r=2 f=1', 'nlmeans',
+         lambda: nlmeans_cuda.nlmeans_spatial(cube, (2, 2), (1, 1), 2., 3.),
+         lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (1, 1),
+                                                    2., 3.)),
+        ('omnibus fast capped+margins', 'omnibus',
+         lambda: change_cuda.change_detection_fast(
+             cube, 0.99, n=9, return_margin=True, return_packed=True,
+             max_rounds=cap),
+         lambda: change_cuda.omnibus_plain(
+             cube, *change_cuda.omnibus_tables(K, 9, 0.99), 9.0, cap,
+             True)),
+        ('phase 4 exact omnibus', None,
+         lambda: change_detection_exact(cube, 0.99, n=9, margin_eps=1e-4),
+         lambda: change_detection(cube, 0.99, n=9)),
+        ('phase 5 pipeline forward', None,
+         lambda: model(cube), lambda: plain_forward(cube)),
+        ('phase 6 README chain', None,
+         lambda: omn.apply(nlm.apply(ds)),
+         lambda: plain_omnibus(expand_stack(
+             nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (1, 1), 2.0,
+                                                3.0)))),
+    ]
+
+    row_ms = {}
+    for label, key, kern, plain in timed:
+        # plain, kernel, kernel, plain: both see the same card state
+        p1 = cuda_ms(plain)
+        k1 = cuda_ms(kern)
+        k2 = cuda_ms(kern)
+        p2 = cuda_ms(plain)
+        k_ms, p_ms = min(k1, k2), min(p1, p2)
+        if key:
+            row_ms[key] = (k_ms, p_ms)
+        phase(8, '%-28s kernel %9.3f ms %9.1f Mpix/s | plain %9.3f ms '
+              '%9.1f Mpix/s | x%.2f | %s' % (label, k_ms, mpix / k_ms * 1e3,
+                                             p_ms, mpix / p_ms * 1e3,
+                                             p_ms / k_ms, card))
+    phase(8, 'peak device memory %.2f GiB | %s'
+          % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
+
+    kernels = [{'name': name, 'route': 'cuda', 'source': src,
+                'replaces': tpu, 'launches': launches[name],
+                'max_abs_err': err[name], 'ms': row_ms[name][0],
+                'plain_ms': row_ms[name][1]}
+               for name, (src, tpu) in KERNELS.items()]
+    print(json.dumps({'kernels': kernels}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

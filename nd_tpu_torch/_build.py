@@ -1,0 +1,139 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+with a plain C interface, loaded with :mod:`ctypes`. The library is
+built at first use into ``nd_tpu_torch/.build/`` (listed in
+``.gitignore``) and rebuilt whenever a source or a flag changes: its
+file name carries a hash of both. A failed build or load raises.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, no
+``--use_fast_math`` and ``-fmad=false``: multiply-adds are not
+contracted, so each kernel rounds its products and sums separately, as
+its plain PyTorch version does. The omnibus kernel's margin error bound
+was calibrated on such separately rounded arithmetic.
+
+``ND_TPU_TORCH_NVCC`` names the compiler; otherwise ``nvcc`` on
+``PATH``, then ``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ['library', 'function', 'check', 'build_info', 'NVCC_FLAGS']
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / 'csrc'
+_BUILD_DIR = _PKG / '.build'
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
+              '-Xcompiler', '-fPIC')
+
+_lock = threading.Lock()
+_lib = None
+_info = {}
+
+
+def _nvcc():
+    explicit = os.environ.get('ND_TPU_TORCH_NVCC')
+    if explicit:
+        return explicit
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and os.path.exists(os.path.join(root, 'bin', 'nvcc')):
+            return os.path.join(root, 'bin', 'nvcc')
+    raise RuntimeError('nvcc not found: the CUDA kernels of nd_tpu_torch '
+                       'are built with nvcc at first use (set '
+                       'ND_TPU_TORCH_NVCC or put nvcc on PATH)')
+
+
+def _sources():
+    srcs = sorted(_CSRC.glob('*.cu'))
+    if not srcs:
+        raise RuntimeError('no CUDA sources under %s' % _CSRC)
+    return srcs
+
+
+def _digest(srcs):
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        target = _BUILD_DIR / ('libnd_tpu_torch_%s.so' % _digest(srcs))
+        t0 = time.perf_counter()
+        log = ''
+        built = False
+        if not target.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix('.%d.tmp' % os.getpid())
+            cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                   *[str(s) for s in srcs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed (exit %d):\n%s\n%s'
+                                   % (proc.returncode, ' '.join(cmd), log))
+            os.replace(tmp, target)
+            built = True
+        _lib = ctypes.CDLL(str(target))
+        _info.update(path=str(target), built=built, log=log,
+                     seconds=time.perf_counter() - t0,
+                     sources=[s.name for s in srcs])
+        return _lib
+
+
+def build_info():
+    """Where the library came from: path, whether this process built it,
+    the build seconds and nvcc's output (register and spill counts)."""
+    library()
+    return dict(_info)
+
+
+_P = ctypes.c_void_p
+_CTYPES = {'p': _P, 'i': ctypes.c_int, 'q': ctypes.c_longlong,
+           'd': ctypes.c_double, 'f': ctypes.c_float}
+_bound = {}
+
+
+def function(name, signature):
+    """C entry point ``name`` of the library with argument types from
+    ``signature`` (one letter per argument: p pointer or stream, i int,
+    q long long, d double, f float); returns int (a cudaError_t)."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn
+
+
+def check(name, err):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        fn = library().nd_cuda_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError('%s: CUDA error %d (%s) at launch'
+                           % (name, err, fn(err).decode()))

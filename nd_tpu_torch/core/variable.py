@@ -1,0 +1,122 @@
+"""Low-level n-dimensional variable: (dims, data, attrs).
+
+Counterpart of ``nd_tpu/core/variable.py``. A ``Variable`` pairs a
+``torch.Tensor`` with named dimensions. Numeric numpy input becomes a
+tensor on the CPU (``torch.from_numpy``, no copy); non-numeric
+coordinate arrays (datetimes, strings) stay numpy. A tensor stays on the
+device its caller put it on: nothing here moves data between devices,
+and ``.values`` is the only API that copies to the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ['Variable', 'as_array']
+
+
+def as_array(data):
+    """Coerce input to a tensor (numeric data) or a numpy array (other
+    data), without copying tensors."""
+    if isinstance(data, torch.Tensor):
+        return data
+    if isinstance(data, Variable):
+        return data.data
+    arr = np.asarray(data)
+    if arr.dtype.kind in 'biufc':
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    if arr.dtype == object:
+        try:
+            arr = np.asarray(data, dtype='datetime64[ns]')
+        except (ValueError, TypeError):
+            arr = np.asarray([str(x) for x in arr.ravel()]).reshape(arr.shape)
+    return arr
+
+
+def to_numpy(data):
+    if isinstance(data, torch.Tensor):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
+
+
+class Variable:
+    """A named-dimension array (no coordinates).
+
+    Parameters
+    ----------
+    dims : tuple of str
+    data : torch.Tensor or array-like
+    attrs : dict, optional
+    """
+
+    __slots__ = ('dims', 'data', 'attrs')
+
+    def __init__(self, dims, data, attrs=None):
+        if isinstance(dims, str):
+            dims = (dims,)
+        data = as_array(data)
+        dims = tuple(dims)
+        if len(dims) != data.ndim:
+            raise ValueError('dimensions %r do not match array of shape %r'
+                             % (dims, tuple(data.shape)))
+        self.dims = dims
+        self.data = data
+        self.attrs = dict(attrs) if attrs else {}
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def ndim(self):
+        return self.data.ndim
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def sizes(self):
+        return dict(zip(self.dims, self.shape))
+
+    @property
+    def values(self):
+        """Host numpy copy of the data."""
+        return to_numpy(self.data)
+
+    def copy(self, deep=True):
+        data = self.data
+        if deep:
+            data = data.clone() if isinstance(data, torch.Tensor) \
+                else data.copy()
+        return Variable(self.dims, data, dict(self.attrs))
+
+    def transpose(self, *dims):
+        if not dims:
+            dims = self.dims[::-1]
+        if set(dims) != set(self.dims):
+            raise ValueError('transpose dims %r != variable dims %r'
+                             % (dims, self.dims))
+        order = [self.dims.index(d) for d in dims]
+        data = self.data.permute(*order) \
+            if isinstance(self.data, torch.Tensor) \
+            else np.transpose(self.data, order)
+        return Variable(dims, data, self.attrs)
+
+    def broadcast_to(self, target_dims, target_shape):
+        missing = [d for d in target_dims if d not in self.dims]
+        data = self.data.reshape(tuple(self.data.shape) + (1,) * len(missing))
+        dims = self.dims + tuple(missing)
+        order = [dims.index(d) for d in target_dims]
+        if isinstance(data, torch.Tensor):
+            return Variable(tuple(target_dims),
+                            data.permute(*order).expand(*target_shape),
+                            self.attrs)
+        return Variable(tuple(target_dims),
+                        np.broadcast_to(np.transpose(data, order),
+                                        tuple(target_shape)), self.attrs)
+
+    def __repr__(self):
+        return '<nd_tpu_torch.Variable %r %s %s>' % (
+            self.dims, self.shape, self.dtype)

@@ -1,0 +1,280 @@
+"""Complex-Wishart omnibus change detection (Conradsen et al. 2016).
+
+Counterpart of ``nd_tpu/ops/change.py``. Every pixel's series is
+scanned for change points: per restart anchor ``l``, running sums of
+the series from ``l`` give the statistics of every window [l, t]; the
+chi-square decision ``P(z) > alpha`` is a z-threshold compare per window
+length, with the thresholds solved on the host in float64; each active
+pixel jumps to its first significant change point.
+
+Two routes:
+
+  - :func:`change_detection`: the scan in PyTorch operations, with
+    'mixed' (channel sums in the input precision, determinant/log/
+    decision in float64 — the exact reference decisions), float32 or
+    float64 statistics;
+  - :func:`change_detection_exact`: the fused float32 ``omnibus`` kernel
+    (``ops/change_cuda.py``) reports each pixel's decision margin; the
+    pixels whose margin is not above ``margin_eps`` (NaN included) are
+    rescanned with the float64 'mixed' scan and patched in. The
+    decisions equal the 'mixed' scan's.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ['omnibus_rho', 'omnibus_thresholds', 'change_detection',
+           'change_detection_exact', 'pack_flags']
+
+_P = 2.0  # dual-pol covariance matrices are 2x2
+
+
+def omnibus_rho(j, n):
+    """rho coefficient per window length (host-side, float64)."""
+    j = np.asarray(j, np.float64)
+    return 1 - (2 * _P ** 2 - 1) / (6 * (j - 1) * _P) \
+        * (j / n - 1 / (n * j))
+
+
+def omnibus_thresholds(k, n, alpha):
+    """Per-window-length z-thresholds equivalent to ``P(z) > alpha``.
+
+    P(z) = P1 + omega2 (P2 - P1) depends on the pixel only through z,
+    so ``P(z) > alpha`` is ``z > z*(j)`` with z*(j) solved once on the
+    host by bisection in float64. Returns an array of length k+1;
+    entries j < 2 are +inf. Solved once per (k, n, alpha) and cached:
+    the bisection costs about as much host time as a whole scan of a
+    megapixel cube on the card.
+    """
+    return _thresholds(int(k), float(n), float(alpha)).copy()
+
+
+@functools.lru_cache(maxsize=64)
+def _thresholds(k, n, alpha):
+    from scipy.stats import chi2 as _chi2
+    out = np.full(k + 1, np.inf)
+    for j in range(2, k + 1):
+        rho = float(omnibus_rho(j, n))
+        f = (j - 1) * _P ** 2
+        omega2 = (_P ** 2 * (_P ** 2 - 1) / (24 * rho ** 2)
+                  * (j / n ** 2 - 1 / (n * j) ** 2)
+                  - _P ** 2 * (j - 1) / 4 * (1 - 1 / rho) ** 2)
+
+        def prob(z):
+            p1 = _chi2.cdf(z, f)
+            p2 = _chi2.cdf(z, f + 4)
+            return p1 + omega2 * (p2 - p1)
+
+        lo, hi = 0.0, 1.0
+        while prob(hi) <= alpha and hi < 1e12:
+            hi *= 2
+        if prob(hi) <= alpha:
+            out[j] = np.inf
+            continue
+        for _ in range(200):
+            mid = 0.5 * (lo + hi)
+            if prob(mid) > alpha:
+                hi = mid
+            else:
+                lo = mid
+        out[j] = hi
+    return out
+
+
+_DTYPES = {'float32': torch.float32, 'float64': torch.float64,
+           torch.float32: torch.float32, torch.float64: torch.float64}
+
+
+def change_detection(values, alpha, n=1, stat_dtype='mixed'):
+    """Iterative omnibus change-point detection in PyTorch operations.
+
+    Parameters
+    ----------
+    values : torch.Tensor, shape (y, x, time, 4)
+        Covariance channels [C11, C12.re, C12.im, C22] per time step
+        (already multilooked with ``n`` looks).
+    alpha : float
+        Decision threshold on the chi-square probability.
+    n : int
+        Number of looks.
+    stat_dtype : 'mixed', 'float32' or 'float64', optional
+        Statistic precision. 'mixed' (default) accumulates the channel
+        sums in the input precision and runs the determinant/log/
+        decision math in float64 — the exact reference decisions. The
+        running sums accumulate strictly left to right (one addition
+        per time step), so the decisions are a function of each pixel's
+        series alone, whatever the batch shape or device.
+
+    Returns
+    -------
+    bool tensor, shape (y, x, time), on ``values``' device
+    """
+    values = torch.as_tensor(values)
+    if not values.is_floating_point():
+        values = values.to(torch.float32)
+    if stat_dtype == 'mixed':
+        sdtype = values.dtype
+        ldtype = torch.float64
+    elif stat_dtype in _DTYPES:
+        sdtype = ldtype = _DTYPES[stat_dtype]
+    else:
+        raise ValueError('stat_dtype must be mixed, float32 or float64, '
+                         'not %r' % (stat_dtype,))
+    ny, nx, k, _ = values.shape
+    dev = values.device
+    nf = float(n)
+
+    chans = [values[..., c].to(sdtype) for c in range(4)]   # (y, x, k)
+    dets = chans[0] * chans[3] - chans[1] * chans[1] - chans[2] * chans[2]
+    logdet_t = torch.log(torch.abs(dets).to(ldtype))
+    neg_t = (dets < 0).to(sdtype)
+
+    z_thresh = omnibus_thresholds(k, n, float(alpha))
+    with np.errstate(divide='ignore', invalid='ignore'):
+        rho_tab = omnibus_rho(np.arange(k + 1), n)
+    folded = np.full(k + 1, -np.inf)
+    use_folded = ldtype == torch.float64
+    for j in range(2, k + 1):
+        if np.isfinite(z_thresh[j]):
+            if rho_tab[j] <= 0:
+                use_folded = False
+                break
+            folded[j] = (-z_thresh[j] / (2 * rho_tab[j])
+                         - n * _P * j * np.log(j))
+    # per-length tables indexed by window length j (0..k)
+    if use_folded:
+        c_tab = torch.as_tensor(folded, dtype=ldtype, device=dev)
+    else:
+        thr_tab = torch.as_tensor(z_thresh, dtype=ldtype, device=dev)
+
+    l = torch.zeros((ny, nx), dtype=torch.int64, device=dev)
+    active = torch.ones((ny, nx), dtype=torch.bool, device=dev)
+    result = torch.zeros((ny, nx, k), dtype=torch.bool, device=dev)
+    zero_s = torch.zeros((), dtype=sdtype, device=dev)
+    zero_l = torch.zeros((), dtype=ldtype, device=dev)
+    big = torch.full((), k, dtype=torch.int64, device=dev)
+    for _ in range(max(k - 1, 0)):
+        if not bool(active.any()):
+            break
+        sums = [torch.zeros((ny, nx), dtype=sdtype, device=dev)
+                for _ in range(5)]
+        sld = torch.zeros((ny, nx), dtype=ldtype, device=dev)
+        t_first = torch.full((ny, nx), k, dtype=torch.int64, device=dev)
+        hit_last = None
+        for t in range(k):
+            m = t >= l
+            for c in range(4):
+                sums[c] = sums[c] + torch.where(m, chans[c][..., t], zero_s)
+            sums[4] = sums[4] + torch.where(m, neg_t[..., t], zero_s)
+            sld = sld + torch.where(m, logdet_t[..., t], zero_l)
+            if t == 0:
+                continue
+            c11, c12r, c12i, c22 = (s.to(ldtype) for s in sums[:4])
+            odd_neg = (sums[4].to(torch.int32) % 2) == 1
+            jt_i = t - l + 1
+            jt = jt_i.to(ldtype)
+            det_of_sum = c11 * c22 - c12r * c12r - c12i * c12i
+            log_prod = torch.where(odd_neg, torch.full_like(sld, np.nan),
+                                   sld)
+            j_idx = jt_i.clamp(0, k)
+            if use_folded:
+                stat = nf * log_prod - (nf * jt) * torch.log(det_of_sum)
+                hit = stat < c_tab[j_idx]
+            else:
+                logq = nf * (_P * jt * torch.log(jt) + log_prod
+                             - jt * torch.log(det_of_sum))
+                rho_t = 1 - (2 * _P ** 2 - 1) / (6 * (jt - 1) * _P) \
+                    * (jt / nf - 1 / (nf * jt))
+                z = -2 * rho_t * logq
+                hit = z > thr_tab[j_idx]
+            hit = hit & (t >= l + 1)                      # j >= 2
+            t_first = torch.where(hit & (t_first == k),
+                                  torch.full_like(t_first, t), t_first)
+            if t == k - 1:
+                hit_last = hit
+        if hit_last is None:
+            break
+        # global test over ts[l:] is the t = k-1 window
+        active = active & hit_last
+        any_hit = t_first < big
+        pos = torch.where(any_hit, t_first, big - 1)
+        pos = torch.maximum(pos, l + 1)
+        set_mask = active & any_hit
+        upd = torch.zeros_like(result)
+        upd.scatter_(2, pos.clamp_max(k - 1)[..., None], set_mask[..., None])
+        result = result | upd
+        l = torch.where(active, pos, l)
+        active = active & (l < k - 1)
+    return result
+
+
+def pack_flags(flags):
+    """(..., k) bool -> (ceil(k/31), ...) int32 bit-packed planes (bit
+    t%31 of plane t//31 = flag at time t)."""
+    k = flags.shape[-1]
+    planes = []
+    for pp in range((k + 30) // 31):
+        nb = min(31, k - 31 * pp)
+        weights = torch.as_tensor(2 ** np.arange(nb), dtype=torch.int32,
+                                  device=flags.device)
+        planes.append((flags[..., 31 * pp:31 * pp + nb].to(torch.int32)
+                       * weights).sum(-1, dtype=torch.int32))
+    return torch.stack(planes)
+
+
+def _exact_packed(values, alpha, n, margin_eps):
+    """Fast kernel pass + float64 'mixed' rescan of the suspect pixels.
+    Returns the (P, y, x) int32 packed planes and the suspect count."""
+    from .change_cuda import _round_cap, change_detection_fast
+    ny, nx, k, _ = values.shape
+    packed, margin = change_detection_fast(
+        values, alpha, n=n, return_margin=True, return_packed=True,
+        max_rounds=_round_cap(k))
+    suspect = ~(margin > margin_eps)                  # NaN-inclusive
+    idx = torch.nonzero(suspect.reshape(-1)).squeeze(1)
+    count = int(idx.numel())
+    if count:
+        series = values.reshape(ny * nx, k, 4).index_select(0, idx)
+        rows = change_detection(series[None], alpha, n=n,
+                                stat_dtype='mixed')[0]       # (N, k)
+        planes = packed.view(packed.shape[0], -1)
+        planes[:, idx] = pack_flags(rows)
+    return packed, count
+
+
+def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
+                           return_count=False):
+    """Exact change detection: the decisions of ``change_detection(...,
+    stat_dtype='mixed')`` at about the fast kernel's cost.
+
+    The fused float32 kernel reports each pixel's smallest relative
+    decision margin, already net of a conservative f32 error bound
+    (determinant conditioning with a 64x safety factor on unit
+    roundoff, plus 1e-5 per log evaluation); the kernel caps the restart
+    rounds at ``max(4, k // 4)`` and gives still-active pixels margin
+    -inf. Pixels whose margin is not above ``margin_eps`` — the only
+    ones whose f32 decisions could differ from float64, NaN included —
+    are gathered with ``torch.nonzero``, rescanned with the float64
+    'mixed' scan (reading the input in its own dtype), bit-packed and
+    scattered back.
+
+    This is the logic of the reference's ``change_detection_exact`` and
+    ``change_detection_hybrid`` alike. Every suspect is rescanned: their
+    fixed-capacity compaction and its overflow branch (a full-grid
+    'mixed' rerun) existed for jit's static shapes and are not needed
+    here. The decisions are the same.
+
+    Returns a (y, x, time) bool tensor on ``values``' device (and the
+    suspect count with ``return_count``).
+    """
+    from .change_cuda import unpack_flags
+    values = torch.as_tensor(values)
+    if not values.is_floating_point():
+        values = values.to(torch.float32)
+    packed, count = _exact_packed(values, alpha, n, margin_eps)
+    flags = unpack_flags(packed, values.shape[2])
+    return (flags, count) if return_count else flags

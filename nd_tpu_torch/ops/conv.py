@@ -1,0 +1,237 @@
+"""Separable n-dimensional convolution with scipy.ndimage edge handling.
+
+Counterpart of ``nd_tpu/ops/conv.py``:
+
+  - edge mode 'reflect' matches scipy.ndimage's default 'reflect'
+    (numpy 'symmetric': the edge sample is repeated), 'mirror' excludes
+    the edge, plus 'nearest', 'constant' and 'wrap';
+  - the kernel is flipped before correlation (true convolution), exactly
+    like ``scipy.ndimage.convolve``;
+  - arbitrary subsets of axes are filtered; all other axes are batched.
+
+Separable (rank-1) kernels run as 1-d tap passes through the
+``sepconv`` kernel (``ops/conv_cuda.py``), which fuses two adjacent axes
+into one pass. Non-separable kernels are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ['convolve', 'gaussian_kernel1d', 'pad_reflect']
+
+_SCIPY_TO_NP_PAD = {
+    'reflect': 'symmetric',   # scipy.ndimage 'reflect' repeats the edge
+    'mirror': 'reflect',      # scipy.ndimage 'mirror' excludes the edge
+    'nearest': 'edge',
+    'wrap': 'wrap',
+    'constant': 'constant',
+}
+
+
+def _edge_src(j, n, mode):
+    """In-range source index replacing position ``j`` of an axis of
+    ``n`` samples under the scipy boundary mode (None => constant
+    fill). Positions farther out than one period fold periodically, as
+    repeated numpy padding does."""
+    if 0 <= j < n:
+        return j
+    if mode == 'reflect':        # symmetric: -1 -> 0, n -> n-1
+        j %= 2 * n
+        return j if j < n else 2 * n - 1 - j
+    if mode == 'mirror':         # reflect101: -1 -> 1, n -> n-2
+        if n == 1:
+            return 0
+        j %= 2 * n - 2
+        return j if j < n else 2 * n - 2 - j
+    if mode == 'nearest':
+        return 0 if j < 0 else n - 1
+    if mode == 'wrap':
+        return j % n
+    return None                  # 'constant'
+
+
+def pad_reflect(arr, pad_width, mode='reflect', cval=0.0):
+    """Pad a tensor with scipy.ndimage edge-mode names (the boundary is
+    gathered by index, on the tensor's device)."""
+    if mode not in _SCIPY_TO_NP_PAD:
+        raise ValueError('unsupported boundary mode %r' % (mode,))
+    out = arr
+    for ax, (lo, hi) in enumerate(pad_width):
+        if not lo and not hi:
+            continue
+        n = out.shape[ax]
+        src = [_edge_src(j, n, mode) for j in range(-lo, n + hi)]
+        idx = torch.as_tensor([0 if s is None else s for s in src],
+                              device=out.device)
+        out = out.index_select(ax, idx)
+        if mode == 'constant':
+            fill = torch.as_tensor([s is None for s in src],
+                                   device=out.device)
+            shape = [1] * out.ndim
+            shape[ax] = -1
+            out = torch.where(fill.reshape(shape),
+                              torch.as_tensor(cval, dtype=out.dtype,
+                                              device=out.device), out)
+    return out
+
+
+def _scalar(w, like):
+    return torch.tensor(w, dtype=like.dtype, device=like.device)
+
+
+def _shift_add_valid(arr, weights, axis):
+    """'valid' correlation with a 1-d tap vector as shifted adds.
+
+    Uniform taps are summed first and scaled once; weighted taps
+    multiply each term. This is the plain version of the ``sepconv``
+    kernel: the kernel keeps this add order."""
+    weights = np.asarray(weights, np.float64)
+    n_out = arr.shape[axis] - len(weights) + 1
+    uniform = bool(np.allclose(weights, weights[0]))
+    out = None
+    for i, w in enumerate(weights.tolist()):
+        term = arr.narrow(axis, i, n_out)
+        if not uniform:
+            term = term * _scalar(w, arr)
+        out = term if out is None else out + term
+    if uniform and weights[0] != 1.0:
+        out = out * _scalar(float(weights[0]), arr)
+    return out
+
+
+def _separable_factors(kernel):
+    """1-d factors of a separable (rank-1) kernel, or None.
+
+    The factors reproduce the kernel's outer product; 2-d kernels are
+    tested via SVD, higher ranks only for the uniform (boxcar) case.
+    """
+    k = np.asarray(kernel, np.float64)
+    if k.ndim == 1:
+        return [k]
+    if np.allclose(k, k.flat[0]):
+        facs = [np.ones(n) for n in k.shape]
+        facs[0] = facs[0] * k.flat[0]
+        return facs
+    if k.ndim == 2:
+        u, s, vt = np.linalg.svd(k)
+        if len(s) > 1 and s[1] <= 1e-7 * max(s[0], 1e-300):
+            return [u[:, 0] * np.sqrt(s[0]), vt[0] * np.sqrt(s[0])]
+    return None
+
+
+def _const_pass(cv, taps, np_dtype):
+    """The value a tap pass gives over a constant run of ``cv`` — what a
+    later pass reads outside the array in 'constant' mode, since the
+    reference pads every axis before the first pass."""
+    taps = np.asarray(taps, np.float64)
+    uniform = bool(np.allclose(taps, taps[0]))
+    c = np_dtype.type(cv)
+    out = None
+    for w in taps.tolist():
+        term = c if uniform else c * np_dtype.type(w)
+        out = term if out is None else np_dtype.type(out + term)
+    if uniform and taps[0] != 1.0:
+        out = np_dtype.type(out * np_dtype.type(taps[0]))
+    return out
+
+
+def _sep_pass(arr, ax, taps0, taps1, mode, cval):
+    """One ``sepconv`` pass over axis ``ax`` (taps0) and, when taps1 is
+    given, axis ``ax + 1`` — through a contiguous 4-d view."""
+    from .conv_cuda import sepconv2
+    shape = arr.shape
+    outer = int(np.prod(shape[:ax], dtype=np.int64))
+    if taps1 is None:
+        view = (outer, shape[ax], 1,
+                int(np.prod(shape[ax + 1:], dtype=np.int64)))
+        taps1 = np.ones(1)
+    else:
+        view = (outer, shape[ax], shape[ax + 1],
+                int(np.prod(shape[ax + 2:], dtype=np.int64)))
+    out = sepconv2(arr.contiguous().reshape(view), taps0, taps1,
+                   mode=mode, cval=cval)
+    return out.reshape(shape)
+
+
+def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
+    """Convolve ``arr`` with a separable ``kernel`` along ``axes``.
+
+    Matches ``scipy.ndimage.convolve`` semantics (kernel flip, origin at
+    ``size // 2``, default 'reflect' boundary). The result stays on
+    ``arr``'s device, in its dtype.
+
+    Parameters
+    ----------
+    arr : torch.Tensor
+    kernel : array with ``len(axes)`` dims
+    axes : tuple of int, optional
+        Axes to filter (default: all).
+    mode : str, optional
+        scipy.ndimage boundary mode (default 'reflect').
+    """
+    arr = torch.as_tensor(arr)
+    kernel = np.asarray(kernel)
+    if axes is None:
+        axes = tuple(range(arr.ndim))
+    axes = tuple(int(a) % arr.ndim for a in axes)
+    if kernel.ndim != len(axes):
+        raise ValueError('kernel must have one dim per filtered axis')
+    if mode not in _SCIPY_TO_NP_PAD:
+        raise ValueError('unsupported boundary mode %r' % (mode,))
+
+    if arr.is_complex():
+        re = convolve(arr.real, kernel, axes, mode, cval)
+        im = convolve(arr.imag, kernel, axes, mode, cval)
+        return torch.complex(re, im)
+    if not arr.is_floating_point():
+        arr = arr.to(torch.float32)
+
+    kflip = np.flip(kernel, axis=tuple(range(kernel.ndim)))
+    factors = _separable_factors(kflip)
+    if factors is None:
+        raise NotImplementedError(
+            'non-separable convolution kernels are not ported yet '
+            '(ROADMAP item 8)')
+    from .conv_cuda import MAX_TAPS
+    if any(len(f) > MAX_TAPS for f in factors):
+        raise NotImplementedError(
+            'separable kernels over %d taps per axis are not ported yet '
+            '(ROADMAP item 8)' % MAX_TAPS)
+
+    np_dtype = np.dtype(str(arr.dtype).replace('torch.', ''))
+    cv = np_dtype.type(cval)
+    passes = list(zip(axes, factors))
+    out = arr
+    i = 0
+    while i < len(passes):
+        ax, fac = passes[i]
+        if len(fac) == 1:
+            out = out * _scalar(float(fac[0]), out)
+            cv = np_dtype.type(cv * np_dtype.type(fac[0]))
+            i += 1
+            continue
+        nxt = passes[i + 1] if i + 1 < len(passes) else None
+        if nxt is not None and nxt[0] == ax + 1 and len(nxt[1]) > 1:
+            out = _sep_pass(out, ax, fac, nxt[1], mode, float(cv))
+            cv = _const_pass(_const_pass(cv, fac, np_dtype), nxt[1],
+                             np_dtype)
+            i += 2
+        else:
+            out = _sep_pass(out, ax, fac, None, mode, float(cv))
+            cv = _const_pass(cv, fac, np_dtype)
+            i += 1
+    return out
+
+
+def gaussian_kernel1d(sigma, truncate=4.0, radius=None):
+    """The exact 1-d kernel scipy.ndimage.gaussian_filter uses."""
+    if radius is None:
+        radius = int(truncate * float(sigma) + 0.5)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    if sigma == 0:
+        phi = (x == 0).astype(np.float64)
+    else:
+        phi = np.exp(-0.5 * (x / float(sigma)) ** 2)
+    return phi / phi.sum()

@@ -1,0 +1,101 @@
+"""Separable VALID correlation over two adjacent axes: the ``sepconv``
+CUDA kernel (``csrc/sepconv.cu``) and its plain PyTorch version.
+
+Replaces ``nd_tpu/ops/conv_pallas.py``: ``padless_convolve``,
+``rowfused_convolve`` and the two-axis case of
+``separable_convolve_pallas``. On the H100 the kernel is bound by
+device-memory bytes (one read and one write per element); it rebuilds
+the boundary by index mapping instead of writing a padded copy, and
+reads each input element from L1/L2 for the k0*k1 windows that share
+it. See the source for the design.
+
+``sepconv2`` runs the kernel for a CUDA tensor and the plain version for
+a CPU tensor; for any other device, dtype or layout it raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .conv import _shift_add_valid, pad_reflect
+
+__all__ = ['sepconv2', 'sepconv2_plain', 'MAX_TAPS', 'MODES', 'launches']
+
+MAX_TAPS = 64          # kMaxTaps in csrc/sepconv.cu
+MODES = {'reflect': 0, 'mirror': 1, 'nearest': 2, 'constant': 3,
+         'wrap': 4}
+
+launches = 0           # kernel launches since import (or reset)
+
+
+def reset_launches():
+    global launches
+    launches = 0
+
+
+def _taps(taps):
+    t = np.ascontiguousarray(np.asarray(taps, np.float64).ravel())
+    if not 1 <= t.size <= MAX_TAPS:
+        raise ValueError('sepconv takes 1..%d taps per axis, got %d'
+                         % (MAX_TAPS, t.size))
+    uniform = bool(np.allclose(t, t[0]))
+    return t, uniform, uniform and t[0] != 1.0
+
+
+def _check(x, mode):
+    if not isinstance(x, torch.Tensor) or x.ndim != 4:
+        raise ValueError('sepconv2 takes a 4-d (outer, n0, n1, inner) '
+                         'tensor')
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError('sepconv2 takes float32 or float64, got %s'
+                        % x.dtype)
+    if not x.is_contiguous():
+        raise ValueError('sepconv2 takes a contiguous tensor')
+    if mode not in MODES:
+        raise ValueError('unsupported boundary mode %r' % (mode,))
+    if x.shape[1] >= 2 ** 31 or x.shape[2] * x.shape[3] >= 2 ** 31:
+        raise ValueError('sepconv2 takes n0 and n1 * inner below 2**31')
+
+
+def sepconv2_plain(x, taps0, taps1, mode='reflect', cval=0.0):
+    """Plain PyTorch version of the kernel: boundary gathered by index
+    (the kernel's own mapping), then ``_shift_add_valid`` over axis 1
+    (taps0) and axis 2 (taps1) — the kernel's add order."""
+    _check(x, mode)
+    k0, k1 = len(np.ravel(taps0)), len(np.ravel(taps1))
+    out = pad_reflect(x, ((0, 0), ((k0 - 1) // 2, k0 // 2),
+                          ((k1 - 1) // 2, k1 // 2), (0, 0)), mode, cval)
+    out = _shift_add_valid(out, np.ravel(taps0), 1)
+    return _shift_add_valid(out, np.ravel(taps1), 2)
+
+
+def sepconv2(x, taps0, taps1, mode='reflect', cval=0.0):
+    """Separable VALID correlation of a contiguous ``(outer, n0, n1,
+    inner)`` tensor over n0 with ``taps0`` and n1 with ``taps1``
+    (already-FLIPPED weights; output ``o`` reads input
+    ``o - (k-1)//2 .. o + k//2``, outside positions by ``mode``)."""
+    _check(x, mode)
+    if x.device.type == 'cpu':
+        return sepconv2_plain(x, taps0, taps1, mode, cval)
+    if x.device.type != 'cuda':
+        raise ValueError('sepconv2 runs on cuda or cpu tensors, not %s'
+                         % x.device)
+    w0, u0, s0 = _taps(taps0)
+    w1, u1, s1 = _taps(taps1)
+    out = torch.empty_like(x)
+    name = 'nd_sepconv_f32' if x.dtype == torch.float32 \
+        else 'nd_sepconv_f64'
+    fn = _build.function(name, 'ppqiiqpiiipiiiidp')
+    outer, n0, n1, inner = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), outer, n0, n1, inner,
+                 w0.ctypes.data, len(w0), int(u0), int(s0),
+                 w1.ctypes.data, len(w1), int(u1), int(s1),
+                 MODES[mode], float(cval), stream)
+    global launches
+    launches += 1
+    _build.check(name, err)
+    return out

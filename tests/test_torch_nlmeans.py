@@ -1,0 +1,140 @@
+"""Parity of nd_tpu_torch's NLMeans with nd_tpu's.
+
+The same numpy inputs (from a seed) go through the JAX function and its
+port; the spatial Pallas kernel runs in interpret mode. Tolerance for
+float32: rtol 1e-5, atol 1e-6 (the patch sums and the exp run in
+another order and implementation than the reference's).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from nd_tpu.filters import NLMeansFilter as JNLMeansFilter
+from nd_tpu.ops.nlmeans import find_weight_vectorized as jfind
+from nd_tpu.ops.nlmeans import nlmeans as jnlmeans
+from nd_tpu.ops.nlmeans_pallas import nlmeans_spatial_pallas
+from nd_tpu_torch.filters import NLMeansFilter
+from nd_tpu_torch.core import from_jax_dataset
+from nd_tpu_torch.ops import nlmeans_cuda
+from nd_tpu_torch.ops.nlmeans import find_weight_vectorized, nlmeans
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _data(shape, dtype=np.float32, seed=0):
+    return np.random.RandomState(seed).rand(*shape).astype(dtype)
+
+
+SHAPES = [(20, 17, 3, 4), (9, 40, 1, 2), (16, 128, 2, 4), (13, 11, 2, 6)]
+
+
+@pytest.mark.parametrize('shape,rf', [((20, 17, 3, 4), (1, 1)),
+                                      ((9, 40, 1, 2), (2, 1)),
+                                      ((16, 128, 1, 4), (2, 2))])
+def test_spatial_matches_pallas(shape, rf):
+    # interpret mode is slow: three cases cover the row-fused (odd
+    # widths) and padless (128-aligned) kernels; the XLA test below
+    # covers the rest of the grid
+    r, f = rf
+    a = _data(shape)
+    ref = np.asarray(nlmeans_spatial_pallas(
+        jnp.asarray(a), (r, r), (f, f), 2.0, 3.0, -1.0, interpret=True))
+    got = nlmeans(torch.from_numpy(a), (r, r, 0), (f, f, 0), 2.0, 3.0)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+@pytest.mark.parametrize('rf', [(1, 1), (2, 1), (2, 2)])
+def test_spatial_matches_xla(shape, rf):
+    r, f = rf
+    a = _data(shape, seed=8)
+    ref = np.asarray(jnlmeans(jnp.asarray(a), (r, r, 0), (f, f, 0), 2.0,
+                              3.0))
+    got = nlmeans(torch.from_numpy(a), (r, r, 0), (f, f, 0), 2.0, 3.0)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize('r,f', [((1, 2, 0), (1, 0, 0)),
+                                 ((2, 1, 0), (0, 1, 0))])
+def test_anisotropic_matches_xla(r, f):
+    a = _data((15, 19, 3, 4), seed=1)
+    ref = np.asarray(jnlmeans(jnp.asarray(a), r, f, 0.5, 0.8))
+    got = nlmeans(torch.from_numpy(a), r, f, 0.5, 0.8).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_n_eff_matches_xla():
+    a = _data((16, 16, 2, 4), seed=2)
+    ref = np.asarray(jnlmeans(jnp.asarray(a), (2, 2, 0), (1, 1, 0), 2.0,
+                              2.0, 4.0))
+    got = nlmeans(torch.from_numpy(a), (2, 2, 0), (1, 1, 0), 2.0, 2.0,
+                  4.0).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize('r,f', [((1, 1, 1), (1, 1, 1)),
+                                 ((0, 0, 2), (1, 1, 0))])
+def test_temporal_windows_match_xla_on_cpu(r, f):
+    a = _data((12, 10, 5, 3), seed=3)
+    ref = np.asarray(jnlmeans(jnp.asarray(a), r, f, 0.5, 0.8))
+    got = nlmeans(torch.from_numpy(a), r, f, 0.5, 0.8).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_float64_matches_xla():
+    a = _data((11, 12, 2, 4), np.float64, seed=4)
+    ref = np.asarray(jnlmeans(jnp.asarray(a), (2, 1, 0), (1, 1, 0), 0.3,
+                              0.4))
+    got = nlmeans(torch.from_numpy(a), (2, 1, 0), (1, 1, 0), 0.3,
+                  0.4).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-13)
+
+
+def test_identity_and_window_checks():
+    a = torch.from_numpy(_data((6, 7, 2, 2)))
+    assert nlmeans(a, (0, 0, 0), (1, 1, 0), 1.0, 1.0) is a
+    with pytest.raises(ValueError, match='must be smaller'):
+        nlmeans(a, (3, 1, 0), (3, 1, 0), 1.0, 1.0)
+    with pytest.raises(ValueError, match='must be smaller'):
+        nlmeans_cuda.nlmeans_spatial(a, (1, 6), (1, 1), 1.0, 1.0)
+    with pytest.raises(ValueError, match='4-D'):
+        nlmeans(a[0], (1, 1, 0), (1, 1, 0), 1.0, 1.0)
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        nlmeans_cuda.nlmeans_spatial(a.to('meta'), (1, 1), (1, 1), 1.0, 1.0)
+
+
+def test_find_weight_matches_jax():
+    rng = np.random.RandomState(5)
+    ws = rng.rand(50) * 8
+    sq = rng.rand(50) * 2
+    ref = np.asarray(jfind(jnp.asarray(ws), jnp.asarray(sq),
+                           jnp.asarray(4.0)))
+    got = find_weight_vectorized(torch.from_numpy(ws), torch.from_numpy(sq),
+                                 torch.tensor(4.0, dtype=torch.float64))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-14)
+
+
+def _jax_dataset(ny=14, nx=18, nt=3, seed=6):
+    from nd_tpu.core import Dataset as JDataset
+    rng = np.random.RandomState(seed)
+    return JDataset({v: (('y', 'x', 'time'),
+                         rng.rand(ny, nx, nt).astype(np.float32))
+                     for v in ('C11', 'C12__re', 'C12__im', 'C22')},
+                    coords={'time': np.arange(nt)})
+
+
+@pytest.mark.parametrize('dims,r,f', [(('y', 'x'), 2, 1),
+                                      (('y', 'x'), 1, 1),
+                                      (('x', 'y'), (1, 2), 1)])
+def test_filter_apply_matches_jax(dims, r, f):
+    jds = _jax_dataset()
+    ref = JNLMeansFilter(dims=dims, r=r, f=f, sigma=2, h=3).apply(jds)
+    got = NLMeansFilter(dims=dims, r=r, f=f, sigma=2, h=3).apply(
+        from_jax_dataset(jds))
+    assert list(got.data_vars) == list(ref.data_vars)
+    for v in ref.data_vars:
+        assert got[v].dims == ref[v].dims
+        np.testing.assert_allclose(got[v].values, ref[v].values, **TOL)

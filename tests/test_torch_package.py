@@ -1,0 +1,112 @@
+"""Package-level contracts of nd_tpu_torch: it imports neither JAX nor
+nd_tpu, the head's parameters load from nd_tpu's, CPU calls never
+launch a kernel, and the data model round-trips nd_tpu's Dataset."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import nd_tpu_torch as ndt
+from nd_tpu_torch import _build
+from nd_tpu_torch.core import Dataset, from_jax_dataset
+from nd_tpu_torch.ops import change_cuda, conv_cuda, nlmeans_cuda
+from torch_cubes import sar_cube
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COUNTED = (conv_cuda, nlmeans_cuda, change_cuda)
+
+
+def test_import_loads_no_jax():
+    code = ('import sys, nd_tpu_torch, nd_tpu_torch.ops.change_cuda, '
+            'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda; '
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "nd_tpu")); print(bad); '
+            'sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_load_params_round_trips_init_params():
+    from nd_tpu.models.pipeline import SARChangePipeline as JPipeline
+    params = {k: np.asarray(v) for k, v in
+              JPipeline().init_params(seed=3).items()}
+    model = ndt.SARChangePipeline().load_params(params)
+    again = ndt.SARChangePipeline().load_params(model.params())
+    for k in params:
+        np.testing.assert_array_equal(again.params()[k], params[k])
+
+
+def test_cpu_calls_leave_launch_counters_at_zero():
+    for mod in COUNTED:
+        mod.reset_launches()
+    cube = torch.from_numpy(sar_cube(12, 14, 12, seed=31, special=False))
+    ndt.SARChangePipeline()(cube)
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                         'C22'))})
+    flt = ndt.NLMeansFilter(dims=('y', 'x'), r=1, f=1, sigma=2,
+                            h=3).apply(ds)
+    ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+    assert [mod.launches for mod in COUNTED] == [0, 0, 0]
+
+
+def test_from_jax_dataset_round_trip():
+    from nd_tpu.core import Dataset as JDataset
+    rng = np.random.RandomState(32)
+    a = rng.rand(4, 5, 3).astype(np.float32)
+    b = rng.rand(4, 5).astype(np.float64)
+    jds = JDataset({'a': (('y', 'x', 'time'), a), 'b': (('y', 'x'), b)},
+                   coords={'time': np.array(['2020-01-01', '2020-01-13',
+                                             '2020-01-25'],
+                                            dtype='datetime64[ns]'),
+                           'x': np.arange(5.0)},
+                   attrs={'crs': 'EPSG:32633'})
+    ds = from_jax_dataset(jds)
+    assert ds.sizes == {'time': 3, 'x': 5, 'y': 4} or \
+        dict(sorted(ds.sizes.items())) == {'time': 3, 'x': 5, 'y': 4}
+    assert ds.attrs == {'crs': 'EPSG:32633'}
+    assert isinstance(ds['a'].data, torch.Tensor)
+    assert ds['a'].dtype == torch.float32 and ds['b'].dtype == torch.float64
+    np.testing.assert_array_equal(ds['a'].values, a)
+    np.testing.assert_array_equal(ds['time'].values, jds['time'].values)
+    arr = ds[['a']].to_array()
+    assert arr.dims == ('variable', 'y', 'x', 'time')
+    back = ndt.utils.expand_variables(arr)
+    np.testing.assert_array_equal(back['a'].values, a)
+    ds['c'] = (('y', 'x'), torch.zeros(4, 5))
+    with pytest.raises(ValueError):
+        ds['d'] = (('y', 'x'), torch.zeros(3, 5))
+    assert ds.transpose('x', 'y')['a'].dims == ('x', 'y', 'time')
+
+
+def test_wrappers_keep_their_signatures_and_docs():
+    import inspect
+    params = inspect.signature(ndt.nlmeans).parameters
+    assert list(params)[:2] == ['ds', 'inplace'] and 'njobs' in params
+    assert 'r' in params and 'sigma' in params
+    assert 'Wrapper for' in ndt.nlmeans.__doc__
+
+
+def test_missing_compiler_raises(tmp_path):
+    # a build failure raises; nothing falls back to the plain version
+    code = ('import os, nd_tpu_torch._build as b; '
+            'b._BUILD_DIR = __import__("pathlib").Path(os.environ["D"]); '
+            'b.library()')
+    env = dict(os.environ, PYTHONPATH=REPO, D=str(tmp_path),
+               ND_TPU_TORCH_NVCC=str(tmp_path / 'no-nvcc'))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert 'no-nvcc' in proc.stderr
+
+
+def test_build_flags():
+    assert '-fmad=false' in _build.NVCC_FLAGS
+    assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
+    assert not any('fast_math' in f for f in _build.NVCC_FLAGS)

@@ -1,0 +1,41 @@
+"""Shared inputs of the nd_tpu_torch parity tests: a seeded S1-style
+covariance cube and the fixture for tests that need a CUDA device."""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; the test skips where there is none (decided when
+    the test runs, not when the module is collected)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def sar_cube(ny, nx, k, seed=0, special=True):
+    """bench-style S1 dual-pol cube (y, x, k, 4) float32 with a
+    backscatter step half-way; with ``special`` also a negative
+    determinant, a NaN pixel and a constant series."""
+    rng = np.random.RandomState(seed)
+    c11 = np.abs(rng.normal(1, .25, (ny, nx, k))) + .3
+    c22 = np.abs(rng.normal(1, .25, (ny, nx, k))) + .3
+    mag = .4 * np.sqrt(c11 * c22) * rng.uniform(0, 1, (ny, nx, k))
+    ph = rng.uniform(0, 2 * np.pi, (ny, nx, k))
+    c11[:, :, k // 2:] *= 2.5
+    c22[:, :, k // 2:] *= 2.5
+    cube = np.stack([c11, mag * np.cos(ph), mag * np.sin(ph), c22], -1)
+    cube = cube.astype(np.float32)
+    if special:
+        cube[0, 0, 1, 1] = 5.0          # negative determinant
+        cube[1, 2, 0, 0] = np.nan
+        cube[2, 3] = cube[2, 3, 0]      # constant series
+    return cube
+
+
+# (y, x, k), alpha, looks: one plane (k=12, the bench's length), two
+# planes (k=40) and a short series; each flags changes
+CASES = [((16, 128, 12), 0.99, 9), ((8, 16, 40), 0.99, 9),
+         ((10, 12, 6), 0.9, 9)]
