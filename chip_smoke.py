@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive nd_tpu_torch's SAR change path once on one CUDA device.
+"""Drive nd_tpu_torch's SAR change paths once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -26,10 +26,37 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   7. every kernel's launch counter rose during phases 4-6;
   8. times from CUDA events (median of 7 after 2 warm-up runs) and
      Mpix/s (y*x*time pixels) of each kernel and its plain version and
-     of phases 4-6, beside the card's name and power limit.
+     of phases 4-6, beside the card's name and power limit;
 
-Before the last line it prints one JSON object with the kernels
-(name, route, source, replaced TPU kernel, launches in phases 4-6,
+and the long-stack path, on a one-year Sentinel-1 stack: 1024 x 1024 x
+56 float32 covariance cube (0.94 GB) with a 5x backscatter step half-way
+and a bursty column (x = 0) whose backscatter alternates every 3 dates:
+
+  9. the long-stack kernels against their plain versions at the path's
+     shapes: the 3-D NLMeans window r=(2,2,1), f=1 (rtol 1e-5, atol
+     1e-6), the long-series scan at k=56 and at k=200 (flags and margins
+     bit-equal), the three-axis sepconv with Gaussian (sigma 1) and
+     boxcar (w 3) taps and the two-axis sepconv on path A's stacked
+     (4, y, x, t) multilook input (max abs diff <= 1e-6 max|x|);
+ 10. path A: ``NLMeansFilter(dims=('y','x','time'), r=(2,2,1), f=1,
+     sigma=2, h=3)`` then ``OmnibusTest(ml=3, alpha=0.99)`` on a Dataset
+     of the stack: NLMeans within the tolerance above of the plain
+     version, the change map with 0 mismatches against the plain float64
+     'mixed' scan of the plainly multilooked filtered data;
+ 11. path B: ``change_detection_exact`` at k=200 on a 256 x 512 stack
+     (0.42 GB): 0 mismatches against the plain 'mixed' scan;
+ 12. path C: ``GaussianFilter(dims=('y','x','time'), sigma=1)`` and
+     ``BoxcarFilter(dims=('y','x','time'), w=3)`` on the stack's C11
+     DataArray, each within 1e-6 max|x| of the plain three-axis pass;
+     the launch counters of every kernel of each path rose in that path
+     (counters reset just before each path and read just after);
+ 13. times: each long-stack kernel and its plain version, the scan
+     kernel beside the round kernel at k=56 on the same input, and
+     paths A, B and C against their plain routes (median of 3 after one
+     warm-up; a plain route that runs for seconds once).
+
+Before the last line it prints one JSON object with every kernel entry
+point (name, route, source, replaced TPU kernel, launches in its paths,
 max abs error, ms and plain ms), then the nvidia-smi line. The last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits non-zero and prints no result.
@@ -45,21 +72,37 @@ import time
 import numpy as np
 
 NY, NX, K = 1024, 1024, 12
+KL = 56                     # one year of Sentinel-1 at a 6-day revisit
+BNY, BNX, BK = 256, 512, 200
 SEED = 0
 DEVICE = 'cuda'
+# entry point -> (source, replaced TPU kernel, counting module, counter)
 KERNELS = {
     'sepconv': ('nd_tpu_torch/csrc/sepconv.cu',
-                'nd_tpu/ops/conv_pallas.py:576'),
+                'nd_tpu/ops/conv_pallas.py:576', 'conv_cuda', 'launches'),
+    'sepconv3': ('nd_tpu_torch/csrc/sepconv.cu',
+                 'nd_tpu/ops/conv_pallas.py:117', 'conv_cuda',
+                 'launches3'),
     'nlmeans': ('nd_tpu_torch/csrc/nlmeans.cu',
-                'nd_tpu/ops/nlmeans_pallas.py:408'),
+                'nd_tpu/ops/nlmeans_pallas.py:408', 'nlmeans_cuda',
+                'launches'),
+    'nlmeans_3d': ('nd_tpu_torch/csrc/nlmeans.cu',
+                   'nd_tpu/ops/nlmeans_pallas.py:568', 'nlmeans_cuda',
+                   'launches_3d'),
     'omnibus': ('nd_tpu_torch/csrc/omnibus.cu',
-                'nd_tpu/ops/change_pallas.py:399'),
+                'nd_tpu/ops/change_pallas.py:399', 'change_cuda',
+                'launches'),
+    'omnibus_scan': ('nd_tpu_torch/csrc/omnibus_scan.cu',
+                     'nd_tpu/ops/change_scan_pallas.py:421',
+                     'change_scan_cuda', 'launches'),
 }
 
 
-def make_cube(ny, nx, k, seed=SEED):
+def make_cube(ny, nx, k, seed=SEED, step=2.5, burst=False):
     """Synthetic S1 dual-pol C2 covariance cube (f32, PSD per pixel) with
-    an abrupt backscatter change half-way through the series."""
+    an abrupt backscatter change (x ``step``) half-way through the
+    series; with ``burst`` the column x = 0 alternates its backscatter
+    between 1 and 5 every 3 dates (many change points)."""
     rng = np.random.RandomState(seed)
     c11 = np.abs(rng.normal(1.0, 0.25, size=(ny, nx, k))) + 0.3
     c22 = np.abs(rng.normal(1.0, 0.25, size=(ny, nx, k))) + 0.3
@@ -67,8 +110,14 @@ def make_cube(ny, nx, k, seed=SEED):
     phase = rng.uniform(0, 2 * np.pi, size=(ny, nx, k))
     c12r = mag * np.cos(phase)
     c12i = mag * np.sin(phase)
-    c11[:, :, k // 2:] *= 2.5
-    c22[:, :, k // 2:] *= 2.5
+    c11[:, :, k // 2:] *= step
+    c22[:, :, k // 2:] *= step
+    if burst:
+        wave = np.where((np.arange(k) // 3) % 2 == 0, 1.0, 5.0)
+        c11[:, 0] = wave
+        c22[:, 0] = wave
+        c12r[:, 0] = 0.05
+        c12i[:, 0] = 0.02
     return np.stack([c11, c12r, c12i, c22], axis=-1).astype(np.float32)
 
 
@@ -94,14 +143,24 @@ def main():
     import nd_tpu_torch as ndt
     from nd_tpu_torch import _build
     from nd_tpu_torch.core import Dataset
-    from nd_tpu_torch.ops import change_cuda, conv_cuda, nlmeans_cuda
+    from nd_tpu_torch.ops import (change_cuda, change_scan_cuda, conv_cuda,
+                                  nlmeans_cuda)
     from nd_tpu_torch.ops.change import (change_detection,
                                          change_detection_exact,
                                          pack_flags)
-    from nd_tpu_torch.ops.conv import _separable_factors
+    from nd_tpu_torch.ops.conv import _separable_factors, gaussian_kernel1d
 
-    counters = {'sepconv': conv_cuda, 'nlmeans': nlmeans_cuda,
-                'omnibus': change_cuda}
+    modules = {'conv_cuda': conv_cuda, 'nlmeans_cuda': nlmeans_cuda,
+               'change_cuda': change_cuda,
+               'change_scan_cuda': change_scan_cuda}
+
+    def reset_counts():
+        for mod in modules.values():
+            mod.reset_launches()
+
+    def read_counts():
+        return {name: getattr(modules[mod], attr)
+                for name, (_, _, mod, attr) in KERNELS.items()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -134,6 +193,7 @@ def main():
 
     # ---- 3. kernels against their plain versions ---------------------------
     err = {name: 0.0 for name in KERNELS}
+    row_ms = {}
     ml_kernel = np.ones((3, 3), np.float32) / 9            # multilook
     ml_taps = _separable_factors(np.flip(ml_kernel))
     box_taps = _separable_factors(np.ones((3, 3)) / 9)     # BoxcarFilter
@@ -201,8 +261,7 @@ def main():
     del small40, flags40, packed40
 
     # ---- 4-6. the main path, counted ------------------------------------------
-    for mod in counters.values():
-        mod.reset_launches()
+    reset_counts()
 
     exact, suspects = change_detection_exact(cube, 0.99, n=9,
                                              margin_eps=1e-4,
@@ -263,8 +322,8 @@ def main():
           'data; %d changes' % (mism, int(change.data.sum())))
 
     # ---- 7. the path went through every kernel ----------------------------------
-    launches = {name: mod.launches for name, mod in counters.items()}
-    check(all(n > 0 for n in launches.values()),
+    launches = read_counts()
+    check(all(launches[n] > 0 for n in ('sepconv', 'nlmeans', 'omnibus')),
           'a kernel of the path was not launched', launches)
     phase(7, 'launches in phases 4-6: %s' % json.dumps(launches))
 
@@ -328,7 +387,6 @@ def main():
                                                 3.0)))),
     ]
 
-    row_ms = {}
     for label, key, kern, plain in timed:
         # plain, kernel, kernel, plain: both see the same card state
         p1 = cuda_ms(plain)
@@ -345,11 +403,259 @@ def main():
     phase(8, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
+    # ---- 9. the long stack: kernels against their plain versions ---------------
+    def once_ms(fn):
+        """One call timed with CUDA events: (result, ms)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    del x_ml, x_stack, fwd, ref, flt, change, stacked, ref_nl, ref_ch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stack = torch.from_numpy(make_cube(NY, NX, KL, seed=SEED + 3, step=5.0,
+                                       burst=True)).to(dev)
+    bcube = torch.from_numpy(make_cube(BNY, BNX, BK, seed=SEED + 2,
+                                       burst=True)).to(dev)
+    torch.cuda.synchronize()
+    phase(9, 'long stack %s (%.2f GB) and path-B stack %s (%.2f GB) on the '
+          'card in %.1f s' % (tuple(stack.shape), stack.numel() * 4e-9,
+                              tuple(bcube.shape), bcube.numel() * 4e-9,
+                              time.perf_counter() - t0))
+
+    r3, f3 = (2, 2, 1), (1, 1, 1)
+    got = nlmeans_cuda.nlmeans_3d(stack, r3, f3, 2.0, 3.0)
+    ref_nl3, nl3_plain_ms = once_ms(
+        lambda: nlmeans_cuda.nlmeans_3d_plain(stack, r3, f3, 2.0, 3.0))
+    diff = (got - ref_nl3).abs()
+    excess = float((diff - (1e-6 + 1e-5 * ref_nl3.abs())).max())
+    check(bool(torch.isfinite(got).all()) and excess <= 0, 'nlmeans_3d',
+          excess)
+    err['nlmeans_3d'] = float(diff.max())
+    phase(9, 'nlmeans_3d r=(2,2,1) f=1 at %s: max abs diff %.3g (rtol 1e-5, '
+          'atol 1e-6 held); plain version once %.1f ms'
+          % (tuple(stack.shape), err['nlmeans_3d'], nl3_plain_ms))
+    del got, diff
+
+    for label, vals in (('k=56 %dx%d' % (NY, NX), stack),
+                        ('k=200 %dx%d' % (BNY, BNX), bcube)):
+        k = vals.shape[2]
+        gp, gm = change_scan_cuda.change_detection_scan(vals, 0.99, n=9,
+                                                        return_packed=True)
+        rp, rm = change_scan_cuda.scan_plain(
+            vals, change_scan_cuda.scan_tables(k, 9, 0.99), 9.0)
+        torch.cuda.synchronize()
+        same_flags = bool((gp == rp).all())
+        same_class = bool(((torch.isnan(gm) == torch.isnan(rm))
+                           & (torch.isposinf(gm) == torch.isposinf(rm))
+                           & (torch.isneginf(gm) == torch.isneginf(rm))).all())
+        fin = torch.isfinite(gm) & torch.isfinite(rm)
+        mdiff = float((gm[fin] - rm[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+        check(same_flags and same_class and mdiff == 0.0, 'omnibus_scan',
+              label, same_flags, same_class, mdiff)
+        err['omnibus_scan'] = max(err['omnibus_scan'], mdiff)
+        phase(9, 'omnibus_scan %s: flags and margins bit-equal to the plain '
+              'version (%d finite margins)' % (label, int(fin.sum())))
+        del gp, gm, rp, rm, fin
+
+    c11v = stack[..., 0].contiguous().reshape(NY, NX, KL, 1)
+    gauss_taps = gaussian_kernel1d(1.0)
+    box3 = _separable_factors(np.ones((3, 3, 3)) / 27)
+    for label, taps in (('gaussian sigma=1', (gauss_taps,) * 3),
+                        ('boxcar w=3', tuple(box3))):
+        got = conv_cuda.sepconv3(c11v, *taps)
+        ref3 = conv_cuda.sepconv3_plain(c11v, *taps)
+        torch.cuda.synchronize()
+        diff = float((got - ref3).abs().max())
+        bound = 1e-6 * float(c11v.abs().max())
+        check(diff <= bound, 'sepconv3', label, diff, bound)
+        err['sepconv3'] = max(err['sepconv3'], diff)
+        phase(9, 'sepconv3 %s at %s: max abs diff %.3g <= %.3g'
+              % (label, tuple(c11v.shape), diff, bound))
+    # path A's multilook: the two-axis kernel on the stacked variables
+    x_stack_l = stack.permute(3, 0, 1, 2).contiguous()     # (4, y, x, t)
+    got = conv_cuda.sepconv2(x_stack_l, box_taps[0], box_taps[1])
+    ref3 = conv_cuda.sepconv2_plain(x_stack_l, box_taps[0], box_taps[1])
+    torch.cuda.synchronize()
+    diff = float((got - ref3).abs().max())
+    bound = 1e-6 * float(x_stack_l.abs().max())
+    check(diff <= bound, 'sepconv path A multilook', diff, bound)
+    err['sepconv'] = max(err['sepconv'], diff)
+    phase(9, 'sepconv (4,y,x,t) boxcar w=3 at %s: max abs diff %.3g <= %.3g'
+          % (tuple(x_stack_l.shape), diff, bound))
+    del got, ref3
+
+    # ---- 10. path A: the long-stack chain, counted ---------------------------------
+    ds_long = Dataset({v: (('y', 'x', 'time'), stack[..., i])
+                       for i, v in enumerate(names)})
+    nlm3 = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1,
+                             sigma=2, h=3)
+    omn3 = ndt.OmnibusTest(ml=3, alpha=0.99)
+    reset_counts()
+    flt3 = nlm3.apply(ds_long)
+    change3 = omn3.apply(flt3)
+    torch.cuda.synchronize()
+    counts_a = read_counts()
+    check(counts_a['nlmeans_3d'] > 0 and counts_a['omnibus_scan'] > 0
+          and counts_a['sepconv'] > 0, 'path A kernels', counts_a)
+    stacked3 = torch.stack([flt3[v].data for v in names], -1)
+    excess = float(((stacked3 - ref_nl3).abs()
+                    - (1e-6 + 1e-5 * ref_nl3.abs())).max())
+    check(excess <= 0, 'path A NLMeans', excess)
+    del stacked3, ref_nl3
+
+    def plain_look(fds):
+        st = torch.stack([fds[v].data for v in names])       # (4, y, x, t)
+        looked = conv_cuda.sepconv2_plain(st, box_taps[0], box_taps[1])
+        return looked.permute(1, 2, 3, 0).contiguous()
+
+    looked3 = plain_look(flt3)
+    mixed3 = change_detection(looked3, 0.99, n=9)
+    mism = int((change3.data != mixed3).sum())
+    check(change3.dims == ('y', 'x', 'time') and change3.data.device.type
+          == 'cuda' and tuple(change3.data.shape) == (NY, NX, KL),
+          'path A change map', change3.dims, change3.data.shape)
+    check(mism == 0, 'path A mismatches', mism)
+    check(float(mixed3.any(-1).float().mean()) > 0.99,
+          'path A: the step is missed')
+    _, suspects_a = change_detection_exact(looked3, 0.99, n=9,
+                                           margin_eps=1e-4,
+                                           return_count=True)
+    phase(10, 'path A (NLMeans 3-D -> OmnibusTest ml=3 alpha=0.99, k=%d): '
+          'NLMeans within rtol 1e-5/atol 1e-6 of plain; %d mismatches vs '
+          'plain f64 mixed scan; %d changes; %d suspects rescanned (%.3f%%); '
+          'launches %s' % (KL, mism, int(mixed3.sum()), suspects_a,
+                           100.0 * suspects_a / (NY * NX),
+                           json.dumps(counts_a)))
+    del flt3, change3, looked3, mixed3
+
+    # ---- 11. path B: exact omnibus at k=200, counted -------------------------------
+    reset_counts()
+    exact_b, suspects_b = change_detection_exact(bcube, 0.99, n=9,
+                                                 margin_eps=1e-4,
+                                                 return_count=True)
+    torch.cuda.synchronize()
+    counts_b = read_counts()
+    check(counts_b['omnibus_scan'] > 0 and counts_b['omnibus'] == 0,
+          'path B kernels', counts_b)
+    mixed_b = change_detection(bcube, 0.99, n=9)
+    mism = int((exact_b != mixed_b).sum())
+    check(mism == 0, 'path B mismatches', mism)
+    check(int(mixed_b[:, 0].sum()) > 2 * BNY, 'path B: no restart churn')
+    phase(11, 'path B (exact omnibus k=%d on %dx%d): %d mismatches vs plain '
+          'f64 mixed scan; %d changes (%d in the bursty column); %d '
+          'suspects rescanned (%.2f%%); launches %s'
+          % (BK, BNY, BNX, mism, int(mixed_b.sum()), int(mixed_b[:, 0].sum()),
+             suspects_b, 100.0 * suspects_b / (BNY * BNX),
+             json.dumps(counts_b)))
+    del exact_b, mixed_b
+
+    # ---- 12. path C: three-axis filters of one variable, counted -------------------
+    c11_da = ds_long['C11']
+    gauss_f = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=1)
+    box_f = ndt.BoxcarFilter(dims=('y', 'x', 'time'), w=3)
+    reset_counts()
+    smooth = gauss_f.apply(c11_da)
+    boxed = box_f.apply(c11_da)
+    torch.cuda.synchronize()
+    counts_c = read_counts()
+    check(counts_c['sepconv3'] >= 2, 'path C kernels', counts_c)
+    bound = 1e-6 * float(c11v.abs().max())
+    for label, out, taps in (('GaussianFilter', smooth, (gauss_taps,) * 3),
+                             ('BoxcarFilter', boxed, tuple(box3))):
+        ref3 = conv_cuda.sepconv3_plain(c11v, *taps).reshape(NY, NX, KL)
+        diff = float((out.data - ref3).abs().max())
+        check(out.dims == ('y', 'x', 'time') and diff <= bound,
+              'path C', label, out.dims, diff, bound)
+        phase(12, 'path C %s(dims=(y,x,time)): max abs diff %.3g <= %.3g vs '
+              'the plain three-axis pass' % (label, diff, bound))
+    phase(12, 'path C launches %s' % json.dumps(counts_c))
+    del smooth, boxed, ref3
+
+    # ---- 13. long-stack times -----------------------------------------------------
+    mpix_l = NY * NX * KL / 1e6
+    mpix_b = BNY * BNX * BK / 1e6
+    cap56 = change_cuda._round_cap(KL)
+    tabs56 = change_scan_cuda.scan_tables(KL, 9, 0.99)
+    tabs200 = change_scan_cuda.scan_tables(BK, 9, 0.99)
+
+    def plain_chain_a():
+        fds = expand_stack(nlmeans_cuda.nlmeans_3d_plain(stack, r3, f3, 2.0,
+                                                         3.0))
+        return change_detection(plain_look(fds), 0.99, n=9)
+
+    def plain_c():
+        conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3)
+        conv_cuda.sepconv3_plain(c11v, *box3)
+
+    long_timed = [
+        # label, key, mpix, kernel route, plain route, plain once
+        ('sepconv3 gaussian (y,x,t)', 'sepconv3', mpix_l,
+         lambda: conv_cuda.sepconv3(c11v, *(gauss_taps,) * 3),
+         lambda: conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3), False),
+        ('sepconv3 boxcar (y,x,t)', None, mpix_l,
+         lambda: conv_cuda.sepconv3(c11v, *box3),
+         lambda: conv_cuda.sepconv3_plain(c11v, *box3), False),
+        ('sepconv (4,y,x,t) k=56', None, mpix_l,
+         lambda: conv_cuda.sepconv2(x_stack_l, *box_taps),
+         lambda: conv_cuda.sepconv2_plain(x_stack_l, *box_taps), False),
+        ('nlmeans_3d r=(2,2,1) f=1', 'nlmeans_3d', mpix_l,
+         lambda: nlmeans_cuda.nlmeans_3d(stack, r3, f3, 2.0, 3.0),
+         lambda: nlmeans_cuda.nlmeans_3d_plain(stack, r3, f3, 2.0, 3.0),
+         True),
+        ('omnibus_scan k=56', 'omnibus_scan', mpix_l,
+         lambda: change_scan_cuda.change_detection_scan(
+             stack, 0.99, n=9, return_packed=True),
+         lambda: change_scan_cuda.scan_plain(stack, tabs56, 9.0), True),
+        ('omnibus round k=56 capped', None, mpix_l,
+         lambda: change_cuda.change_detection_fast(
+             stack, 0.99, n=9, return_margin=True, return_packed=True,
+             max_rounds=cap56), None, False),
+        ('omnibus_scan k=200', None, mpix_b,
+         lambda: change_scan_cuda.change_detection_scan(
+             bcube, 0.99, n=9, return_packed=True),
+         lambda: change_scan_cuda.scan_plain(bcube, tabs200, 9.0), True),
+        ('path A long-stack chain', None, mpix_l,
+         lambda: omn3.apply(nlm3.apply(ds_long)), plain_chain_a, True),
+        ('path B exact k=200', None, mpix_b,
+         lambda: change_detection_exact(bcube, 0.99, n=9, margin_eps=1e-4),
+         lambda: change_detection(bcube, 0.99, n=9), True),
+        ('path C Gaussian + boxcar', None, mpix_l,
+         lambda: (gauss_f.apply(c11_da), box_f.apply(c11_da)), plain_c,
+         False),
+    ]
+    for label, key, mp, kern, plain, slow in long_timed:
+        reps, warm = (3, 1) if slow else (7, 2)
+        if plain is None:
+            k_ms, p_ms = cuda_ms(kern, reps, warm), float('nan')
+        else:
+            p1 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps, warm)
+            k1 = cuda_ms(kern, reps, warm)
+            k2 = cuda_ms(kern, reps, warm)
+            p2 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps, warm)
+            k_ms, p_ms = min(k1, k2), min(p1, p2)
+        if key:
+            row_ms[key] = (k_ms, p_ms)
+        phase(13, '%-28s kernel %9.3f ms %9.1f Mpix/s | plain %9.3f ms '
+              '%9.1f Mpix/s | x%.2f | %s' % (label, k_ms, mp / k_ms * 1e3,
+                                             p_ms, mp / p_ms * 1e3,
+                                             p_ms / k_ms, card))
+    phase(13, 'peak device memory %.2f GiB | %s'
+          % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
+
+    totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
+                                          counts_c))
+              for name in KERNELS}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
-                'replaces': tpu, 'launches': launches[name],
+                'replaces': tpu, 'launches': totals[name],
                 'max_abs_err': err[name], 'ms': row_ms[name][0],
                 'plain_ms': row_ms[name][1]}
-               for name, (src, tpu) in KERNELS.items()]
+               for name, (src, tpu, _, _) in KERNELS.items()]
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

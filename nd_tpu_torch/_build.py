@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) and the objects are linked into ONE shared library
 with a plain C interface, loaded with :mod:`ctypes`. The library is
 built at first use into ``nd_tpu_torch/.build/`` (listed in
-``.gitignore``) and rebuilt whenever a source or a flag changes: its
-file name carries a hash of both. A failed build or load raises.
+``.gitignore``) and rebuilt whenever a source, a shared header
+(``csrc/*.cuh``) or a flag changes: its file name carries a hash of
+all of them. A failed build or load raises.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, no
 ``--use_fast_math`` and ``-fmad=false``: multiply-adds are not
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -34,8 +37,7 @@ _CSRC = _PKG / 'csrc'
 _BUILD_DIR = _PKG / '.build'
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
-              '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _lib = None
@@ -66,11 +68,42 @@ def _sources():
 
 def _digest(srcs):
     h = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + sorted(_CSRC.glob('*.cuh')):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _compile_and_link(srcs, target):
+    """One nvcc per source, all started together, then one link; the
+    objects and the unlinked library live in a scratch directory under
+    ``.build/`` that goes away whether the build succeeds or fails.
+    Returns nvcc's output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+        work = Path(work)
+        objs = [work / (s.stem + '.o') for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed (exit %d):\n%s\n%s'
+                                   % (proc.returncode, ' '.join(cmd), out))
+        tmp = work / target.name
+        link = [nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                *[str(o) for o in objs]]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc link failed (exit %d):\n%s\n%s'
+                               % (proc.returncode, ' '.join(link),
+                                  proc.stdout + proc.stderr))
+        os.replace(tmp, target)
+    return ''.join(outs)
 
 
 def library():
@@ -86,15 +119,7 @@ def library():
         built = False
         if not target.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix('.%d.tmp' % os.getpid())
-            cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-                   *[str(s) for s in srcs]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError('nvcc failed (exit %d):\n%s\n%s'
-                                   % (proc.returncode, ' '.join(cmd), log))
-            os.replace(tmp, target)
+            log = _compile_and_link(srcs, target)
             built = True
         _lib = ctypes.CDLL(str(target))
         _info.update(path=str(target), built=built, log=log,

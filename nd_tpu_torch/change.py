@@ -1,10 +1,13 @@
 """Time-series change detection on SAR covariance datacubes.
 
 Counterpart of ``nd_tpu/change.py``: ``OmnibusTest`` and the ``omnibus``
-functional wrapper. The scan is the exact mode of
-``ops.change.change_detection_exact``: the fused float32 kernel plus a
-float64 rescan of the near-margin pixels, so the change map equals the
-float64 'mixed' decisions. The result stays on the input's device.
+functional wrapper. Where a kernel serves the series length
+(``ops.change_cuda.supports_rescan``: the round kernel up to 48 steps,
+the sequential scan up to 256 with feasible thresholds) the scan is the
+exact mode of ``ops.change.change_detection_exact``: a float32 kernel
+plus a float64 rescan of the near-margin pixels. Otherwise it is the
+float64 'mixed' scan of the whole grid. Either way the change map equals
+the float64 'mixed' decisions. The result stays on the input's device.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ def _omnibus_change_detection(ds, alpha=0.01, ml=None, n=1):
         n = ml ** 2
     da = ds_m[['C11', 'C12__re', 'C12__im', 'C22']].to_array()
     values = da.transpose('y', 'x', 'time', 'variable').data
+    # change_detection_exact takes the route (kernel + rescan, or the
+    # whole-grid 'mixed' scan) from (k, n, alpha) before any launch
     change = change_detection_exact(values.contiguous(), float(alpha),
                                     n=int(n), margin_eps=MARGIN_EPS)
     out = DataArray(change, dims=('y', 'x', 'time'), attrs=dict(ds.attrs),

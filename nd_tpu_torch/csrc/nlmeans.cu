@@ -1,27 +1,31 @@
-// Spatial non-local means over a (ny, nx, nt, nv) cube, joint over the
-// nv variables.
+// Non-local means over a (n0, n1, n2, nv) cube, joint over the nv
+// variables, with a search window and a patch over any of the three axes.
 //
 // Replaces: nd_tpu/ops/nlmeans_pallas.py _nlmeans_padless and
-// _nlmeans_rowfused (their shared body _kernel). One kernel takes any
-// ny, nx, nt, nv: the numpy 'reflect' boundary (the edge sample is
-// excluded) is rebuilt by index mapping, so no padded copy is written.
+// _nlmeans_rowfused (spatial windows, r2 = f2 = 0) and the tiled branch of
+// nlmeans_pallas (temporal or full 3-D windows); all three share the body
+// _kernel. One kernel takes any shape: the numpy 'reflect' boundary (the
+// edge sample is excluded) is rebuilt by index mapping on every axis, the
+// third (time) axis included, so no padded copy is written. Axes 0 and 1
+// are y and x; axis 2 is time, batched when r2 = f2 = 0.
 //
 // Bound on the H100: arithmetic and L1 traffic, not device memory. Each
-// output pixel evaluates (2ry+1)(2rx+1)-1 offsets, each a patch distance
-// over (2fy+1)(2fx+1) pixels times nv variables (two loads, a subtract
-// and a multiply-add each), then one expf. At r=2/f=2 that is 2400
-// squared differences per pixel and time step, read from L1/L2; device
-// memory sees one read and one write of the cube. This first kernel runs
-// one thread per output (y, x, t) and keeps the weight sums and the nv
-// accumulators in registers (nv <= 4; wider stacks accumulate in the
-// output row). Pair symmetry (one patch distance for each +-offset pair)
-// and shared-memory tiles are later work.
+// output evaluates (2r0+1)(2r1+1)(2r2+1)-1 offsets, each a patch distance
+// over (2f0+1)(2f1+1)(2f2+1) pixels times nv variables (two loads, a
+// subtract and a multiply-add each), then one expf. At r=2/f=2 spatial
+// that is 2400 squared differences per output; at r=(2,2,1)/f=1 with 4
+// variables about 8000. Device memory sees one read and one write of the
+// cube. This first kernel runs one thread per output (y, x, t) and keeps
+// the weight sums and the nv accumulators in registers (nv <= 4; wider
+// stacks accumulate in the output row). Pair symmetry (one patch distance
+// for each +-offset pair) and shared-memory tiles are later work.
 //
 // Numerics: weight exp(-max(dsq/dsq_norm - 2 sigma^2, 0) / h^2) with
-// dsq_norm = nv (2fy+1)(2fx+1); self-weight wmax (1 where wmax == 0) or
-// the n_eff solution. Built with -fmad=false, so the products and sums
-// round separately, as in the plain PyTorch version; the patch sum runs
-// in another order than there, which the stated tolerance covers.
+// dsq_norm = nv (2f0+1)(2f1+1)(2f2+1); self-weight wmax (1 where
+// wmax == 0) or the n_eff solution. Offsets and patch pixels are visited
+// in row-major (axis 0, 1, 2) order, as in the plain PyTorch version.
+// Built with -fmad=false, so products and sums round separately; the
+// stated tolerance covers the exp implementation.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +48,7 @@ __device__ __forceinline__ double exp_t<double>(double x) { return exp(x); }
 template <typename T>
 struct Params {
   int ny, nx, nt, nv;
-  int ry, rx, fy, fx;
+  int ry, rx, rt, fy, fx, ft;
   T dsq_norm, two_sigma2, inv_h2, n_eff;
   int use_neff;
 };
@@ -65,7 +69,6 @@ __global__ void nlmeans_kernel(const T* __restrict__ in, T* __restrict__ out,
     const long long rest = idx / p.nt;
     const int x = (int)(rest % p.nx);
     const int y = (int)(rest / p.nx);
-    const T* tb = in + (long long)t * nv;
     T* o = out + idx * nv;
     T acc[NV > 0 ? NV : 1];
     if (NV > 0) {
@@ -76,37 +79,44 @@ __global__ void nlmeans_kernel(const T* __restrict__ in, T* __restrict__ out,
     T wsum = T(0), wsq = T(0), wmax = T(0);
     for (int dy = -p.ry; dy <= p.ry; ++dy) {
       for (int dx = -p.rx; dx <= p.rx; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        T dsq = T(0);
-        for (int py = -p.fy; py <= p.fy; ++py) {
-          const T* r1 = tb + reflect(y + py, p.ny) * sy;
-          const T* r2 = tb + reflect(y + dy + py, p.ny) * sy;
-          for (int px = -p.fx; px <= p.fx; ++px) {
-            const T* a = r1 + reflect(x + px, p.nx) * sx;
-            const T* b = r2 + reflect(x + dx + px, p.nx) * sx;
-            T sq = T(0);
-            for (int v = 0; v < nv; ++v) {
-              const T d = a[v] - b[v];
-              sq = sq + d * d;
+        for (int dt = -p.rt; dt <= p.rt; ++dt) {
+          if (dy == 0 && dx == 0 && dt == 0) continue;
+          T dsq = T(0);
+          for (int py = -p.fy; py <= p.fy; ++py) {
+            const T* r1 = in + reflect(y + py, p.ny) * sy;
+            const T* r2 = in + reflect(y + dy + py, p.ny) * sy;
+            for (int px = -p.fx; px <= p.fx; ++px) {
+              const T* c1 = r1 + reflect(x + px, p.nx) * sx;
+              const T* c2 = r2 + reflect(x + dx + px, p.nx) * sx;
+              for (int pt = -p.ft; pt <= p.ft; ++pt) {
+                const T* a = c1 + (long long)reflect(t + pt, p.nt) * nv;
+                const T* b = c2 + (long long)reflect(t + dt + pt, p.nt) * nv;
+                T sq = T(0);
+                for (int v = 0; v < nv; ++v) {
+                  const T d = a[v] - b[v];
+                  sq = sq + d * d;
+                }
+                dsq = dsq + sq;
+              }
             }
-            dsq = dsq + sq;
           }
-        }
-        T g = dsq / p.dsq_norm - p.two_sigma2;
-        g = g > T(0) ? g : T(0);
-        const T w = exp_t<T>(-g * p.inv_h2);
-        wsum = wsum + w;
-        if (p.use_neff) {
-          wsq = wsq + w * w;
-        } else {
-          wmax = w > wmax ? w : wmax;
-        }
-        const T* val = tb + reflect(y + dy, p.ny) * sy
-                          + reflect(x + dx, p.nx) * sx;
-        if (NV > 0) {
-          for (int v = 0; v < NV; ++v) acc[v] = acc[v] + w * val[v];
-        } else {
-          for (int v = 0; v < nv; ++v) o[v] = o[v] + w * val[v];
+          T g = dsq / p.dsq_norm - p.two_sigma2;
+          g = g > T(0) ? g : T(0);
+          const T w = exp_t<T>(-g * p.inv_h2);
+          wsum = wsum + w;
+          if (p.use_neff) {
+            wsq = wsq + w * w;
+          } else {
+            wmax = w > wmax ? w : wmax;
+          }
+          const T* val = in + reflect(y + dy, p.ny) * sy
+                            + reflect(x + dx, p.nx) * sx
+                            + (long long)reflect(t + dt, p.nt) * nv;
+          if (NV > 0) {
+            for (int v = 0; v < NV; ++v) acc[v] = acc[v] + w * val[v];
+          } else {
+            for (int v = 0; v < nv; ++v) o[v] = o[v] + w * val[v];
+          }
         }
       }
     }
@@ -119,7 +129,7 @@ __global__ void nlmeans_kernel(const T* __restrict__ in, T* __restrict__ out,
       w_self = wmax == T(0) ? T(1) : wmax;
     }
     const T total_w = wsum + w_self;
-    const T* center = tb + y * sy + x * sx;
+    const T* center = in + y * sy + x * sx + (long long)t * nv;
     if (NV > 0) {
       for (int v = 0; v < NV; ++v)
         o[v] = (acc[v] + w_self * center[v]) / total_w;
@@ -132,14 +142,14 @@ __global__ void nlmeans_kernel(const T* __restrict__ in, T* __restrict__ out,
 
 template <typename T>
 int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
-           int rx, int fy, int fx, double sigma, double h, double n_eff,
-           void* stream) {
+           int rx, int rt, int fy, int fx, int ft, double sigma, double h,
+           double n_eff, void* stream) {
   const long long total = (long long)ny * nx * nt;
   if (total == 0 || nv == 0) return 0;
   Params<T> p;
   p.ny = ny; p.nx = nx; p.nt = nt; p.nv = nv;
-  p.ry = ry; p.rx = rx; p.fy = fy; p.fx = fx;
-  p.dsq_norm = T((double)nv * (2 * fy + 1) * (2 * fx + 1));
+  p.ry = ry; p.rx = rx; p.rt = rt; p.fy = fy; p.fx = fx; p.ft = ft;
+  p.dsq_norm = T((double)nv * (2 * fy + 1) * (2 * fx + 1) * (2 * ft + 1));
   p.two_sigma2 = T(2.0 * (sigma * sigma));
   p.inv_h2 = T(1.0 / (h * h));
   p.n_eff = T(n_eff);
@@ -165,17 +175,17 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
 extern "C" {
 
 int nd_nlmeans_f32(const void* in, void* out, int ny, int nx, int nt, int nv,
-                   int ry, int rx, int fy, int fx, double sigma, double h,
-                   double n_eff, void* stream) {
-  return launch<float>(in, out, ny, nx, nt, nv, ry, rx, fy, fx, sigma, h,
-                       n_eff, stream);
+                   int ry, int rx, int rt, int fy, int fx, int ft,
+                   double sigma, double h, double n_eff, void* stream) {
+  return launch<float>(in, out, ny, nx, nt, nv, ry, rx, rt, fy, fx, ft, sigma,
+                       h, n_eff, stream);
 }
 
 int nd_nlmeans_f64(const void* in, void* out, int ny, int nx, int nt, int nv,
-                   int ry, int rx, int fy, int fx, double sigma, double h,
-                   double n_eff, void* stream) {
-  return launch<double>(in, out, ny, nx, nt, nv, ry, rx, fy, fx, sigma, h,
-                        n_eff, stream);
+                   int ry, int rx, int rt, int fy, int fx, int ft,
+                   double sigma, double h, double n_eff, void* stream) {
+  return launch<double>(in, out, ny, nx, nt, nv, ry, rx, rt, fy, fx, ft,
+                        sigma, h, n_eff, stream);
 }
 
 }  // extern "C"

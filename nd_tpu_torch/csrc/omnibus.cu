@@ -21,7 +21,7 @@
 // the anchor l, the folded per-length immediates C(j) and S(j) computed
 // on the host in float64, first hit by minimum, and the max_rounds cap
 // with still-active pixels given margin -inf. _mlog is ported as
-// mlog() below, so the calibrated 1e-5-per-log and 64*1.2e-7
+// mlog() in mlog.cuh, so the calibrated 1e-5-per-log and 64*1.2e-7
 // conditioning terms of the margin bound keep their meaning. FMA policy:
 // built with -fmad=false, so every product and sum rounds separately, as
 // in the plain PyTorch version and in the TPU kernel the bound was
@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 #include <cmath>
+
+#include "mlog.cuh"
 
 namespace {
 
@@ -38,29 +40,6 @@ struct Tables {
   float c[kMaxK + 1];  // folded thresholds C(j); -inf: never hits
   float s[kMaxK + 1];  // margin scale S(j)
 };
-
-// Accurate f32 natural log: x = m * 2^e with m centred in
-// [sqrt(1/2), sqrt(2)), ln m = 2 atanh(t), t = (m-1)/(m+1), with a short
-// odd polynomial (about 1 ulp). Non-normal inputs defer to logf.
-__device__ __forceinline__ float mlog(float x) {
-  const int xi = __float_as_int(x);
-  const int e = (int)((unsigned)xi >> 23) - 127;
-  float m = __int_as_float((xi & 0x007fffff) | 0x3f800000);
-  const bool big = m > 1.4142135f;
-  m = big ? m * 0.5f : m;
-  const float ef = (float)(e + (big ? 1 : 0));
-  const float t = (m - 1.0f) / (m + 1.0f);
-  const float t2 = t * t;
-  float p = (float)(1.0 / 9.0);
-  p = p * t2 + (float)(1.0 / 7.0);
-  p = p * t2 + (float)(1.0 / 5.0);
-  p = p * t2 + (float)(1.0 / 3.0);
-  p = p * t2 + 1.0f;
-  const float res = ef * 0.693359375f
-                    + (2.0f * t * p + ef * (float)(-2.121944400546905e-04));
-  const bool normal = x >= 1.17549435e-38f && x < INFINITY;
-  return normal ? res : logf(x);
-}
 
 __global__ void omnibus_kernel(const float* __restrict__ values,
                                int* __restrict__ packed,

@@ -1,11 +1,11 @@
 """Noise-reduction filters over arbitrary dimension subsets.
 
 Counterpart of ``nd_tpu/filters.py``: the ``Filter`` base,
-``ConvolutionFilter`` (separable kernels), ``BoxcarFilter`` and
-``NLMeansFilter`` with the functional wrappers ``convolution``,
-``boxcar`` and ``nlmeans``. Tensors stay on the device the caller put
-them on; ``GaussianFilter`` and the ``ds.filter`` accessor are still to
-be ported.
+``ConvolutionFilter`` (separable kernels), ``BoxcarFilter``,
+``GaussianFilter`` and ``NLMeansFilter`` with the functional wrappers
+``convolution``, ``boxcar``, ``gaussian`` and ``nlmeans``. Tensors stay
+on the device the caller put them on; the ``ds.filter`` accessor is
+still to be ported.
 """
 
 from __future__ import annotations
@@ -20,11 +20,13 @@ from .core import DataArray
 from .core.variable import Variable
 from .io import disassemble_complex
 from .ops.conv import convolve as _convolve
+from .ops.conv import gaussian_kernel1d, separable_convolve
 from .ops.nlmeans import nlmeans as _nlmeans
 from .utils import expand_variables, get_vars_for_dims, is_complex
 
 __all__ = ['Filter', 'ConvolutionFilter', 'convolution', 'BoxcarFilter',
-           'boxcar', 'NLMeansFilter', 'nlmeans']
+           'boxcar', 'GaussianFilter', 'gaussian', 'NLMeansFilter',
+           'nlmeans']
 
 
 class Filter(Algorithm):
@@ -213,6 +215,52 @@ class BoxcarFilter(ConvolutionFilter):
 
 
 boxcar = wrap_algorithm(BoxcarFilter, 'boxcar')
+
+
+class GaussianFilter(Filter):
+    """A Gaussian filter (separable convolutions).
+
+    Parameters
+    ----------
+    dims : tuple of str, optional
+        The dimensions along which to apply the Gaussian filtering
+        (default: ('y', 'x')).
+    sigma : float or sequence of float
+        Standard deviation for the Gaussian kernel, per dimension if a
+        sequence.
+    kwargs : dict, optional
+        ``truncate`` (default 4.0), ``mode``, ``cval`` with scipy
+        semantics.
+
+    Returns
+    -------
+    Dataset
+        The filtered dataset.
+    """
+
+    def __init__(self, dims=('y', 'x'), sigma=1, **kwargs):
+        if isinstance(sigma, (int, float)):
+            sigma = [sigma] * len(dims)
+        self.dims = tuple(dims)
+        self.sigma = list(sigma)
+        self.kwargs = kwargs
+
+    def _buffer(self, dim):
+        """Halo: the truncated kernel radius (4 sigma by default)."""
+        if dim not in self.dims:
+            return 0
+        sigma = self.sigma[self.dims.index(dim)]
+        return int(self.kwargs.get('truncate', 4.0) * sigma + 0.5)
+
+    def _filter(self, arr, axes):
+        truncate = self.kwargs.get('truncate', 4.0)
+        kernels = [gaussian_kernel1d(s, truncate) for s in self.sigma]
+        return separable_convolve(arr, kernels, axes,
+                                  self.kwargs.get('mode', 'reflect'),
+                                  self.kwargs.get('cval', 0.0))
+
+
+gaussian = wrap_algorithm(GaussianFilter, 'gaussian')
 
 
 class NLMeansFilter(Filter):

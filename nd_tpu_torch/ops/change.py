@@ -13,11 +13,14 @@ Two routes:
     'mixed' (channel sums in the input precision, determinant/log/
     decision in float64 — the exact reference decisions), float32 or
     float64 statistics;
-  - :func:`change_detection_exact`: the fused float32 ``omnibus`` kernel
-    (``ops/change_cuda.py``) reports each pixel's decision margin; the
-    pixels whose margin is not above ``margin_eps`` (NaN included) are
-    rescanned with the float64 'mixed' scan and patched in. The
-    decisions equal the 'mixed' scan's.
+  - :func:`change_detection_exact`: a float32 kernel reports each
+    pixel's decision margin — the round kernel ``omnibus``
+    (``ops/change_cuda.py``) for k <= 48, the sequential scan
+    ``omnibus_scan`` (``ops/change_scan_cuda.py``) for 48 < k <= 256;
+    the pixels whose margin is not above ``margin_eps`` (NaN included)
+    are rescanned with the float64 'mixed' scan and patched in. Longer
+    series take the 'mixed' scan whole. The decisions equal the 'mixed'
+    scan's.
 """
 
 from __future__ import annotations
@@ -227,13 +230,21 @@ def pack_flags(flags):
 
 
 def _exact_packed(values, alpha, n, margin_eps):
-    """Fast kernel pass + float64 'mixed' rescan of the suspect pixels.
-    Returns the (P, y, x) int32 packed planes and the suspect count."""
-    from .change_cuda import _round_cap, change_detection_fast
+    """Kernel pass with margins + float64 'mixed' rescan of the suspect
+    pixels. Series up to ``K_MAX`` take the round kernel with the round
+    cap, longer ones the sequential scan (no rounds, polynomial interior
+    thresholds whose fit error rides the margins). Returns the (P, y, x)
+    int32 packed planes and the suspect count."""
+    from .change_cuda import K_MAX, _round_cap, change_detection_fast
     ny, nx, k, _ = values.shape
-    packed, margin = change_detection_fast(
-        values, alpha, n=n, return_margin=True, return_packed=True,
-        max_rounds=_round_cap(k))
+    if k <= K_MAX:
+        packed, margin = change_detection_fast(
+            values, alpha, n=n, return_margin=True, return_packed=True,
+            max_rounds=_round_cap(k))
+    else:
+        from .change_scan_cuda import change_detection_scan
+        packed, margin = change_detection_scan(values, alpha, n=n,
+                                               return_packed=True)
     suspect = ~(margin > margin_eps)                  # NaN-inclusive
     idx = torch.nonzero(suspect.reshape(-1)).squeeze(1)
     count = int(idx.numel())
@@ -249,18 +260,25 @@ def _exact_packed(values, alpha, n, margin_eps):
 def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
                            return_count=False):
     """Exact change detection: the decisions of ``change_detection(...,
-    stat_dtype='mixed')`` at about the fast kernel's cost.
+    stat_dtype='mixed')`` at about the kernels' cost.
 
-    The fused float32 kernel reports each pixel's smallest relative
-    decision margin, already net of a conservative f32 error bound
-    (determinant conditioning with a 64x safety factor on unit
-    roundoff, plus 1e-5 per log evaluation); the kernel caps the restart
-    rounds at ``max(4, k // 4)`` and gives still-active pixels margin
-    -inf. Pixels whose margin is not above ``margin_eps`` — the only
+    A kernel reports each pixel's smallest relative decision margin,
+    already net of a conservative f32 error bound (determinant
+    conditioning with a 64x safety factor on unit roundoff, plus 1e-5
+    per log evaluation, plus the long-series scan's threshold fit
+    error). Series of up to 48 steps take the round kernel, which caps
+    the restart rounds at ``max(4, k // 4)`` and gives still-active
+    pixels margin -inf; series of 49 to 256 steps take the sequential
+    scan. Pixels whose margin is not above ``margin_eps`` — the only
     ones whose f32 decisions could differ from float64, NaN included —
     are gathered with ``torch.nonzero``, rescanned with the float64
     'mixed' scan (reading the input in its own dtype), bit-packed and
     scattered back.
+
+    Series longer than 256 steps, and (n, alpha) whose folded scan
+    thresholds are infeasible, take the full-grid float64 'mixed' scan
+    instead (``change_cuda.supports_rescan``), as the reference does;
+    every pixel then counts as rescanned.
 
     This is the logic of the reference's ``change_detection_exact`` and
     ``change_detection_hybrid`` alike. Every suspect is rescanned: their
@@ -271,10 +289,14 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     Returns a (y, x, time) bool tensor on ``values``' device (and the
     suspect count with ``return_count``).
     """
-    from .change_cuda import unpack_flags
+    from .change_cuda import supports_rescan, unpack_flags
     values = torch.as_tensor(values)
     if not values.is_floating_point():
         values = values.to(torch.float32)
+    ny, nx, k, _ = values.shape
+    if not supports_rescan(k, n, alpha):
+        flags = change_detection(values, alpha, n=n, stat_dtype='mixed')
+        return (flags, ny * nx) if return_count else flags
     packed, count = _exact_packed(values, alpha, n, margin_eps)
-    flags = unpack_flags(packed, values.shape[2])
+    flags = unpack_flags(packed, k)
     return (flags, count) if return_count else flags

@@ -25,9 +25,15 @@ from .. import _build
 from .change import _P, omnibus_rho, omnibus_thresholds
 
 __all__ = ['change_detection_fast', 'omnibus_plain', 'unpack_flags',
-           'omnibus_tables', 'MAX_K', 'launches']
+           'omnibus_tables', 'supports_rescan', 'MAX_K', 'K_MAX',
+           'K_RESCAN_MAX', 'launches']
 
 MAX_K = 256            # kMaxK in csrc/omnibus.cu
+# Series lengths the exact mode sends to the round kernel; longer ones
+# take the sequential scan (ops/change_scan_cuda.py) up to K_RESCAN_MAX
+# (its kMaxK), and the float64 'mixed' scan beyond.
+K_MAX = 48
+K_RESCAN_MAX = 256
 
 launches = 0           # kernel launches since import (or reset)
 
@@ -43,6 +49,21 @@ def _round_cap(k):
     one still active at the cap gets margin -inf and its full row is
     rescanned exactly."""
     return min(k - 1, max(4, k // 4))
+
+
+def supports_rescan(k, n, alpha):
+    """True when a kernel serves the exact mode at series length ``k``:
+    the round kernel for k <= ``K_MAX``, the sequential scan for
+    ``K_MAX`` < k <= ``K_RESCAN_MAX`` when its folded threshold tables
+    are feasible for (n, alpha) (the tables are cached). Otherwise the
+    caller takes the float64 'mixed' scan: a choice made from the
+    parameters before any launch."""
+    if k > K_RESCAN_MAX:
+        return False
+    if k > K_MAX:
+        from .change_scan_cuda import scan_tables
+        return scan_tables(int(k), int(n), float(alpha)) is not None
+    return True
 
 
 def omnibus_tables(k, n, alpha):

@@ -10,8 +10,12 @@ Counterpart of ``nd_tpu/ops/conv.py``:
   - arbitrary subsets of axes are filtered; all other axes are batched.
 
 Separable (rank-1) kernels run as 1-d tap passes through the
-``sepconv`` kernel (``ops/conv_cuda.py``), which fuses two adjacent axes
-into one pass. Non-separable kernels are not ported yet.
+``sepconv`` kernels (``ops/conv_cuda.py``): a float32 filter over the
+axes {0, 1, 2} — a single-variable (y, x, time) stack — takes the
+three-axis kernel in one pass (time first, as the reference's fused TPU
+route does); otherwise the passes run in axis order, two adjacent axes
+per launch. Non-separable kernels
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['convolve', 'gaussian_kernel1d', 'pad_reflect']
+__all__ = ['convolve', 'separable_convolve', 'gaussian_kernel1d',
+           'pad_reflect']
+
+# Taps per axis the fused three-axis route admits (the reference's
+# conv_pallas._MAX_TAPS); longer kernels take the sequential passes.
+FUSED_MAX_TAPS = 16
 
 _SCIPY_TO_NP_PAD = {
     'reflect': 'symmetric',   # scipy.ndimage 'reflect' repeats the edge
@@ -155,6 +164,37 @@ def _sep_pass(arr, ax, taps0, taps1, mode, cval):
     return out.reshape(shape)
 
 
+def _fused_three_axis(arr, pairs, mode, cval):
+    """The reference's fused route (``try_fused_separable``) in its
+    three-axis case: taps over exactly the axes {0, 1, 2}, at most
+    ``FUSED_MAX_TAPS`` each. ``pairs`` are (axis, FLIPPED taps). Returns
+    the result, or None for the passes in axis order (a two-axis filter
+    keeps the two-axis kernel, whose y-then-x order the passes share)."""
+    from .conv_cuda import sepconv3
+    if arr.ndim < 3 or arr.numel() == 0:
+        return None
+    active = []
+    scale = 1.0   # length-1 factors carry a uniform kernel's scale
+    for ax, t in pairs:
+        t = np.asarray(t, np.float64)
+        if t.shape[0] > 1:
+            active.append((int(ax), t))
+        else:
+            scale *= float(t[0])
+    if sorted(ax for ax, _ in active) != [0, 1, 2] \
+            or any(len(t) > FUSED_MAX_TAPS for _, t in active) \
+            or any(len(t) // 2 > arr.shape[ax] for ax, t in active):
+        return None
+    if scale != 1.0:
+        active[0] = (active[0][0], active[0][1] * scale)
+    taps = dict(active)
+    shape = arr.shape
+    view = shape[:3] + (int(np.prod(shape[3:], dtype=np.int64)),)
+    out = sepconv3(arr.contiguous().reshape(view), taps[0], taps[1],
+                   taps[2], mode=mode, cval=cval)
+    return out.reshape(shape)
+
+
 def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
     """Convolve ``arr`` with a separable ``kernel`` along ``axes``.
 
@@ -200,9 +240,13 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
             'separable kernels over %d taps per axis are not ported yet '
             '(ROADMAP item 8)' % MAX_TAPS)
 
+    passes = list(zip(axes, factors))
+    if arr.dtype == torch.float32:
+        fused = _fused_three_axis(arr, passes, mode, cval)
+        if fused is not None:
+            return fused
     np_dtype = np.dtype(str(arr.dtype).replace('torch.', ''))
     cv = np_dtype.type(cval)
-    passes = list(zip(axes, factors))
     out = arr
     i = 0
     while i < len(passes):
@@ -222,6 +266,32 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
             out = _sep_pass(out, ax, fac, None, mode, float(cv))
             cv = _const_pass(cv, fac, np_dtype)
             i += 1
+    return out
+
+
+def separable_convolve(arr, kernels, axes, mode='reflect', cval=0.0):
+    """Apply a sequence of 1-d kernels along the given axes (scipy
+    ``convolve1d`` semantics per axis).
+
+    A float32 tensor filtered over the axes {0, 1, 2} takes the fused
+    three-axis kernel (time first), unless the mode is 'constant' with
+    cval != 0: there each stage re-pads with cval, which only sequential
+    passes give. Otherwise one ``convolve`` per axis, in the given
+    order.
+    """
+    arr = torch.as_tensor(arr)
+    active = [(int(ax) % arr.ndim, np.asarray(k, np.float64))
+              for ax, k in zip(axes, kernels) if np.shape(k)[0] > 1]
+    if not active:
+        return arr
+    if arr.dtype == torch.float32 and (mode != 'constant' or cval == 0.0):
+        fused = _fused_three_axis(
+            arr, [(ax, np.flip(k)) for ax, k in active], mode, cval)
+        if fused is not None:
+            return fused
+    out = arr
+    for ax, k in active:
+        out = convolve(out, k, axes=(ax,), mode=mode, cval=cval)
     return out
 
 

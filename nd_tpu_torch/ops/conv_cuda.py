@@ -1,16 +1,24 @@
-"""Separable VALID correlation over two adjacent axes: the ``sepconv``
-CUDA kernel (``csrc/sepconv.cu``) and its plain PyTorch version.
+"""Separable VALID correlation over two or three adjacent axes: the
+``sepconv`` CUDA kernels (``csrc/sepconv.cu``) and their plain PyTorch
+versions.
 
-Replaces ``nd_tpu/ops/conv_pallas.py``: ``padless_convolve``,
-``rowfused_convolve`` and the two-axis case of
-``separable_convolve_pallas``. On the H100 the kernel is bound by
-device-memory bytes (one read and one write per element); it rebuilds
-the boundary by index mapping instead of writing a padded copy, and
-reads each input element from L1/L2 for the k0*k1 windows that share
-it. See the source for the design.
+  - ``sepconv2``: two axes of an ``(outer, n0, n1, inner)`` view.
+    Replaces ``nd_tpu/ops/conv_pallas.py`` ``padless_convolve``,
+    ``rowfused_convolve`` and the two-axis case of
+    ``separable_convolve_pallas``.
+  - ``sepconv3``: three axes of an ``(n0, n1, n2, inner)`` view, n2
+    (time) first, then n0, then n1. Replaces the three-axis case of
+    ``separable_convolve_pallas``.
 
-``sepconv2`` runs the kernel for a CUDA tensor and the plain version for
-a CPU tensor; for any other device, dtype or layout it raises.
+On the H100 the kernels are bound by device-memory bytes (one read and
+one write per element) and, with many taps, by the L1 reads of the
+window; they rebuild the boundary by index mapping instead of writing a
+padded copy. See the source for the design.
+
+Each entry point runs its kernel for a CUDA tensor and the plain version
+for a CPU tensor; for any other device, dtype or layout it raises.
+Launches are counted per entry point: ``launches`` (two axes) and
+``launches3``.
 """
 
 from __future__ import annotations
@@ -21,18 +29,21 @@ import torch
 from .. import _build
 from .conv import _shift_add_valid, pad_reflect
 
-__all__ = ['sepconv2', 'sepconv2_plain', 'MAX_TAPS', 'MODES', 'launches']
+__all__ = ['sepconv2', 'sepconv2_plain', 'sepconv3', 'sepconv3_plain',
+           'MAX_TAPS', 'MODES', 'launches', 'launches3']
 
 MAX_TAPS = 64          # kMaxTaps in csrc/sepconv.cu
 MODES = {'reflect': 0, 'mirror': 1, 'nearest': 2, 'constant': 3,
          'wrap': 4}
 
-launches = 0           # kernel launches since import (or reset)
+launches = 0           # sepconv2 kernel launches since import (or reset)
+launches3 = 0          # sepconv3 kernel launches since import (or reset)
 
 
 def reset_launches():
-    global launches
+    global launches, launches3
     launches = 0
+    launches3 = 0
 
 
 def _taps(taps):
@@ -44,19 +55,19 @@ def _taps(taps):
     return t, uniform, uniform and t[0] != 1.0
 
 
-def _check(x, mode):
+def _check(x, mode, name='sepconv2'):
     if not isinstance(x, torch.Tensor) or x.ndim != 4:
-        raise ValueError('sepconv2 takes a 4-d (outer, n0, n1, inner) '
-                         'tensor')
+        raise ValueError('%s takes a 4-d tensor' % name)
     if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError('sepconv2 takes float32 or float64, got %s'
-                        % x.dtype)
+        raise TypeError('%s takes float32 or float64, got %s'
+                        % (name, x.dtype))
     if not x.is_contiguous():
-        raise ValueError('sepconv2 takes a contiguous tensor')
+        raise ValueError('%s takes a contiguous tensor' % name)
     if mode not in MODES:
         raise ValueError('unsupported boundary mode %r' % (mode,))
-    if x.shape[1] >= 2 ** 31 or x.shape[2] * x.shape[3] >= 2 ** 31:
-        raise ValueError('sepconv2 takes n0 and n1 * inner below 2**31')
+    if max(x.shape[:3]) >= 2 ** 31 or x.shape[2] * x.shape[3] >= 2 ** 31:
+        raise ValueError('%s takes n0, n1, n2 and the row length below '
+                         '2**31' % name)
 
 
 def sepconv2_plain(x, taps0, taps1, mode='reflect', cval=0.0):
@@ -97,5 +108,53 @@ def sepconv2(x, taps0, taps1, mode='reflect', cval=0.0):
                  MODES[mode], float(cval), stream)
     global launches
     launches += 1
+    _build.check(name, err)
+    return out
+
+
+def _pads(k):
+    return ((k - 1) // 2, k // 2)
+
+
+def sepconv3_plain(x, taps0, taps1, taps2, mode='reflect', cval=0.0):
+    """Plain PyTorch version of the three-axis kernel: every axis padded
+    with the boundary mode (cval everywhere outside in 'constant'), then
+    ``_shift_add_valid`` over n2 (taps2), n0 (taps0) and n1 (taps1), in
+    that order."""
+    _check(x, mode, 'sepconv3')
+    t0, t1, t2 = (np.ravel(t) for t in (taps0, taps1, taps2))
+    out = pad_reflect(x, (_pads(len(t0)), _pads(len(t1)), _pads(len(t2)),
+                          (0, 0)), mode, cval)
+    out = _shift_add_valid(out, t2, 2)
+    out = _shift_add_valid(out, t0, 0)
+    return _shift_add_valid(out, t1, 1)
+
+
+def sepconv3(x, taps0, taps1, taps2, mode='reflect', cval=0.0):
+    """Separable VALID correlation of a contiguous ``(n0, n1, n2, inner)``
+    tensor over n2 with ``taps2`` first, then n0 with ``taps0`` and n1
+    with ``taps1`` (already-FLIPPED weights; output ``o`` reads input
+    ``o - (k-1)//2 .. o + k//2``, outside positions by ``mode``)."""
+    _check(x, mode, 'sepconv3')
+    if x.device.type == 'cpu':
+        return sepconv3_plain(x, taps0, taps1, taps2, mode, cval)
+    if x.device.type != 'cuda':
+        raise ValueError('sepconv3 runs on cuda or cpu tensors, not %s'
+                         % x.device)
+    taps = [_taps(t) for t in (taps0, taps1, taps2)]
+    out = torch.empty_like(x)
+    name = 'nd_sepconv3_f32' if x.dtype == torch.float32 \
+        else 'nd_sepconv3_f64'
+    fn = _build.function(name, 'ppiiiq' + 'piii' * 3 + 'idp')
+    n0, n1, n2, inner = x.shape
+    args = []
+    for w, uniform, scale in taps:
+        args += [w.ctypes.data, len(w), int(uniform), int(scale)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), n0, n1, n2, inner, *args,
+                 MODES[mode], float(cval), stream)
+    global launches3
+    launches3 += 1
     _build.check(name, err)
     return out

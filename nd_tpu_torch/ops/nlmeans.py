@@ -5,10 +5,12 @@ boundary, weight ``exp(-max(dsq/dsq_norm - 2 sigma^2, 0)/h^2)`` with
 ``dsq_norm = nvars * prod(2f+1)``, self-weight = max weight (or the
 ``n_eff`` effective-sample-size solution).
 
-Spatial windows (``r[2] = f[2] = 0``) run through the ``nlmeans`` CUDA
-kernel (``ops/nlmeans_cuda.py``) on a CUDA tensor. ``nlmeans_plain`` is
-the plain version: one pass per neighbourhood offset with shifted
-squared differences and ``(2f+1)`` patch box sums.
+On a CUDA tensor every window runs through the ``nlmeans`` CUDA kernel
+(``ops/nlmeans_cuda.py``): spatial windows (``r[2] = f[2] = 0``) through
+``nlmeans_spatial``, temporal and full 3-D windows through
+``nlmeans_3d``. ``nlmeans_plain`` is the plain version: one pass per
+neighbourhood offset with shifted squared differences and ``(2f+1)``
+patch box sums.
 """
 
 from __future__ import annotations
@@ -139,12 +141,8 @@ def nlmeans(arr, r, f, sigma, h, n_eff=-1.0):
     _check_pads(arr.shape[:3], r, f)
     if r == (0, 0, 0):
         return arr               # degenerate neighborhood: identity
+    from .nlmeans_cuda import nlmeans_3d, nlmeans_spatial
     if r[2] == 0 and f[2] == 0:
-        from .nlmeans_cuda import nlmeans_spatial
         return nlmeans_spatial(arr.contiguous(), r[:2], f[:2], sigma, h,
                                n_eff)
-    if arr.device.type != 'cpu':
-        raise NotImplementedError(
-            'NLMeans with temporal windows has no CUDA kernel yet '
-            '(ROADMAP: kernel table row 3)')
-    return nlmeans_plain(arr, r, f, sigma, h, n_eff)
+    return nlmeans_3d(arr.contiguous(), r, f, sigma, h, n_eff)

@@ -6,10 +6,12 @@ PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: sepconv max abs diff <= 1e-6 max|x| (1e-13 in float64);
-NLMeans rtol 1e-5, atol 1e-6; omnibus flag mismatch rate <= 1e-5 and
-margins within 1e-4 relative; exact and pipeline change maps exactly
-equal.
+Tolerances: sepconv (two and three axes) max abs diff <= 1e-6 max|x|
+(1e-13 in float64); NLMeans (spatial and 3-D windows) rtol 1e-5, atol
+1e-6 (float64: rtol 1e-12); omnibus flag mismatch rate <= 1e-5 and
+margins within 1e-4 relative; the long-series scan's flags and margins
+exactly equal to its plain version (the same f32 operations in the same
+order); exact and pipeline change maps exactly equal.
 """
 
 import os
@@ -21,8 +23,11 @@ import torch
 import nd_tpu_torch as ndt
 from nd_tpu_torch import _build
 from nd_tpu_torch.ops import change as tchange
-from nd_tpu_torch.ops import change_cuda, conv_cuda, nlmeans_cuda
-from torch_cubes import cuda, sar_cube  # noqa: F401
+from nd_tpu_torch.core import Dataset
+from nd_tpu_torch.ops import change_cuda, change_scan_cuda, conv_cuda, \
+    nlmeans_cuda
+from nd_tpu_torch.ops.conv import gaussian_kernel1d
+from torch_cubes import cuda, long_stack_cube, sar_cube  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +143,128 @@ def test_kernels_build_and_count_on_the_card(cuda):
     nlmeans_cuda.nlmeans_spatial(cube, (1, 1), (1, 1), 2.0, 3.0)
     assert conv_cuda.launches > 0 and nlmeans_cuda.launches > 0 \
         and change_cuda.launches > 0
+
+
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape', [(13, 17, 9, 2), (37, 21, 45, 1)])
+def test_sepconv3_kernel_matches_plain(cuda, mode, dtype, shape):
+    # the second shape spans several output tiles and row chunks, with
+    # Gaussian taps up to 17 wide
+    a = _data(shape, seed=11).to(cuda, dtype)
+    if shape[2] < 10:
+        t0 = np.array([0.2, 0.5, 0.3])
+        t1 = np.ones(5) / 5
+        t2 = np.array([0.1, 0.2, 0.4, 0.2, 0.1, 0.05, 0.05])
+    else:
+        t0, t1, t2 = (gaussian_kernel1d(s) for s in (2.0, 1.0, 1.5))
+    before = conv_cuda.launches3
+    got = conv_cuda.sepconv3(a, t0, t1, t2, mode=mode, cval=0.5)
+    assert conv_cuda.launches3 == before + 1
+    ref = conv_cuda.sepconv3_plain(a, t0, t1, t2, mode=mode, cval=0.5)
+    torch.cuda.synchronize()
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    assert float((got - ref).abs().max()) <= tol * float(a.abs().max())
+
+
+@pytest.mark.parametrize('nv', [1, 4, 6])
+@pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),
+                                 ((0, 0, 2), (1, 1, 0)),
+                                 ((1, 0, 1), (0, 1, 1))])
+def test_nlmeans_3d_kernel_matches_plain(cuda, nv, r, f):
+    a = _data((15, 19, 6, nv), seed=12).to(cuda, torch.float32)
+    before = nlmeans_cuda.launches_3d
+    got = nlmeans_cuda.nlmeans_3d(a, r, f, 2.0, 3.0)
+    assert nlmeans_cuda.launches_3d == before + 1
+    ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 2.0, 3.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_nlmeans_3d_kernel_float64_and_n_eff(cuda):
+    a = _data((11, 13, 5, 4), seed=13).to(cuda)
+    got = nlmeans_cuda.nlmeans_3d(a, (1, 2, 1), (1, 1, 1), 0.3, 0.4, 4.0)
+    ref = nlmeans_cuda.nlmeans_3d_plain(a, (1, 2, 1), (1, 1, 1), 0.3, 0.4,
+                                        4.0)
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-13,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize('k', [16, 56, 200])
+def test_scan_kernel_matches_plain(cuda, k):
+    cube = sar_cube(37, 53, k, seed=14)
+    cube[:, 0] = long_stack_cube(37, 1, k, seed=14)[:, 0]
+    cube = torch.from_numpy(cube).to(cuda)
+    before = change_scan_cuda.launches
+    got, gm = change_scan_cuda.change_detection_scan(cube, 0.99, n=9,
+                                                     return_packed=True)
+    assert change_scan_cuda.launches == before + 1
+    tabs = change_scan_cuda.scan_tables(k, 9, 0.99)
+    ref, rm = change_scan_cuda.scan_plain(cube, tabs, 9.0)
+    torch.cuda.synchronize()
+    assert bool((got == ref).all())
+    gm, rm = gm.cpu().numpy(), rm.cpu().numpy()
+    np.testing.assert_array_equal(gm, rm)          # NaN where NaN
+    assert np.isfinite(gm).mean() > 0.5
+
+
+def test_exact_long_series_on_the_card_equals_plain_mixed(cuda):
+    cube = torch.from_numpy(long_stack_cube(24, 40, 56, seed=15)).to(cuda)
+    change_scan_cuda.reset_launches()
+    got, count = tchange.change_detection_exact(cube, 0.99, n=9,
+                                                return_count=True)
+    assert change_scan_cuda.launches == 1
+    ref = tchange.change_detection(cube, 0.99, n=9)
+    assert got.device.type == 'cuda' and bool((got == ref).all())
+    assert bool(ref.any()) and 0 <= count < 24 * 40
+
+
+@pytest.mark.parametrize('k,alpha', [(300, 0.99), (56, 1e-12)])
+def test_exact_without_a_kernel_route_on_the_card(cuda, k, alpha):
+    cube = torch.from_numpy(long_stack_cube(4, 6, k, seed=16)).to(cuda)
+    for mod in (change_cuda, change_scan_cuda):
+        mod.reset_launches()
+    got = tchange.change_detection_exact(cube, alpha, n=9)
+    assert change_cuda.launches == 0 and change_scan_cuda.launches == 0
+    ref = tchange.change_detection(cube, alpha, n=9)
+    assert bool((got == ref).all())
+
+
+def test_long_stack_filters_launch_their_kernels(cuda):
+    cube = torch.from_numpy(long_stack_cube(16, 20, 56, seed=17)).to(cuda)
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                         'C22'))})
+    for mod in (conv_cuda, nlmeans_cuda, change_cuda, change_scan_cuda):
+        mod.reset_launches()
+    flt = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1,
+                            sigma=2, h=3).apply(ds)
+    change = ndt.OmnibusTest(ml=3, alpha=0.99).apply(flt)
+    smooth = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=1).apply(
+        ds['C11'])
+    box = ndt.BoxcarFilter(dims=('y', 'x', 'time'), w=3).apply(ds['C11'])
+    assert nlmeans_cuda.launches_3d == 1 and nlmeans_cuda.launches == 0
+    assert change_scan_cuda.launches == 1 and change_cuda.launches == 0
+    assert conv_cuda.launches3 == 2 and conv_cuda.launches == 1
+    assert change.data.device.type == 'cuda' and bool(change.data.any())
+    for out in (smooth, box):
+        assert out.dims == ('y', 'x', 'time')
+        assert bool(torch.isfinite(out.data).all())
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    t = np.ones(3)
+    with pytest.raises(ValueError, match='too long'):
+        change_scan_cuda.change_detection_scan(
+            torch.zeros(4, 4, 257, 4, device=cuda), 0.9)
+    with pytest.raises(ValueError, match='contiguous'):
+        conv_cuda.sepconv3(torch.zeros(4, 5, 6, 2, device=cuda)
+                           .transpose(0, 1), t, t, t)
+    with pytest.raises(ValueError, match='contiguous'):
+        nlmeans_cuda.nlmeans_3d(torch.zeros(6, 7, 5, 2, device=cuda)
+                                .transpose(0, 1), (1, 1, 1), (1, 1, 1),
+                                1.0, 1.0)
+    with pytest.raises(TypeError):
+        nlmeans_cuda.nlmeans_3d(
+            torch.zeros(5, 5, 5, 1, device=cuda, dtype=torch.float16),
+            (1, 1, 1), (1, 1, 1), 1.0, 1.0)

@@ -138,3 +138,50 @@ def test_filter_apply_matches_jax(dims, r, f):
     for v in ref.data_vars:
         assert got[v].dims == ref[v].dims
         np.testing.assert_allclose(got[v].values, ref[v].values, **TOL)
+
+
+@pytest.mark.parametrize('shape,r,f', [
+    ((20, 17, 5, 4), (1, 1, 1), (1, 1, 1)),   # full 3-D window
+    ((12, 16, 7, 3), (0, 0, 2), (1, 1, 0)),   # temporal-only radius
+    ((10, 14, 5, 1), (1, 0, 1), (0, 1, 1)),   # active axes {0, 2}
+    ((18, 15, 4, 4), (2, 1, 0), (1, 1, 1)),   # spatial r, temporal f
+])
+def test_3d_window_matches_pallas(shape, r, f):
+    # tests/test_pallas.py's shapes: the tiled kernel (temporal or full
+    # 3-D windows) in interpret mode against the port's 3-D entry point
+    from nd_tpu.ops.nlmeans_pallas import nlmeans_pallas
+    a = _data(shape, seed=5)
+    ref = np.asarray(nlmeans_pallas(jnp.asarray(a), r, f, 0.6, 0.9, -1.0,
+                                    interpret=True))
+    got = nlmeans_cuda.nlmeans_3d(torch.from_numpy(a), r, f, 0.6, 0.9)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    np.testing.assert_array_equal(
+        nlmeans(torch.from_numpy(a), r, f, 0.6, 0.9).numpy(), got.numpy())
+
+
+def test_3d_filter_apply_matches_jax():
+    # NLMeansFilter(dims=('y', 'x', 'time')): the joint (y, x, t, var)
+    # stack through the 3-D window, reflect on t too
+    jds = _jax_dataset(ny=12, nx=14, nt=6, seed=9)
+    kw = dict(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1, sigma=2, h=3)
+    ref = JNLMeansFilter(**kw).apply(jds)
+    nlmeans_cuda.reset_launches()
+    got = NLMeansFilter(**kw).apply(from_jax_dataset(jds))
+    assert nlmeans_cuda.launches_3d == 0          # CPU: the plain version
+    for v in ref.data_vars:
+        assert got[v].dims == ref[v].dims
+        np.testing.assert_allclose(got[v].values, ref[v].values, **TOL)
+
+
+def test_3d_checks():
+    a = torch.from_numpy(_data((6, 7, 3, 2)))
+    with pytest.raises(ValueError, match='must be smaller'):
+        nlmeans_cuda.nlmeans_3d(a, (1, 1, 2), (0, 0, 1), 1.0, 1.0)
+    with pytest.raises(ValueError, match='three radii'):
+        nlmeans_cuda.nlmeans_3d(a, (1, 1), (1, 1), 1.0, 1.0)
+    with pytest.raises(ValueError, match='contiguous'):
+        nlmeans_cuda.nlmeans_3d(a.transpose(0, 1), (1, 1, 1), (1, 1, 1),
+                                1.0, 1.0)
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        nlmeans_cuda.nlmeans_3d(a.to('meta'), (1, 1, 1), (1, 1, 1), 1.0,
+                                1.0)

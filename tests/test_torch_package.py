@@ -22,6 +22,7 @@ COUNTED = (conv_cuda, nlmeans_cuda, change_cuda)
 
 def test_import_loads_no_jax():
     code = ('import sys, nd_tpu_torch, nd_tpu_torch.ops.change_cuda, '
+            'nd_tpu_torch.ops.change_scan_cuda, '
             'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
@@ -104,6 +105,56 @@ def test_missing_compiler_raises(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert 'no-nvcc' in proc.stderr
+
+
+def test_failed_build_leaves_nothing_behind(tmp_path):
+    # one nvcc of the parallel build fails after the others wrote their
+    # objects: the build raises and leaves no object or partial library
+    fake = tmp_path / 'nvcc'
+    fake.write_text('#!/bin/sh\n'
+                    'for a; do case "$a" in *.o) touch "$a";; esac; done\n'
+                    'case "$*" in *nlmeans.cu*) echo broken; exit 1;; esac\n')
+    fake.chmod(0o755)
+    build = tmp_path / 'build'
+    code = ('import os, nd_tpu_torch._build as b; '
+            'b._BUILD_DIR = __import__("pathlib").Path(os.environ["D"]); '
+            'b.library()')
+    env = dict(os.environ, PYTHONPATH=REPO, D=str(build),
+               ND_TPU_TORCH_NVCC=str(fake))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert 'nvcc failed' in proc.stderr and 'broken' in proc.stderr
+    assert list(build.iterdir()) == []
+
+
+def test_cpu_long_stack_calls_leave_launch_counters_at_zero():
+    from nd_tpu_torch.ops import change_scan_cuda
+    from torch_cubes import long_stack_cube
+    counted = COUNTED + (change_scan_cuda,)
+    for mod in counted:
+        mod.reset_launches()
+    cube = torch.from_numpy(long_stack_cube(8, 9, 56, seed=34))
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                         'C22'))})
+    flt = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=(1, 1, 1), f=1,
+                            sigma=2, h=3).apply(ds)
+    ndt.OmnibusTest(ml=3, alpha=0.99).apply(flt)
+    ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=1).apply(ds['C11'])
+    assert [mod.launches for mod in counted] == [0, 0, 0, 0]
+    assert conv_cuda.launches3 == 0 and nlmeans_cuda.launches_3d == 0
+
+
+def test_build_hashes_shared_headers(tmp_path, monkeypatch):
+    # a change to a shared header (csrc/*.cuh) must rebuild the library
+    for src in _build._CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, '_CSRC', tmp_path)
+    before = _build._digest(_build._sources())
+    header = tmp_path / 'mlog.cuh'
+    header.write_text(header.read_text() + '// edited\n')
+    assert _build._digest(_build._sources()) != before
 
 
 def test_build_flags():

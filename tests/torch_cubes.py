@@ -35,6 +35,24 @@ def sar_cube(ny, nx, k, seed=0, special=True):
     return cube
 
 
+def long_stack_cube(ny, nx, k, seed=0, step=5.0):
+    """A long S1 stack: ``sar_cube`` without the special pixels, its
+    backscatter step half-way raised to ``step`` (a 2.5x step over 56
+    dates does not survive NLMeans and a 3x3 multilook at alpha 0.99),
+    plus tests/test_change_scan.py's bursty column (x = 0), whose
+    backscatter alternates every 3 steps (many change points, scan
+    restart churn)."""
+    cube = sar_cube(ny, nx, k, seed=seed, special=False)
+    cube[:, :, k // 2:, 0] *= np.float32(step / 2.5)
+    cube[:, :, k // 2:, 3] *= np.float32(step / 2.5)
+    burst = np.where((np.arange(k) // 3) % 2 == 0, 1.0, 5.0)
+    cube[:, 0, :, 0] = burst
+    cube[:, 0, :, 3] = burst
+    cube[:, 0, :, 1] = 0.05
+    cube[:, 0, :, 2] = 0.02
+    return cube
+
+
 # (y, x, k), alpha, looks: one plane (k=12, the bench's length), two
 # planes (k=40) and a short series; each flags changes
 CASES = [((16, 128, 12), 0.99, 9), ((8, 16, 40), 0.99, 9),
