@@ -11,10 +11,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      (y, x, time, [C11, C12.re, C12.im, C22]) float32 from a seed, on
      the card;
   3. every kernel against its plain PyTorch version on the card, at the
-     path's shapes: sepconv in both layouts (max abs diff <= 1e-6
-     max|x|), NLMeans r=1/f=1, r=2/f=2, r=2/f=1 (rtol 1e-5, atol 1e-6),
-     the omnibus fast flags (mismatch rate <= 1e-5; also at k=40, two
-     flag planes) and the unpack_flags round trip at k=40;
+     path's shapes: sepconv in both layouts (max abs diff 0: the tiled
+     kernel does the plain version's operations in its order), NLMeans
+     r=1/f=1, r=2/f=2, r=2/f=1 (rtol 1e-5, atol 1e-6), the omnibus fast
+     flags (mismatch rate <= 1e-5; also at k=40, two flag planes) and the
+     unpack_flags round trip at k=40; and ragged shapes that fill no
+     tile: NLMeans (3-D window) at 37 x 53 x 5 x 4, sepconv with outer 4
+     at 37 x 53 x 7;
   4. exact omnibus (alpha 0.99, 9 looks, margin_eps 1e-4): 0
      mismatches against the plain float64 'mixed' scan of the full grid;
   5. ``SARChangePipeline(ml=3, n=1, alpha=0.9).forward``: 0 mismatches
@@ -26,7 +29,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   7. every kernel's launch counter rose during phases 4-6;
   8. times from CUDA events (median of 7 after 2 warm-up runs) and
      Mpix/s (y*x*time pixels) of each kernel and its plain version and
-     of phases 4-6, beside the card's name and power limit;
+     of phases 4-6, beside the card's name and power limit; for each
+     kernel row its bound (the least time the card could take: bytes at
+     3.35 TB/s or f32 operations at 67 TFLOP/s, the larger) and its share
+     of it, and for sepconv the library yardstick: cuDNN's depthwise
+     convolution of the already padded tensor (VALID part only, pad
+     excluded; TF32 off), which the port never calls;
 
 and the long-stack path, on a one-year Sentinel-1 stack: 1024 x 1024 x
 56 float32 covariance cube (0.94 GB) with a 5x backscatter step half-way
@@ -37,7 +45,7 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      1e-6), the long-series scan at k=56 and at k=200 (flags and margins
      bit-equal), the three-axis sepconv with Gaussian (sigma 1) and
      boxcar (w 3) taps and the two-axis sepconv on path A's stacked
-     (4, y, x, t) multilook input (max abs diff <= 1e-6 max|x|);
+     (4, y, x, t) multilook input (max abs diff 0);
  10. path A: ``NLMeansFilter(dims=('y','x','time'), r=(2,2,1), f=1,
      sigma=2, h=3)`` then ``OmnibusTest(ml=3, alpha=0.99)`` on a Dataset
      of the stack: NLMeans within the tolerance above of the plain
@@ -47,19 +55,21 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      (0.42 GB): 0 mismatches against the plain 'mixed' scan;
  12. path C: ``GaussianFilter(dims=('y','x','time'), sigma=1)`` and
      ``BoxcarFilter(dims=('y','x','time'), w=3)`` on the stack's C11
-     DataArray, each within 1e-6 max|x| of the plain three-axis pass;
+     DataArray, each with max abs diff 0 to the plain three-axis pass;
      the launch counters of every kernel of each path rose in that path
      (counters reset just before each path and read just after);
  13. times: each long-stack kernel and its plain version, the scan
      kernel beside the round kernel at k=56 on the same input, and
      paths A, B and C against their plain routes (median of 3 after one
-     warm-up; a plain route that runs for seconds once).
+     warm-up; a plain route that runs for seconds once), with bounds and
+     yardsticks as in phase 8.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
-max abs error, ms and plain ms), then the nvidia-smi line. The last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits non-zero and prints no result.
+max abs error, ms, plain ms, bound ms and what sets it, library ms or
+null), then the nvidia-smi line. The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the package beside
+it, it exits non-zero and prints no result.
 """
 
 import json
@@ -76,6 +86,8 @@ KL = 56                     # one year of Sentinel-1 at a 6-day revisit
 BNY, BNX, BK = 256, 512, 200
 SEED = 0
 DEVICE = 'cuda'
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
+F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, the same
 # entry point -> (source, replaced TPU kernel, counting module, counter)
 KERNELS = {
     'sepconv': ('nd_tpu_torch/csrc/sepconv.cu',
@@ -131,6 +143,50 @@ def phase(n, text):
     print('phase %d: %s' % (n, text), flush=True)
 
 
+def bound(nbytes, ops):
+    """(ms, what sets it): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written
+    once) and does ``ops`` f32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def pass_ops(taps):
+    """f32 operations per output of one tap pass, as the kernel and
+    its plain version do them: uniform taps are added and scaled once,
+    weighted taps multiplied and added."""
+    t = np.ravel(np.asarray(taps, np.float64))
+    if np.allclose(t, t[0]):
+        return len(t) - 1 + int(t[0] != 1.0)
+    return 2 * len(t) - 1
+
+
+def sepconv_bound(x, *taps):
+    return bound(2 * x.numel() * x.element_size(),
+                 x.numel() * sum(pass_ops(t) for t in taps))
+
+
+def nlmeans_bound(x, r, f):
+    """Per output and unordered offset pair: the squared differences
+    over the variables, the three patch passes, the weight (division,
+    subtraction, max, product, exp) and the two directions' weighted
+    adds."""
+    nv = x.shape[3]
+    pairs = (int(np.prod([2 * ri + 1 for ri in r])) - 1) // 2
+    per_pair = (3 * nv - 1) + 2 * sum(f) + 5 + 2 * (2 * nv + 2)
+    npix = x.numel() // nv
+    return bound(2 * x.numel() * x.element_size(), npix * pairs * per_pair)
+
+
+def omnibus_bound(x, planes, margins=True):
+    """Bytes: the series read once, the flag planes (and the margins)
+    written once; operations: one pass of the test statistic per date
+    (a lower count: restarts add more)."""
+    ny, nx, k, _ = x.shape
+    out = ny * nx * 4 * (planes + (1 if margins else 0))
+    return bound(x.numel() * x.element_size() + out, ny * nx * k * 12)
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -139,8 +195,13 @@ def main():
         return 2
 
     root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, 'nd_tpu_torch')):
+        print('chip_smoke: nd_tpu_torch/ is not beside this script; run it '
+              'from a checkout of the repository', file=sys.stderr)
+        return 2
     sys.path.insert(0, root)
     import nd_tpu_torch as ndt
+    import torch.nn.functional as F
     from nd_tpu_torch import _build
     from nd_tpu_torch.core import Dataset
     from nd_tpu_torch.ops import (change_cuda, change_scan_cuda, conv_cuda,
@@ -148,7 +209,8 @@ def main():
     from nd_tpu_torch.ops.change import (change_detection,
                                          change_detection_exact,
                                          pack_flags)
-    from nd_tpu_torch.ops.conv import _separable_factors, gaussian_kernel1d
+    from nd_tpu_torch.ops.conv import (_separable_factors, gaussian_kernel1d,
+                                       pad_reflect)
 
     modules = {'conv_cuda': conv_cuda, 'nlmeans_cuda': nlmeans_cuda,
                'change_cuda': change_cuda,
@@ -205,11 +267,9 @@ def main():
         ref = conv_cuda.sepconv2_plain(x, taps[0], taps[1])
         torch.cuda.synchronize()
         diff = float((got - ref).abs().max())
-        bound = 1e-6 * float(x.abs().max())
-        check(diff <= bound, 'sepconv', label, diff, bound)
+        check(diff == 0, 'sepconv', label, diff)
         err['sepconv'] = max(err['sepconv'], diff)
-        phase(3, 'sepconv %s: max abs diff %.3g <= %.3g' % (label, diff,
-                                                            bound))
+        phase(3, 'sepconv %s: max abs diff %.3g' % (label, diff))
     for r, f in ((1, 1), (2, 2), (2, 1)):
         got = nlmeans_cuda.nlmeans_spatial(cube, (r, r), (f, f), 2.0, 3.0)
         ref = nlmeans_cuda.nlmeans_spatial_plain(cube, (r, r), (f, f), 2.0,
@@ -222,6 +282,27 @@ def main():
         err['nlmeans'] = max(err['nlmeans'], float(diff.max()))
         phase(3, 'nlmeans r=%d f=%d: max abs diff %.3g (rtol 1e-5, atol '
               '1e-6 held)' % (r, f, float(diff.max())))
+    # ragged shapes: no tile shape divides them
+    rag = torch.from_numpy(make_cube(37, 53, 5, seed=4)).to(dev)
+    got = nlmeans_cuda.nlmeans_3d(rag, (2, 2, 1), (1, 1, 1), 2.0, 3.0)
+    ref = nlmeans_cuda.nlmeans_3d_plain(rag, (2, 2, 1), (1, 1, 1), 2.0, 3.0)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    excess = float((diff - (1e-6 + 1e-5 * ref.abs())).max())
+    check(bool(torch.isfinite(got).all()) and excess <= 0, 'nlmeans_3d '
+          'ragged', excess)
+    err['nlmeans_3d'] = float(diff.max())
+    rag4 = torch.from_numpy(make_cube(37, 53, 7, seed=5)).to(dev).permute(
+        3, 0, 1, 2).contiguous()                         # (4, 37, 53, 7)
+    got = conv_cuda.sepconv2(rag4, box_taps[0], box_taps[1])
+    ref = conv_cuda.sepconv2_plain(rag4, box_taps[0], box_taps[1])
+    torch.cuda.synchronize()
+    sdiff = float((got - ref).abs().max())
+    check(sdiff == 0, 'sepconv ragged', sdiff)
+    phase(3, 'ragged: nlmeans_3d at %s max abs diff %.3g (rtol 1e-5, atol '
+          '1e-6 held); sepconv at %s max abs diff %.3g'
+          % (tuple(rag.shape), float(diff.max()), tuple(rag4.shape), sdiff))
+    del rag, rag4, got, ref, diff
     small40 = torch.from_numpy(make_cube(256, 256, 40, seed=1)).to(dev)
     for label, vals, kw in (
             ('k=12 uncapped', cube, {}),
@@ -347,59 +428,119 @@ def main():
         return Dataset({v: (('y', 'x', 'time'), arr[..., i])
                         for i, v in enumerate(names)})
 
+    def cudnn_valid(x, taps):
+        """The library yardstick of a sepconv call: cuDNN's depthwise
+        convolution (TF32 off) over ``x`` already padded as the kernel
+        pads it, so only the VALID part is timed. Two tap vectors: x is
+        (outer, n0, n1, inner), inner the channels (an NHWC view);
+        three: x is (n0, n1, n2, 1). Returns (call, output as x's
+        layout)."""
+        vecs = [np.ravel(np.asarray(t, np.float64)) for t in taps]
+        pads = [((len(t) - 1) // 2, len(t) // 2) for t in vecs]
+        if len(vecs) == 2:
+            xin = pad_reflect(x, [(0, 0)] + pads + [(0, 0)]).permute(
+                0, 3, 1, 2)
+            c = x.shape[3]
+            w = torch.tensor(np.outer(*vecs), dtype=x.dtype, device=x.device)
+            w = w.expand(c, 1, *w.shape).contiguous()
+            return (lambda: F.conv2d(xin, w, groups=c),
+                    lambda out: out.permute(0, 2, 3, 1))
+        xin = pad_reflect(x, pads + [(0, 0)])[..., 0][None, None]
+        w = torch.tensor(np.einsum('i,j,k->ijk', *vecs), dtype=x.dtype,
+                         device=x.device)[None, None]
+        return (lambda: F.conv3d(xin, w), lambda out: out[0, 0, ..., None])
+
+    def yardstick(x, taps, got):
+        """(call, ms check): the yardstick, checked to compute the same
+        function (1e-5 max|x|; its products round otherwise)."""
+        call, layout = cudnn_valid(x, taps)
+        diff = float((layout(call()) - got).abs().max())
+        check(diff <= 1e-5 * float(x.abs().max()), 'cuDNN yardstick', diff)
+        return call
+
+    def time_rows(n, rows):
+        """Time each row (plain, kernel, kernel, plain: both see the same
+        card state) and print it with its bound and yardstick."""
+        for label, key, mp, kern, plain, bnd, lib, slow in rows:
+            reps, warm = (3, 1) if slow else (7, 2)
+            if plain is None:
+                k_ms, p_ms = cuda_ms(kern, reps, warm), float('nan')
+            else:
+                p1 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps,
+                                                               warm)
+                k1 = cuda_ms(kern, reps, warm)
+                k2 = cuda_ms(kern, reps, warm)
+                p2 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps,
+                                                               warm)
+                k_ms, p_ms = min(k1, k2), min(p1, p2)
+            lib_ms = cuda_ms(lib, reps, warm) if lib is not None else None
+            line = '%-28s kernel %9.3f ms %9.1f Mpix/s | plain %9.3f ms ' \
+                '%9.1f Mpix/s | x%.2f' % (label, k_ms, mp / k_ms * 1e3, p_ms,
+                                          mp / p_ms * 1e3, p_ms / k_ms)
+            if bnd is not None:
+                line += ' | bound %.3f ms (%s), %.1f%% of it' % (
+                    bnd[0], bnd[1], 100.0 * bnd[0] / k_ms)
+            if lib_ms is not None:
+                line += ' | cuDNN VALID part %.3f ms' % lib_ms
+            phase(n, line + ' | ' + card)
+            if key:
+                row_ms[key] = {'ms': k_ms, 'plain_ms': p_ms,
+                               'bound_ms': bnd[0], 'bound_by': bnd[1],
+                               'library_ms': lib_ms}
+
     mpix = NY * NX * K / 1e6
     cap = change_cuda._round_cap(K)
+    ml_got = conv_cuda.sepconv2(x_ml, *ml_taps)
+    st_got = conv_cuda.sepconv2(x_stack, *box_taps)
     timed = [
-        ('sepconv (y,x,t,4)', 'sepconv',
+        # label, key, Mpix, kernel, plain, bound, yardstick, plain once
+        ('sepconv (y,x,t,4)', 'sepconv', mpix,
          lambda: conv_cuda.sepconv2(x_ml, *ml_taps),
-         lambda: conv_cuda.sepconv2_plain(x_ml, *ml_taps)),
-        ('sepconv (4,y,x,t)', None,
+         lambda: conv_cuda.sepconv2_plain(x_ml, *ml_taps),
+         sepconv_bound(x_ml, *ml_taps), yardstick(x_ml, ml_taps, ml_got),
+         False),
+        ('sepconv (4,y,x,t)', None, mpix,
          lambda: conv_cuda.sepconv2(x_stack, *box_taps),
-         lambda: conv_cuda.sepconv2_plain(x_stack, *box_taps)),
-        ('nlmeans r=1 f=1', None,
+         lambda: conv_cuda.sepconv2_plain(x_stack, *box_taps),
+         sepconv_bound(x_stack, *box_taps),
+         yardstick(x_stack, box_taps, st_got), False),
+        ('nlmeans r=1 f=1', None, mpix,
          lambda: nlmeans_cuda.nlmeans_spatial(cube, (1, 1), (1, 1), 2., 3.),
          lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (1, 1), (1, 1),
-                                                    2., 3.)),
-        ('nlmeans r=2 f=2', None,
+                                                    2., 3.),
+         nlmeans_bound(cube, (1, 1, 0), (1, 1, 0)), None, False),
+        ('nlmeans r=2 f=2', None, mpix,
          lambda: nlmeans_cuda.nlmeans_spatial(cube, (2, 2), (2, 2), 2., 3.),
          lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (2, 2),
-                                                    2., 3.)),
-        ('nlmeans r=2 f=1', 'nlmeans',
+                                                    2., 3.),
+         nlmeans_bound(cube, (2, 2, 0), (2, 2, 0)), None, False),
+        ('nlmeans r=2 f=1', 'nlmeans', mpix,
          lambda: nlmeans_cuda.nlmeans_spatial(cube, (2, 2), (1, 1), 2., 3.),
          lambda: nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (1, 1),
-                                                    2., 3.)),
-        ('omnibus fast capped+margins', 'omnibus',
+                                                    2., 3.),
+         nlmeans_bound(cube, (2, 2, 0), (1, 1, 0)), None, False),
+        ('omnibus fast capped+margins', 'omnibus', mpix,
          lambda: change_cuda.change_detection_fast(
              cube, 0.99, n=9, return_margin=True, return_packed=True,
              max_rounds=cap),
          lambda: change_cuda.omnibus_plain(
              cube, *change_cuda.omnibus_tables(K, 9, 0.99), 9.0, cap,
-             True)),
-        ('phase 4 exact omnibus', None,
+             True),
+         omnibus_bound(cube, (K + 30) // 31), None, False),
+        ('phase 4 exact omnibus', None, mpix,
          lambda: change_detection_exact(cube, 0.99, n=9, margin_eps=1e-4),
-         lambda: change_detection(cube, 0.99, n=9)),
-        ('phase 5 pipeline forward', None,
-         lambda: model(cube), lambda: plain_forward(cube)),
-        ('phase 6 README chain', None,
+         lambda: change_detection(cube, 0.99, n=9), None, None, False),
+        ('phase 5 pipeline forward', None, mpix,
+         lambda: model(cube), lambda: plain_forward(cube), None, None,
+         False),
+        ('phase 6 README chain', None, mpix,
          lambda: omn.apply(nlm.apply(ds)),
          lambda: plain_omnibus(expand_stack(
              nlmeans_cuda.nlmeans_spatial_plain(cube, (2, 2), (1, 1), 2.0,
-                                                3.0)))),
+                                                3.0))), None, None, False),
     ]
-
-    for label, key, kern, plain in timed:
-        # plain, kernel, kernel, plain: both see the same card state
-        p1 = cuda_ms(plain)
-        k1 = cuda_ms(kern)
-        k2 = cuda_ms(kern)
-        p2 = cuda_ms(plain)
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        if key:
-            row_ms[key] = (k_ms, p_ms)
-        phase(8, '%-28s kernel %9.3f ms %9.1f Mpix/s | plain %9.3f ms '
-              '%9.1f Mpix/s | x%.2f | %s' % (label, k_ms, mpix / k_ms * 1e3,
-                                             p_ms, mpix / p_ms * 1e3,
-                                             p_ms / k_ms, card))
+    del ml_got, st_got
+    time_rows(8, timed)
     phase(8, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
@@ -435,7 +576,7 @@ def main():
     excess = float((diff - (1e-6 + 1e-5 * ref_nl3.abs())).max())
     check(bool(torch.isfinite(got).all()) and excess <= 0, 'nlmeans_3d',
           excess)
-    err['nlmeans_3d'] = float(diff.max())
+    err['nlmeans_3d'] = max(err['nlmeans_3d'], float(diff.max()))
     phase(9, 'nlmeans_3d r=(2,2,1) f=1 at %s: max abs diff %.3g (rtol 1e-5, '
           'atol 1e-6 held); plain version once %.1f ms'
           % (tuple(stack.shape), err['nlmeans_3d'], nl3_plain_ms))
@@ -472,22 +613,26 @@ def main():
         ref3 = conv_cuda.sepconv3_plain(c11v, *taps)
         torch.cuda.synchronize()
         diff = float((got - ref3).abs().max())
-        bound = 1e-6 * float(c11v.abs().max())
-        check(diff <= bound, 'sepconv3', label, diff, bound)
+        check(diff == 0, 'sepconv3', label, diff)
         err['sepconv3'] = max(err['sepconv3'], diff)
-        phase(9, 'sepconv3 %s at %s: max abs diff %.3g <= %.3g'
-              % (label, tuple(c11v.shape), diff, bound))
+        phase(9, 'sepconv3 %s at %s: max abs diff %.3g'
+              % (label, tuple(c11v.shape), diff))
     # path A's multilook: the two-axis kernel on the stacked variables
     x_stack_l = stack.permute(3, 0, 1, 2).contiguous()     # (4, y, x, t)
     got = conv_cuda.sepconv2(x_stack_l, box_taps[0], box_taps[1])
     ref3 = conv_cuda.sepconv2_plain(x_stack_l, box_taps[0], box_taps[1])
     torch.cuda.synchronize()
     diff = float((got - ref3).abs().max())
-    bound = 1e-6 * float(x_stack_l.abs().max())
-    check(diff <= bound, 'sepconv path A multilook', diff, bound)
+    check(diff == 0, 'sepconv path A multilook', diff)
     err['sepconv'] = max(err['sepconv'], diff)
-    phase(9, 'sepconv (4,y,x,t) boxcar w=3 at %s: max abs diff %.3g <= %.3g'
-          % (tuple(x_stack_l.shape), diff, bound))
+    phase(9, 'sepconv (4,y,x,t) boxcar w=3 at %s: max abs diff %.3g'
+          % (tuple(x_stack_l.shape), diff))
+    # the yardsticks' reference outputs (the kernels, checked above)
+    lib_calls = {
+        'gauss': yardstick(c11v, (gauss_taps,) * 3,
+                           conv_cuda.sepconv3(c11v, *(gauss_taps,) * 3)),
+        'box3': yardstick(c11v, tuple(box3), conv_cuda.sepconv3(c11v, *box3)),
+        'ml56': yardstick(x_stack_l, box_taps, got)}
     del got, ref3
 
     # ---- 10. path A: the long-stack chain, counted ---------------------------------
@@ -565,15 +710,14 @@ def main():
     torch.cuda.synchronize()
     counts_c = read_counts()
     check(counts_c['sepconv3'] >= 2, 'path C kernels', counts_c)
-    bound = 1e-6 * float(c11v.abs().max())
     for label, out, taps in (('GaussianFilter', smooth, (gauss_taps,) * 3),
                              ('BoxcarFilter', boxed, tuple(box3))):
         ref3 = conv_cuda.sepconv3_plain(c11v, *taps).reshape(NY, NX, KL)
         diff = float((out.data - ref3).abs().max())
-        check(out.dims == ('y', 'x', 'time') and diff <= bound,
-              'path C', label, out.dims, diff, bound)
-        phase(12, 'path C %s(dims=(y,x,time)): max abs diff %.3g <= %.3g vs '
-              'the plain three-axis pass' % (label, diff, bound))
+        check(out.dims == ('y', 'x', 'time') and diff == 0,
+              'path C', label, out.dims, diff)
+        phase(12, 'path C %s(dims=(y,x,time)): max abs diff %.3g vs the '
+              'plain three-axis pass' % (label, diff))
     phase(12, 'path C launches %s' % json.dumps(counts_c))
     del smooth, boxed, ref3
 
@@ -594,67 +738,59 @@ def main():
         conv_cuda.sepconv3_plain(c11v, *box3)
 
     long_timed = [
-        # label, key, mpix, kernel route, plain route, plain once
+        # label, key, Mpix, kernel, plain, bound, yardstick, plain once
         ('sepconv3 gaussian (y,x,t)', 'sepconv3', mpix_l,
          lambda: conv_cuda.sepconv3(c11v, *(gauss_taps,) * 3),
-         lambda: conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3), False),
+         lambda: conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3),
+         sepconv_bound(c11v, *(gauss_taps,) * 3), lib_calls['gauss'], False),
         ('sepconv3 boxcar (y,x,t)', None, mpix_l,
          lambda: conv_cuda.sepconv3(c11v, *box3),
-         lambda: conv_cuda.sepconv3_plain(c11v, *box3), False),
+         lambda: conv_cuda.sepconv3_plain(c11v, *box3),
+         sepconv_bound(c11v, *box3), lib_calls['box3'], False),
         ('sepconv (4,y,x,t) k=56', None, mpix_l,
          lambda: conv_cuda.sepconv2(x_stack_l, *box_taps),
-         lambda: conv_cuda.sepconv2_plain(x_stack_l, *box_taps), False),
+         lambda: conv_cuda.sepconv2_plain(x_stack_l, *box_taps),
+         sepconv_bound(x_stack_l, *box_taps), lib_calls['ml56'], False),
         ('nlmeans_3d r=(2,2,1) f=1', 'nlmeans_3d', mpix_l,
          lambda: nlmeans_cuda.nlmeans_3d(stack, r3, f3, 2.0, 3.0),
          lambda: nlmeans_cuda.nlmeans_3d_plain(stack, r3, f3, 2.0, 3.0),
-         True),
+         nlmeans_bound(stack, r3, f3), None, True),
         ('omnibus_scan k=56', 'omnibus_scan', mpix_l,
          lambda: change_scan_cuda.change_detection_scan(
              stack, 0.99, n=9, return_packed=True),
-         lambda: change_scan_cuda.scan_plain(stack, tabs56, 9.0), True),
+         lambda: change_scan_cuda.scan_plain(stack, tabs56, 9.0),
+         omnibus_bound(stack, (KL + 30) // 31), None, True),
         ('omnibus round k=56 capped', None, mpix_l,
          lambda: change_cuda.change_detection_fast(
              stack, 0.99, n=9, return_margin=True, return_packed=True,
-             max_rounds=cap56), None, False),
+             max_rounds=cap56), None,
+         omnibus_bound(stack, (KL + 30) // 31), None, False),
         ('omnibus_scan k=200', None, mpix_b,
          lambda: change_scan_cuda.change_detection_scan(
              bcube, 0.99, n=9, return_packed=True),
-         lambda: change_scan_cuda.scan_plain(bcube, tabs200, 9.0), True),
+         lambda: change_scan_cuda.scan_plain(bcube, tabs200, 9.0),
+         omnibus_bound(bcube, (BK + 30) // 31), None, True),
         ('path A long-stack chain', None, mpix_l,
-         lambda: omn3.apply(nlm3.apply(ds_long)), plain_chain_a, True),
+         lambda: omn3.apply(nlm3.apply(ds_long)), plain_chain_a, None, None,
+         True),
         ('path B exact k=200', None, mpix_b,
          lambda: change_detection_exact(bcube, 0.99, n=9, margin_eps=1e-4),
-         lambda: change_detection(bcube, 0.99, n=9), True),
+         lambda: change_detection(bcube, 0.99, n=9), None, None, True),
         ('path C Gaussian + boxcar', None, mpix_l,
          lambda: (gauss_f.apply(c11_da), box_f.apply(c11_da)), plain_c,
-         False),
+         None, None, False),
     ]
-    for label, key, mp, kern, plain, slow in long_timed:
-        reps, warm = (3, 1) if slow else (7, 2)
-        if plain is None:
-            k_ms, p_ms = cuda_ms(kern, reps, warm), float('nan')
-        else:
-            p1 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps, warm)
-            k1 = cuda_ms(kern, reps, warm)
-            k2 = cuda_ms(kern, reps, warm)
-            p2 = cuda_ms(plain, 1, 0) if slow else cuda_ms(plain, reps, warm)
-            k_ms, p_ms = min(k1, k2), min(p1, p2)
-        if key:
-            row_ms[key] = (k_ms, p_ms)
-        phase(13, '%-28s kernel %9.3f ms %9.1f Mpix/s | plain %9.3f ms '
-              '%9.1f Mpix/s | x%.2f | %s' % (label, k_ms, mp / k_ms * 1e3,
-                                             p_ms, mp / p_ms * 1e3,
-                                             p_ms / k_ms, card))
+    time_rows(13, long_timed)
+    del lib_calls
     phase(13, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c))
               for name in KERNELS}
-    kernels = [{'name': name, 'route': 'cuda', 'source': src,
-                'replaces': tpu, 'launches': totals[name],
-                'max_abs_err': err[name], 'ms': row_ms[name][0],
-                'plain_ms': row_ms[name][1]}
+    kernels = [dict({'name': name, 'route': 'cuda', 'source': src,
+                     'replaces': tpu, 'launches': totals[name],
+                     'max_abs_err': err[name]}, **row_ms[name])
                for name, (src, tpu, _, _) in KERNELS.items()]
     print(json.dumps({'kernels': kernels}))
     print(card)

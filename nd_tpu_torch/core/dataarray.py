@@ -47,7 +47,7 @@ class _CoordsView:
         return ((k, self[k]) for k in self._obj._coords)
 
 
-def _coerce_coord(name, value):
+def _coerce_coord(name, value, device=None):
     if isinstance(value, Variable):
         return value
     if isinstance(value, DataArray):
@@ -55,8 +55,8 @@ def _coerce_coord(name, value):
     if isinstance(value, tuple) and len(value) in (2, 3) \
             and isinstance(value[0], (tuple, list, str)):
         return Variable(value[0], value[1],
-                        value[2] if len(value) == 3 else None)
-    arr = as_array(value)
+                        value[2] if len(value) == 3 else None, device)
+    arr = as_array(value, device)
     if arr.ndim == 0:
         return Variable((), arr)
     if arr.ndim == 1:
@@ -73,10 +73,15 @@ def _check_sizes(sizes, var, what):
 
 
 class DataArray:
-    """A labelled n-dimensional tensor with coordinates and attributes."""
+    """A labelled n-dimensional tensor with coordinates and attributes.
 
-    def __init__(self, data, coords=None, dims=None, attrs=None, name=None):
-        data = as_array(data)
+    Numeric non-tensor ``data`` and coordinates land on ``device``
+    (default ``cuda``); a tensor stays on its device.
+    """
+
+    def __init__(self, data, coords=None, dims=None, attrs=None, name=None,
+                 device=None):
+        data = as_array(data, device)
         if dims is None:
             dims = tuple('dim_%d' % i for i in range(data.ndim))
         self.variable = Variable(dims, data)
@@ -84,7 +89,7 @@ class DataArray:
         self.attrs = dict(attrs) if attrs else {}
         self.name = name
         for k, v in dict(coords or {}).items():
-            self._set_coord(k, v)
+            self._set_coord(k, v, device)
 
     @classmethod
     def _from_parts(cls, variable, coords, attrs, name):
@@ -95,8 +100,8 @@ class DataArray:
         obj.name = name
         return obj
 
-    def _set_coord(self, key, value):
-        var = _coerce_coord(key, value)
+    def _set_coord(self, key, value, device=None):
+        var = _coerce_coord(key, value, device)
         _check_sizes(self.sizes, var, 'coordinate %r' % key)
         self._coords[key] = var
 
@@ -197,19 +202,23 @@ class DataArray:
 
 
 class Dataset:
-    """A dict of DataArrays sharing dimensions and coordinates."""
+    """A dict of DataArrays sharing dimensions and coordinates.
 
-    def __init__(self, data_vars=None, coords=None, attrs=None):
+    Numeric non-tensor data variables and coordinates land on ``device``
+    (default ``cuda``); a tensor stays on its device.
+    """
+
+    def __init__(self, data_vars=None, coords=None, attrs=None, device=None):
         self._variables = {}
         self._coords = {}
         self.attrs = dict(attrs) if attrs else {}
         for k, v in dict(coords or {}).items():
-            self._set_coord(k, v)
+            self._set_coord(k, v, device)
         for k, v in dict(data_vars or {}).items():
-            self[k] = v
+            self._assign(k, v, device)
 
-    def _set_coord(self, key, value):
-        var = _coerce_coord(key, value)
+    def _set_coord(self, key, value, device=None):
+        var = _coerce_coord(key, value, device)
         _check_sizes(self.sizes, var, 'coordinate %r' % key)
         self._coords[key] = var
 
@@ -263,6 +272,9 @@ class Dataset:
         raise KeyError(key)
 
     def __setitem__(self, key, value):
+        self._assign(key, value)
+
+    def _assign(self, key, value, device=None):
         if isinstance(value, DataArray):
             var = Variable(value.dims, value.data, value.attrs)
             for ck, cv in value._coords.items():
@@ -271,7 +283,7 @@ class Dataset:
             var = value
         elif isinstance(value, tuple) and len(value) in (2, 3):
             var = Variable(value[0], value[1],
-                           value[2] if len(value) == 3 else None)
+                           value[2] if len(value) == 3 else None, device)
         else:
             raise TypeError('cannot assign %r to a Dataset variable; use '
                             '(dims, data) or a DataArray' % type(value))
@@ -358,21 +370,20 @@ def expand_variables_da(da, dim='variable'):
 def from_jax_dataset(obj, device=None):
     """Convert any object with the JAX package's Dataset surface
     (``data_vars``, ``ds[v].dims``, ``ds[v].values``, ``attrs``,
-    ``coords``) into a :class:`Dataset`, data variables as tensors on
-    ``device`` (default CPU). Read by duck typing: the JAX package is
-    not imported."""
-    device = torch.device(device) if device is not None \
-        else torch.device('cpu')
+    ``coords``) into a :class:`Dataset`, data variables and numeric
+    coordinates as tensors on ``device`` (default ``cuda``). Read by
+    duck typing: the JAX package is not imported."""
     ds = Dataset(attrs=dict(getattr(obj, 'attrs', {}) or {}))
     coords = getattr(obj, 'coords', None)
     if coords is not None:
         for k in list(coords.keys()):
             c = coords[k]
             ds._coords[k] = Variable(tuple(c.dims), np.asarray(c.values),
-                                     dict(getattr(c, 'attrs', {}) or {}))
+                                     dict(getattr(c, 'attrs', {}) or {}),
+                                     device)
     for v in obj.data_vars:
         da = obj[v]
-        data = torch.from_numpy(np.array(da.values, copy=True, order='C'))
-        ds[v] = Variable(tuple(da.dims), data.to(device),
-                         dict(getattr(da, 'attrs', {}) or {}))
+        data = np.array(da.values, copy=True, order='C')
+        ds[v] = Variable(tuple(da.dims), data,
+                         dict(getattr(da, 'attrs', {}) or {}), device)
     return ds

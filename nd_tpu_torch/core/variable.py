@@ -2,10 +2,11 @@
 
 Counterpart of ``nd_tpu/core/variable.py``. A ``Variable`` pairs a
 ``torch.Tensor`` with named dimensions. Numeric numpy input becomes a
-tensor on the CPU (``torch.from_numpy``, no copy); non-numeric
-coordinate arrays (datetimes, strings) stay numpy. A tensor stays on the
-device its caller put it on: nothing here moves data between devices,
-and ``.values`` is the only API that copies to the host.
+tensor on the card (``cuda``) unless the caller names another ``device``,
+as the JAX package puts such input on its default device, the
+accelerator; non-numeric coordinate arrays (datetimes, strings) stay
+numpy. A tensor stays on the device its caller put it on, and
+``.values`` is the only API that copies to the host.
 """
 
 from __future__ import annotations
@@ -13,19 +14,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['Variable', 'as_array']
+__all__ = ['Variable', 'as_array', 'as_tensor']
+
+DEFAULT_DEVICE = 'cuda'
 
 
-def as_array(data):
-    """Coerce input to a tensor (numeric data) or a numpy array (other
-    data), without copying tensors."""
+def as_tensor(data, device=None):
+    """``data`` as a tensor: a tensor stays on its device; anything else
+    (numpy, scalars, lists) lands on ``device``, by default ``cuda``.
+    There is no check for a card: without one the default raises
+    PyTorch's own error, and nothing falls back to the CPU."""
+    if isinstance(data, torch.Tensor):
+        return data
+    device = torch.device(DEFAULT_DEVICE if device is None else device)
+    if device.type == 'cpu' and isinstance(data, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(data))   # no copy
+    return torch.as_tensor(np.asarray(data), device=device)
+
+
+def as_array(data, device=None):
+    """Coerce input to a tensor (numeric data, on ``device``: see
+    :func:`as_tensor`) or a numpy array (other data), without copying
+    tensors."""
     if isinstance(data, torch.Tensor):
         return data
     if isinstance(data, Variable):
         return data.data
     arr = np.asarray(data)
     if arr.dtype.kind in 'biufc':
-        return torch.from_numpy(np.ascontiguousarray(arr))
+        return as_tensor(arr, device)
     if arr.dtype == object:
         try:
             arr = np.asarray(data, dtype='datetime64[ns]')
@@ -48,14 +65,16 @@ class Variable:
     dims : tuple of str
     data : torch.Tensor or array-like
     attrs : dict, optional
+    device : torch.device or str, optional
+        Where numeric non-tensor ``data`` lands (default ``cuda``).
     """
 
     __slots__ = ('dims', 'data', 'attrs')
 
-    def __init__(self, dims, data, attrs=None):
+    def __init__(self, dims, data, attrs=None, device=None):
         if isinstance(dims, str):
             dims = (dims,)
-        data = as_array(data)
+        data = as_array(data, device)
         dims = tuple(dims)
         if len(dims) != data.ndim:
             raise ValueError('dimensions %r do not match array of shape %r'

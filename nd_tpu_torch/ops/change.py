@@ -30,6 +30,8 @@ import functools
 import numpy as np
 import torch
 
+from ..core.variable import as_tensor
+
 __all__ = ['omnibus_rho', 'omnibus_thresholds', 'change_detection',
            'change_detection_exact', 'pack_flags']
 
@@ -92,7 +94,7 @@ _DTYPES = {'float32': torch.float32, 'float64': torch.float64,
            torch.float32: torch.float32, torch.float64: torch.float64}
 
 
-def change_detection(values, alpha, n=1, stat_dtype='mixed'):
+def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
     """Iterative omnibus change-point detection in PyTorch operations.
 
     Parameters
@@ -111,12 +113,15 @@ def change_detection(values, alpha, n=1, stat_dtype='mixed'):
         running sums accumulate strictly left to right (one addition
         per time step), so the decisions are a function of each pixel's
         series alone, whatever the batch shape or device.
+    device : torch.device or str, optional
+        Where non-tensor ``values`` land (default ``cuda``); a tensor
+        stays on its device.
 
     Returns
     -------
     bool tensor, shape (y, x, time), on ``values``' device
     """
-    values = torch.as_tensor(values)
+    values = as_tensor(values, device)
     if not values.is_floating_point():
         values = values.to(torch.float32)
     if stat_dtype == 'mixed':
@@ -258,7 +263,7 @@ def _exact_packed(values, alpha, n, margin_eps):
 
 
 def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
-                           return_count=False):
+                           return_count=False, device=None):
     """Exact change detection: the decisions of ``change_detection(...,
     stat_dtype='mixed')`` at about the kernels' cost.
 
@@ -287,10 +292,11 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     here. The decisions are the same.
 
     Returns a (y, x, time) bool tensor on ``values``' device (and the
-    suspect count with ``return_count``).
+    suspect count with ``return_count``). Non-tensor ``values`` land on
+    ``device`` (default ``cuda``).
     """
     from .change_cuda import supports_rescan, unpack_flags
-    values = torch.as_tensor(values)
+    values = as_tensor(values, device)
     if not values.is_floating_point():
         values = values.to(torch.float32)
     ny, nx, k, _ = values.shape

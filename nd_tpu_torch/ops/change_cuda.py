@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core.variable import as_tensor
 from .change import _P, omnibus_rho, omnibus_thresholds
 
 __all__ = ['change_detection_fast', 'omnibus_plain', 'unpack_flags',
@@ -248,7 +249,7 @@ def unpack_flags(packed, k):
 
 
 def change_detection_fast(values, alpha, n=1, return_margin=False,
-                          return_packed=False, max_rounds=None):
+                          return_packed=False, max_rounds=None, device=None):
     """Fast (f32) omnibus change detection: values (y, x, time, 4) ->
     (y, x, time) bool, or with ``return_packed`` the (P, y, x) int32
     planes; with ``return_margin`` also the (y, x) float32 margins.
@@ -256,9 +257,10 @@ def change_detection_fast(values, alpha, n=1, return_margin=False,
     ``max_rounds`` caps the restart rounds; a pixel still active at the
     cap has incomplete flags and gets margin -inf, so a cap below k-1
     requires ``return_margin`` (the caller must rescan those pixels).
-    Float64 input is cast to float32 for the scan.
+    Float64 input is cast to float32 for the scan. Non-tensor ``values``
+    land on ``device`` (default ``cuda``).
     """
-    values = torch.as_tensor(values)
+    values = as_tensor(values, device)
     if values.ndim != 4 or values.shape[3] != 4:
         raise ValueError('values must be (y, x, time, 4)')
     ny, nx, k, _ = values.shape

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core.variable import as_tensor
 from .change import _P, omnibus_rho, omnibus_thresholds
 from .change_cuda import _mlog, unpack_flags
 
@@ -288,7 +289,8 @@ def _check_length(k):
                          % (k, K_SCAN_MAX))
 
 
-def change_detection_scan(values, alpha, n=1, return_packed=False):
+def change_detection_scan(values, alpha, n=1, return_packed=False,
+                          device=None):
     """Long-series omnibus change detection with decision margins.
 
     Same decision semantics as :func:`ops.change.change_detection` with
@@ -301,9 +303,10 @@ def change_detection_scan(values, alpha, n=1, return_packed=False):
     ``return_packed``, and the (y, x) float32 margin. Float64 input is
     cast to float32. Raises ``ValueError`` for k < 3, k > ``K_SCAN_MAX``
     or an (n, alpha) whose folded thresholds are infeasible
-    (:func:`scan_tables` returns None).
+    (:func:`scan_tables` returns None). Non-tensor ``values`` land on
+    ``device`` (default ``cuda``).
     """
-    values = torch.as_tensor(values)
+    values = as_tensor(values, device)
     if values.ndim != 4 or values.shape[3] != 4:
         raise ValueError('values must be (y, x, time, 4)')
     ny, nx, k, _ = values.shape

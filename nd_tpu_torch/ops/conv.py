@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.variable import as_tensor
+
 __all__ = ['convolve', 'separable_convolve', 'gaussian_kernel1d',
            'pad_reflect']
 
@@ -195,7 +197,7 @@ def _fused_three_axis(arr, pairs, mode, cval):
     return out.reshape(shape)
 
 
-def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
+def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
     """Convolve ``arr`` with a separable ``kernel`` along ``axes``.
 
     Matches ``scipy.ndimage.convolve`` semantics (kernel flip, origin at
@@ -210,8 +212,11 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
         Axes to filter (default: all).
     mode : str, optional
         scipy.ndimage boundary mode (default 'reflect').
+    device : torch.device or str, optional
+        Where non-tensor ``arr`` lands (default ``cuda``); a tensor stays
+        on its device.
     """
-    arr = torch.as_tensor(arr)
+    arr = as_tensor(arr, device)
     kernel = np.asarray(kernel)
     if axes is None:
         axes = tuple(range(arr.ndim))
@@ -269,7 +274,8 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0):
     return out
 
 
-def separable_convolve(arr, kernels, axes, mode='reflect', cval=0.0):
+def separable_convolve(arr, kernels, axes, mode='reflect', cval=0.0,
+                       device=None):
     """Apply a sequence of 1-d kernels along the given axes (scipy
     ``convolve1d`` semantics per axis).
 
@@ -277,9 +283,9 @@ def separable_convolve(arr, kernels, axes, mode='reflect', cval=0.0):
     three-axis kernel (time first), unless the mode is 'constant' with
     cval != 0: there each stage re-pads with cval, which only sequential
     passes give. Otherwise one ``convolve`` per axis, in the given
-    order.
+    order. Non-tensor ``arr`` lands on ``device`` (default ``cuda``).
     """
-    arr = torch.as_tensor(arr)
+    arr = as_tensor(arr, device)
     active = [(int(ax) % arr.ndim, np.asarray(k, np.float64))
               for ax, k in zip(axes, kernels) if np.shape(k)[0] > 1]
     if not active:

@@ -1,19 +1,20 @@
 """Separable VALID correlation over two or three adjacent axes: the
-``sepconv`` CUDA kernels (``csrc/sepconv.cu``) and their plain PyTorch
-versions.
+tiled ``sepconv`` CUDA kernel (``csrc/sepconv.cu``) behind two entry
+points, and their plain PyTorch versions.
 
-  - ``sepconv2``: two axes of an ``(outer, n0, n1, inner)`` view.
-    Replaces ``nd_tpu/ops/conv_pallas.py`` ``padless_convolve``,
+  - ``sepconv2``: two axes of an ``(outer, n0, n1, inner)`` view (the
+    kernel with one tap of weight 1 on its third axis). Replaces
+    ``nd_tpu/ops/conv_pallas.py`` ``padless_convolve``,
     ``rowfused_convolve`` and the two-axis case of
     ``separable_convolve_pallas``.
   - ``sepconv3``: three axes of an ``(n0, n1, n2, inner)`` view, n2
     (time) first, then n0, then n1. Replaces the three-axis case of
     ``separable_convolve_pallas``.
 
-On the H100 the kernels are bound by device-memory bytes (one read and
-one write per element) and, with many taps, by the L1 reads of the
-window; they rebuild the boundary by index mapping instead of writing a
-padded copy. See the source for the design.
+On the H100 the kernel is bound by device-memory bytes (one read and one
+write per element). Each block stages a tile's raw halo box in shared
+memory (cp.async, the boundary mapped only on edge tiles) and runs the
+passes there; no padded copy is written. See the source for the design.
 
 Each entry point runs its kernel for a CUDA tensor and the plain version
 for a CPU tensor; for any other device, dtype or layout it raises.
@@ -22,6 +23,8 @@ Launches are counted per entry point: ``launches`` (two axes) and
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -47,10 +50,18 @@ def reset_launches():
 
 
 def _taps(taps):
-    t = np.ascontiguousarray(np.asarray(taps, np.float64).ravel())
+    """(float64 taps, uniform, apply_scale) for the kernel, cached per tap
+    vector: the analysis costs more host time than a small launch."""
+    return _taps_of(tuple(np.asarray(taps, np.float64).ravel().tolist()))
+
+
+@functools.lru_cache(maxsize=256)
+def _taps_of(taps):
+    t = np.ascontiguousarray(taps, np.float64)
     if not 1 <= t.size <= MAX_TAPS:
         raise ValueError('sepconv takes 1..%d taps per axis, got %d'
                          % (MAX_TAPS, t.size))
+    t.flags.writeable = False
     uniform = bool(np.allclose(t, t[0]))
     return t, uniform, uniform and t[0] != 1.0
 

@@ -8,9 +8,10 @@ boundary, weight ``exp(-max(dsq/dsq_norm - 2 sigma^2, 0)/h^2)`` with
 On a CUDA tensor every window runs through the ``nlmeans`` CUDA kernel
 (``ops/nlmeans_cuda.py``): spatial windows (``r[2] = f[2] = 0``) through
 ``nlmeans_spatial``, temporal and full 3-D windows through
-``nlmeans_3d``. ``nlmeans_plain`` is the plain version: one pass per
-neighbourhood offset with shifted squared differences and ``(2f+1)``
-patch box sums.
+``nlmeans_3d``. ``nlmeans_plain`` is the plain version, in the kernel's
+order: one pass per unordered offset pair with shifted squared
+differences, separable ``(2f+1)`` patch sums and both directions of the
+pair added from one weight plane.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..core.variable import as_tensor
 from .conv import pad_reflect
 
 __all__ = ['nlmeans', 'nlmeans_plain', 'find_weight_vectorized']
@@ -45,11 +47,29 @@ def _check_pads(shape, r, f):
                 % (pad, i, shape[i]))
 
 
+def _block(x, start, size):
+    return x[start[0]:start[0] + size[0], start[1]:start[1] + size[1],
+             start[2]:start[2] + size[2]]
+
+
+def _box(x, k, axis):
+    """Sum of ``k`` consecutive samples along ``axis`` ('valid'), added
+    left to right: the kernel's patch-sum order."""
+    n = x.shape[axis] - k + 1
+    acc = x.narrow(axis, 0, n)
+    for u in range(1, k):
+        acc = acc + x.narrow(axis, u, n)
+    return acc
+
+
 def nlmeans_plain(arr, r, f, sigma, h, n_eff=-1.0):
     """Plain PyTorch NLMeans of a ``(d0, d1, d2, var)`` tensor with a
-    3-d window (``r``/``f`` per axis). Sums run in a fixed order: the
-    squared differences over the variables, then the patch window in
-    row-major order — the kernel's order."""
+    3-d window (``r``/``f`` per axis), in the kernel's order: each
+    unordered offset pair ``D > 0`` (row-major over (d0, d1, d2)) once,
+    its squared differences summed over the variables, the patch sum as
+    separable passes over d2, then d0, then d1, one weight per
+    D-extended position, then the forward weight (pair ``(o, o+D)``)
+    and the backward one (``(o-D, o)``) added at each output."""
     r = tuple(int(v) for v in r)
     f = tuple(int(v) for v in f)
     D = tuple(arr.shape[:3])
@@ -58,15 +78,10 @@ def nlmeans_plain(arr, r, f, sigma, h, n_eff=-1.0):
     pad = tuple(ri + fi for ri, fi in zip(r, f))
     # numpy 'reflect' (edge excluded) is scipy's 'mirror'
     P = pad_reflect(arr, [(p, p) for p in pad] + [(0, 0)], mode='mirror')
-    offsets = [off for off in itertools.product(
-        *[range(-ri, ri + 1) for ri in r]) if off != (0, 0, 0)]
-    if not offsets:
+    half = [off for off in itertools.product(
+        *[range(-ri, ri + 1) for ri in r]) if off > (0, 0, 0)]
+    if not half:
         return arr
-
-    def block(start, size):
-        return P[start[0]:start[0] + size[0],
-                 start[1]:start[1] + size[1],
-                 start[2]:start[2] + size[2]]
 
     dtype, dev = arr.dtype, arr.device
     dsq_norm = torch.tensor(float(nvars * np.prod([2 * fi + 1 for fi in f])),
@@ -74,36 +89,41 @@ def nlmeans_plain(arr, r, f, sigma, h, n_eff=-1.0):
     two_sigma2 = torch.tensor(2.0 * float(sigma) ** 2, dtype=dtype,
                               device=dev)
     inv_h2 = torch.tensor(1.0 / float(h) ** 2, dtype=dtype, device=dev)
-    base_lo = tuple(pi - fi for pi, fi in zip(pad, f))
-    ext = tuple(d + 2 * fi for d, fi in zip(D, f))
-    A1 = block(base_lo, ext)
-    window = list(itertools.product(*[range(2 * fi + 1) for fi in f]))
 
-    center = block(pad, D)
+    center = _block(P, pad, D)
     wsum = torch.zeros(D, dtype=dtype, device=dev)
     wsq = torch.zeros_like(wsum)
     wmax = torch.zeros_like(wsum)
     out = torch.zeros_like(center)
-    for off in offsets:
-        A2 = block(tuple(b + o for b, o in zip(base_lo, off)), ext)
-        d = A1 - A2
-        sq = d[..., 0] * d[..., 0]
+    for d in half:
+        # left pixels q of the pairs (q, q+D): o (forward) and o-D
+        # (backward), per axis [lo, lo + D + |d|) with lo = -max(d, 0),
+        # widened by f for the patch
+        lo = tuple(-max(di, 0) for di in d)
+        ext = tuple(n + abs(di) for n, di in zip(D, d))
+        start = tuple(p + l - fi for p, l, fi in zip(pad, lo, f))
+        size = tuple(e + 2 * fi for e, fi in zip(ext, f))
+        diff = _block(P, start, size) - _block(
+            P, tuple(s + di for s, di in zip(start, d)), size)
+        sq = diff[..., 0] * diff[..., 0]
         for v in range(1, nvars):
-            sq = sq + d[..., v] * d[..., v]
-        patch = None
-        for u in window:
-            term = sq[u[0]:u[0] + D[0], u[1]:u[1] + D[1],
-                      u[2]:u[2] + D[2]]
-            patch = term if patch is None else patch + term
-        dsq = patch / dsq_norm
-        w = torch.exp(-torch.clamp_min(dsq - two_sigma2, 0) * inv_h2)
-        vals = block(tuple(p + o for p, o in zip(pad, off)), D)
-        wsum = wsum + w
-        if n_eff >= 0:
-            wsq = wsq + w * w
-        else:
-            wmax = torch.maximum(wmax, w)
-        out = out + w[..., None] * vals
+            sq = sq + diff[..., v] * diff[..., v]
+        patch = _box(_box(_box(sq, 2 * f[2] + 1, 2), 2 * f[0] + 1, 0),
+                     2 * f[1] + 1, 1)
+        w_ext = torch.exp(-torch.clamp_min(patch / dsq_norm - two_sigma2, 0)
+                          * inv_h2)
+        for sgn in (1, -1):
+            # forward: q = o; backward: q = o - D
+            s0 = tuple(-l - (0 if sgn > 0 else di) for l, di in zip(lo, d))
+            w = _block(w_ext, s0, D)
+            vals = _block(P, tuple(p + sgn * di for p, di in zip(pad, d)),
+                          D)
+            wsum = wsum + w
+            if n_eff >= 0:
+                wsq = wsq + w * w
+            else:
+                wmax = torch.maximum(wmax, w)
+            out = out + w[..., None] * vals
 
     if n_eff < 0:
         w_self = torch.where(wmax == 0, torch.ones_like(wmax), wmax)
@@ -114,7 +134,7 @@ def nlmeans_plain(arr, r, f, sigma, h, n_eff=-1.0):
     return (out + w_self[..., None] * center) / total[..., None]
 
 
-def nlmeans(arr, r, f, sigma, h, n_eff=-1.0):
+def nlmeans(arr, r, f, sigma, h, n_eff=-1.0, device=None):
     """Non-local means over a 4-D ``(d0, d1, d2, var)`` tensor.
 
     Parameters
@@ -130,8 +150,11 @@ def nlmeans(arr, r, f, sigma, h, n_eff=-1.0):
         Noise standard deviation and filtering strength.
     n_eff : float, optional
         Effective sample size; -1 disables (default).
+    device : torch.device or str, optional
+        Where non-tensor ``arr`` lands (default ``cuda``); a tensor stays
+        on its device.
     """
-    arr = torch.as_tensor(arr)
+    arr = as_tensor(arr, device)
     if arr.ndim != 4:
         raise ValueError('nlmeans expects a 4-D (d0, d1, d2, var) array')
     r = tuple(int(v) for v in r)

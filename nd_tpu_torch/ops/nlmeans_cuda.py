@@ -9,11 +9,12 @@ and its plain PyTorch version, through two entry points.
     ``nlmeans_pallas`` (temporal and full 3-D windows).
 
 All three TPU variants share the body ``_kernel``; on the card one
-kernel serves both entry points (the spatial one is its r2 = f2 = 0
-case). On the H100 the kernel is bound by arithmetic and L1 traffic —
-offsets times patch pixels times nv variables per output — while device
-memory sees one read and one write of the cube. One thread per output
-(y, x, t); the reflect boundary is rebuilt by index mapping. See the
+tiled kernel serves both entry points (the spatial one is its r2 = f2 =
+0 case) and keeps that body's algorithm: each unordered offset pair
+once, separable patch sums, one exp per D-extended position used for
+both directions. On the H100 it is bound by arithmetic and shared-memory
+traffic; one block per output tile holds its reflect-mapped halo tile in
+shared memory. ``_tile_plan`` picks the tile from the shapes. See the
 source for the design.
 
 Each entry point runs the kernel for a CUDA tensor and the plain version
@@ -24,6 +25,10 @@ Launches are counted per entry point: ``launches`` (spatial) and
 
 from __future__ import annotations
 
+import functools
+import itertools
+
+import numpy as np
 import torch
 
 from .. import _build
@@ -58,19 +63,85 @@ def _check(arr, r, f, name):
                              '(%d)' % (ri + fi, i, arr.shape[i]))
 
 
+OUTS_PER_THREAD = 2         # kOut in csrc/nlmeans.cu
+SMEM_MAX = 232448           # shared memory a block may use on the H100
+SMEM_BUDGET = 112 * 1024    # two blocks per SM
+_TILE_SIDES = (4, 8, 16, 32)
+_TILE_T = (1, 2, 4, 8, 16)
+
+
+def tile_smem(tile, r, f, nv, itemsize):
+    """Shared-memory bytes of a block of the kernel (``tile_smem`` in
+    csrc/nlmeans.cu): the (ty + 2(ry+fy), tx + 2(rx+fx), tt + 2(rt+ft))
+    halo tile of all ``nv`` variables, and two scratch planes of the
+    largest D-extended patch region (T + r + 2f per axis)."""
+    halo = 1
+    region = 1
+    for t, ri, fi in zip(tile, r, f):
+        halo *= t + 2 * (ri + fi)
+        region *= t + ri + 2 * fi
+    return (nv * halo + 2 * region) * itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(shape, r, f, itemsize):
+    """The output tile ``(ty, tx, tt)`` of one block and its shared
+    memory, chosen from the shapes: the least work per output — the
+    D-extended region a pair evaluates, averaged over the pairs, times
+    the share of outputs that fall outside a ragged array — among tiles
+    of 128 to 1024 outputs (64 to 512 threads, ``OUTS_PER_THREAD``
+    each) within ``SMEM_BUDGET`` (two blocks per SM), else the smallest
+    such tile within ``SMEM_MAX``. Ties take the smaller shared memory.
+    Returns ``dict(tile, threads, smem, blocks)``; raises ValueError
+    when no tile fits. Cached per call signature: the search costs
+    milliseconds of host time, more than a spatial launch."""
+    dims = tuple(int(v) for v in shape[:3])
+    nv = int(shape[3])
+    r = tuple(int(v) for v in r)
+    f = tuple(int(v) for v in f)
+    pairs = [d for d in itertools.product(*[range(-ri, ri + 1) for ri in r])
+             if d > (0, 0, 0)] or [(0, 0, 0)]
+    best = None
+    for tile in itertools.product(_TILE_SIDES, _TILE_SIDES, _TILE_T):
+        outs = tile[0] * tile[1] * tile[2]
+        if not 128 <= outs <= 512 * OUTS_PER_THREAD:
+            continue
+        smem = tile_smem(tile, r, f, nv, itemsize)
+        if smem > SMEM_MAX:
+            continue
+        work = sum(np.prod([t + abs(di) + 2 * fi for t, di, fi
+                            in zip(tile, d, f)]) for d in pairs)
+        covered = np.prod([-(-n // t) * t for n, t in zip(dims, tile)])
+        cost = work / len(pairs) / outs * covered / np.prod(dims)
+        key = (smem > SMEM_BUDGET, cost if smem <= SMEM_BUDGET else smem,
+               smem)
+        if best is None or key < best[0]:
+            best = (key, tile, smem)
+    if best is None:
+        raise ValueError('nlmeans: no tile fits the shared memory for %d '
+                         'variables at r=%r, f=%r' % (nv, r, f))
+    _, tile, smem = best
+    outs = tile[0] * tile[1] * tile[2]
+    blocks = int(np.prod([-(-n // t) for n, t in zip(dims, tile)]))
+    return dict(tile=tile, threads=outs // OUTS_PER_THREAD, smem=smem,
+                blocks=blocks)
+
+
 def _launch(arr, r, f, sigma, h, n_eff):
     """One launch of the kernel over a checked CUDA tensor; r and f are
     (r0, r1, r2) and (f0, f1, f2)."""
     ny, nx, nt, nv = arr.shape
+    plan = _tile_plan(tuple(arr.shape), tuple(r), tuple(f),
+                      arr.element_size())
     out = torch.empty_like(arr)
     name = 'nd_nlmeans_f32' if arr.dtype == torch.float32 \
         else 'nd_nlmeans_f64'
-    fn = _build.function(name, 'ppiiiiiiiiiidddp')
+    fn = _build.function(name, 'ppiiiiiiiiiiiiidddp')
     with torch.cuda.device(arr.device):
         stream = torch.cuda.current_stream(arr.device).cuda_stream
         err = fn(arr.data_ptr(), out.data_ptr(), ny, nx, nt, nv,
-                 r[0], r[1], r[2], f[0], f[1], f[2], float(sigma),
-                 float(h), float(n_eff), stream)
+                 r[0], r[1], r[2], f[0], f[1], f[2], *plan['tile'],
+                 float(sigma), float(h), float(n_eff), stream)
     _build.check(name, err)
     return out
 

@@ -1,5 +1,7 @@
-"""Helpers: variable selection, complex detection and the docstring and
-argument tooling that :func:`nd_tpu_torch.algorithm.wrap_algorithm` uses.
+"""Helpers: ``as_tensor`` (where non-tensor input lands: ``cuda`` unless
+the caller names a device), variable selection, complex detection and
+the docstring and argument tooling that
+:func:`nd_tpu_torch.algorithm.wrap_algorithm` uses.
 
 Counterpart of the matching parts of ``nd_tpu/utils.py``.
 """
@@ -14,8 +16,9 @@ import torch
 
 from .core import DataArray, Dataset
 from .core.dataarray import expand_variables_da
+from .core.variable import as_tensor
 
-__all__ = ['get_vars_for_dims', 'expand_variables', 'is_complex',
+__all__ = ['as_tensor', 'get_vars_for_dims', 'expand_variables', 'is_complex',
            'parse_docstring', 'assemble_docstring', 'extract_arguments']
 
 

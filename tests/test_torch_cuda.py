@@ -7,11 +7,13 @@ PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: sepconv (two and three axes) max abs diff <= 1e-6 max|x|
-(1e-13 in float64); NLMeans (spatial and 3-D windows) rtol 1e-5, atol
-1e-6 (float64: rtol 1e-12); omnibus flag mismatch rate <= 1e-5 and
-margins within 1e-4 relative; the long-series scan's flags and margins
-exactly equal to its plain version (the same f32 operations in the same
-order); exact and pipeline change maps exactly equal.
+(1e-13 in float64), and 0 for the tiled kernel against its plain version
+(the same operations in the same order); NLMeans (spatial and 3-D
+windows) rtol 1e-5, atol 1e-6 (float64: rtol 1e-12); omnibus flag
+mismatch rate <= 1e-5 and margins within 1e-4 relative; the long-series
+scan's flags and margins exactly equal to its plain version (the same
+f32 operations in the same order); exact and pipeline change maps
+exactly equal.
 """
 
 import os
@@ -23,7 +25,7 @@ import torch
 import nd_tpu_torch as ndt
 from nd_tpu_torch import _build
 from nd_tpu_torch.ops import change as tchange
-from nd_tpu_torch.core import Dataset
+from nd_tpu_torch.core import Dataset, from_jax_dataset
 from nd_tpu_torch.ops import change_cuda, change_scan_cuda, conv_cuda, \
     nlmeans_cuda
 from nd_tpu_torch.ops.conv import gaussian_kernel1d
@@ -268,3 +270,124 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         nlmeans_cuda.nlmeans_3d(
             torch.zeros(5, 5, 5, 1, device=cuda, dtype=torch.float16),
             (1, 1, 1), (1, 1, 1), 1.0, 1.0)
+
+
+# ---- the tiled NLMeans and sepconv kernels ---------------------------------
+
+@pytest.mark.parametrize('nv', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('window', ['spatial', '3d'])
+def test_tiled_nlmeans_matches_plain(cuda, nv, dtype, window):
+    # ragged tiles: 37 x 53 fits no tile shape
+    a = _data((37, 53, 5, nv), seed=20 + nv).to(cuda, dtype)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=1e-12, atol=1e-13)
+    for n_eff in (-1.0, 4.0):
+        if window == 'spatial':
+            got = nlmeans_cuda.nlmeans_spatial(a, (2, 2), (1, 1), 0.3, 0.4,
+                                               n_eff)
+            ref = nlmeans_cuda.nlmeans_spatial_plain(a, (2, 2), (1, 1), 0.3,
+                                                     0.4, n_eff)
+        else:
+            got = nlmeans_cuda.nlmeans_3d(a, (2, 2, 1), (1, 1, 1), 0.3, 0.4,
+                                          n_eff)
+            ref = nlmeans_cuda.nlmeans_3d_plain(a, (2, 2, 1), (1, 1, 1), 0.3,
+                                                0.4, n_eff)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),
+                                 ((1, 2, 0), (2, 1, 0)),
+                                 ((0, 1, 2), (1, 0, 1))])
+def test_tiled_nlmeans_dims_of_exactly_r_plus_f_plus_one(cuda, r, f):
+    shape = tuple(ri + fi + 1 for ri, fi in zip(r, f)) + (4,)
+    a = _data(shape, seed=27).to(cuda, torch.float32)
+    got = nlmeans_cuda.nlmeans_3d(a, r, f, 0.5, 0.7)
+    ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 0.5, 0.7)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def _sep_cases():
+    g = gaussian_kernel1d(1.0)
+    w64 = np.linspace(0.1, 1.0, 64)
+    return {
+        'one-axis': (np.array([0.2, 0.5, 0.3]), np.ones(1), None),
+        'two-axis': (np.ones(3) / 9, np.ones(3), None),
+        'gaussian': (g, g, None),
+        '64 taps': (w64, w64[::-1].copy(), None),
+        'three-axis': (g, np.ones(3) / 3, np.array([0.25, 0.5, 0.25])),
+        'three-axis 64 taps': (np.ones(3), w64, w64),
+        'one tap': (np.ones(1) * 0.5, np.ones(1), np.ones(1) * 2.0),
+    }
+
+
+@pytest.mark.parametrize('case', sorted(_sep_cases()))
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_tiled_sepconv_is_bit_equal_to_plain(cuda, case, mode, dtype):
+    t0, t1, t2 = _sep_cases()[case]
+    if t2 is None:
+        # the two-axis entry point, outer > 1 (the stacked layout)
+        a = _data((4, 37, 53, 7), seed=30).to(cuda, dtype)
+        before = conv_cuda.launches
+        got = conv_cuda.sepconv2(a, t0, t1, mode=mode, cval=0.5)
+        assert conv_cuda.launches == before + 1
+        ref = conv_cuda.sepconv2_plain(a, t0, t1, mode=mode, cval=0.5)
+    else:
+        a = _data((37, 53, 9, 2), seed=31).to(cuda, dtype)
+        before = conv_cuda.launches3
+        got = conv_cuda.sepconv3(a, t0, t1, t2, mode=mode, cval=0.5)
+        assert conv_cuda.launches3 == before + 1
+        ref = conv_cuda.sepconv3_plain(a, t0, t1, t2, mode=mode, cval=0.5)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) == 0.0
+
+
+def test_tiled_sepconv_unaligned_rows_and_pointers(cuda):
+    # odd row lengths and a view that starts off a 16-byte boundary take
+    # the element-wise copies
+    base = _data((1 + 3 * 31 * 29 * 5,), seed=32).to(cuda, torch.float32)
+    a = base[1:].reshape(3, 31, 29, 5)
+    t = np.array([0.25, 0.5, 0.25])
+    for mode in MODES:
+        got = conv_cuda.sepconv2(a, t, t, mode=mode, cval=1.5)
+        ref = conv_cuda.sepconv2_plain(a, t, t, mode=mode, cval=1.5)
+        assert float((got - ref).abs().max()) == 0.0
+
+
+class _DuckDataset:
+    """The JAX package's Dataset surface, read by from_jax_dataset."""
+
+    class _Var:
+        def __init__(self, dims, values):
+            self.dims, self.values, self.attrs = dims, values, {}
+
+    def __init__(self, cube):
+        self.attrs = {'source': 'test'}
+        self._vars = {v: self._Var(('y', 'x', 'time'), cube[..., i])
+                      for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                             'C22'))}
+        self.data_vars = list(self._vars)
+        self.coords = {'time': self._Var(('time',),
+                                         np.arange(cube.shape[2]))}
+
+    def __getitem__(self, key):
+        return self._vars[key]
+
+
+def test_numpy_input_lands_on_the_card_by_default(cuda):
+    cube = sar_cube(16, 20, 12, seed=33, special=False)
+    ds = Dataset({'C11': (('y', 'x', 'time'), cube[..., 0])})
+    assert ds['C11'].data.device.type == 'cuda'
+    jds = from_jax_dataset(_DuckDataset(cube))
+    assert all(jds[v].data.device.type == 'cuda' for v in jds.data_vars)
+    nlmeans_cuda.reset_launches()
+    flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3).apply(
+        jds)
+    change = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+    assert nlmeans_cuda.launches == 1 and change.data.device.type == 'cuda'
+    assert tchange.change_detection(cube, 0.99, n=9).device.type == 'cuda'
+    assert from_jax_dataset(_DuckDataset(cube), device='cpu')['C11'] \
+        .data.device.type == 'cpu'

@@ -1,0 +1,108 @@
+"""Where nd_tpu_torch's entry points put numpy input: on the card by
+default, as the JAX package puts it on its accelerator, and on the CPU
+only when the caller passes ``device='cpu'``. Without a card the default
+raises PyTorch's own error; nothing falls back to the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import nd_tpu_torch as ndt
+from nd_tpu_torch.core import DataArray, Dataset, Variable, from_jax_dataset
+from nd_tpu_torch.ops import change as tchange
+from nd_tpu_torch.ops import change_cuda, change_scan_cuda
+from nd_tpu_torch.ops import conv as tconv
+from nd_tpu_torch.ops import nlmeans as tnlmeans
+from nd_tpu_torch.utils import as_tensor
+from torch_cubes import long_stack_cube, sar_cube
+
+
+def _jax_dataset():
+    from nd_tpu.core import Dataset as JDataset
+    cube = sar_cube(6, 7, 4, seed=51, special=False)
+    return JDataset({v: (('y', 'x', 'time'), cube[..., i])
+                     for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                            'C22'))},
+                    coords={'time': np.arange(4), 'x': np.arange(7.0)})
+
+
+def _small():
+    return np.random.RandomState(52).rand(6, 7, 3, 2).astype(np.float32)
+
+
+# entry point -> a call with numpy input returning the tensors it made
+ENTRY_POINTS = {
+    'as_tensor': lambda **kw: [as_tensor(_small(), **kw)],
+    'Variable': lambda **kw: [Variable(('y', 'x'), np.ones((2, 3)),
+                                       **kw).data],
+    'DataArray': lambda **kw: [DataArray(np.ones((2, 3)), dims=('y', 'x'),
+                                         coords={'x': np.arange(3.0)},
+                                         **kw).data],
+    'Dataset': lambda **kw: (lambda ds: [ds['a'].data, ds['x'].data])(
+        Dataset({'a': (('y', 'x'), np.ones((2, 3)))},
+                coords={'x': np.arange(3.0)}, **kw)),
+    'from_jax_dataset': lambda **kw: (lambda ds: [ds['C11'].data,
+                                                  ds['x'].data])(
+        from_jax_dataset(_jax_dataset(), **kw)),
+    'nlmeans': lambda **kw: [tnlmeans.nlmeans(_small(), (1, 1, 0),
+                                              (1, 1, 0), 1.0, 1.0, **kw)],
+    'convolve': lambda **kw: [tconv.convolve(_small(), np.ones((3, 3)) / 9,
+                                             axes=(0, 1), **kw)],
+    'separable_convolve': lambda **kw: [tconv.separable_convolve(
+        _small()[..., 0], [np.ones(3) / 3] * 3, (0, 1, 2), **kw)],
+    'change_detection': lambda **kw: [tchange.change_detection(
+        sar_cube(4, 5, 6, seed=53, special=False), 0.9, n=9, **kw)],
+    'change_detection_exact': lambda **kw: [tchange.change_detection_exact(
+        sar_cube(4, 5, 6, seed=54, special=False), 0.9, n=9, **kw)],
+    'change_detection_fast': lambda **kw: [change_cuda.change_detection_fast(
+        sar_cube(4, 5, 6, seed=55, special=False), 0.9, n=9, **kw)],
+    'change_detection_scan': lambda **kw: list(
+        change_scan_cuda.change_detection_scan(
+            long_stack_cube(3, 4, 56, seed=56), 0.99, n=9, **kw)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(ENTRY_POINTS))
+def test_device_cpu_is_honoured(name):
+    tensors = ENTRY_POINTS[name](device='cpu')
+    assert tensors and all(isinstance(t, torch.Tensor)
+                           and t.device.type == 'cpu' for t in tensors)
+
+
+@pytest.mark.parametrize('name', sorted(ENTRY_POINTS))
+def test_numpy_input_does_not_stay_on_the_cpu(name):
+    if torch.cuda.is_available():
+        tensors = ENTRY_POINTS[name]()
+        assert all(t.device.type == 'cuda' for t in tensors)
+        return
+    # this PyTorch has no CUDA: the default device raises its own error
+    with pytest.raises((AssertionError, RuntimeError), match='CUDA'):
+        ENTRY_POINTS[name]()
+
+
+def test_tensors_stay_where_they_are():
+    x = torch.from_numpy(_small())
+    assert as_tensor(x) is x and as_tensor(x, device='meta') is x
+    assert Variable(('y', 'x', 't', 'v'), x).data is x
+    out = tnlmeans.nlmeans(x, (1, 1, 0), (1, 1, 0), 1.0, 1.0)
+    assert out.device.type == 'cpu'
+
+
+def test_non_numeric_coordinates_stay_numpy():
+    times = np.array(['2020-01-01', '2020-01-13'], dtype='datetime64[ns]')
+    ds = Dataset({'a': (('time',), torch.zeros(2))}, coords={'time': times})
+    assert isinstance(ds['time'].data, np.ndarray)
+    ds = from_jax_dataset(_jax_dataset(), device='cpu')
+    arr = ds[['C11', 'C22']].to_array()
+    assert isinstance(arr['variable'].data, np.ndarray)
+
+
+def test_readme_chain_from_numpy_on_the_cpu():
+    cube = sar_cube(10, 12, 6, seed=57, special=False)
+    ds = ndt.Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                      for i, v in enumerate(('C11', 'C12__re', 'C12__im',
+                                             'C22'))}, device='cpu')
+    flt = ndt.NLMeansFilter(dims=('y', 'x'), r=1, f=1, sigma=2,
+                            h=3).apply(ds)
+    change = ndt.OmnibusTest(ml=3, alpha=0.9).apply(flt)
+    assert change.data.device.type == 'cpu' and change.data.dtype == torch.bool

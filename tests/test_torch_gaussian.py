@@ -97,7 +97,8 @@ def test_filter_on_a_dataarray_matches_jax(kind, kw):
     jda = _jax_stack()['C11']
     ref = _make(kind, kw, jfilters).apply(jda)
     conv_cuda.reset_launches()
-    got = _make(kind, kw, ndt).apply(from_jax_dataset(_jax_stack())['C11'])
+    got = _make(kind, kw, ndt).apply(
+        from_jax_dataset(_jax_stack(), device='cpu')['C11'])
     assert got.dims == ref.dims
     np.testing.assert_allclose(got.values, ref.values, **F32)
     assert conv_cuda.launches3 == 0               # CPU: the plain version
@@ -109,7 +110,7 @@ def test_filter_on_a_dataset_matches_jax(kind, kw):
     # passes, as in nd_tpu
     jds = _jax_stack(seed=4)
     ref = _make(kind, kw, jfilters).apply(jds)
-    got = _make(kind, kw, ndt).apply(from_jax_dataset(jds))
+    got = _make(kind, kw, ndt).apply(from_jax_dataset(jds, device='cpu'))
     for v in NAMES:
         assert got[v].dims == ref[v].dims
         np.testing.assert_allclose(got[v].values, ref[v].values, **F32)

@@ -42,7 +42,7 @@ def test_long_stack_chain_matches_jax(monkeypatch):
         return real(values, *a, **kw)
 
     monkeypatch.setattr(change_scan_cuda, 'change_detection_scan', spy)
-    flt = ndt.NLMeansFilter(**NLM).apply(from_jax_dataset(jds))
+    flt = ndt.NLMeansFilter(**NLM).apply(from_jax_dataset(jds, device='cpu'))
     change = ndt.OmnibusTest(ml=3, alpha=0.99).apply(flt)
     assert calls == [(16, 24, 56, 4)]             # the long-series scan
 

@@ -133,7 +133,7 @@ def test_filter_apply_matches_jax(dims, r, f):
     jds = _jax_dataset()
     ref = JNLMeansFilter(dims=dims, r=r, f=f, sigma=2, h=3).apply(jds)
     got = NLMeansFilter(dims=dims, r=r, f=f, sigma=2, h=3).apply(
-        from_jax_dataset(jds))
+        from_jax_dataset(jds, device='cpu'))
     assert list(got.data_vars) == list(ref.data_vars)
     for v in ref.data_vars:
         assert got[v].dims == ref[v].dims
@@ -166,7 +166,7 @@ def test_3d_filter_apply_matches_jax():
     kw = dict(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1, sigma=2, h=3)
     ref = JNLMeansFilter(**kw).apply(jds)
     nlmeans_cuda.reset_launches()
-    got = NLMeansFilter(**kw).apply(from_jax_dataset(jds))
+    got = NLMeansFilter(**kw).apply(from_jax_dataset(jds, device='cpu'))
     assert nlmeans_cuda.launches_3d == 0          # CPU: the plain version
     for v in ref.data_vars:
         assert got[v].dims == ref[v].dims
@@ -185,3 +185,86 @@ def test_3d_checks():
     with pytest.raises(ValueError, match='cuda or cpu'):
         nlmeans_cuda.nlmeans_3d(a.to('meta'), (1, 1, 1), (1, 1, 1), 1.0,
                                 1.0)
+
+
+PLAN_CASES = [((1024, 1024, 56, 4), (2, 2, 1), (1, 1, 1)),   # path A
+              ((1024, 1024, 12, 4), (2, 2, 0), (2, 2, 0)),
+              ((1024, 1024, 12, 4), (2, 2, 0), (1, 1, 0)),
+              ((1024, 1024, 12, 4), (1, 1, 0), (1, 1, 0)),
+              ((37, 53, 5, 4), (2, 2, 1), (1, 1, 1)),         # ragged
+              ((4, 4, 3, 5), (2, 2, 1), (1, 1, 1)),           # r+f+1 dims
+              ((21, 37, 3, 6), (2, 2, 0), (2, 2, 0))]         # generic nv
+
+
+@pytest.mark.parametrize('shape,r,f', PLAN_CASES)
+@pytest.mark.parametrize('itemsize', [4, 8])
+def test_tile_plan_covers_every_output_once(shape, r, f, itemsize):
+    plan = nlmeans_cuda._tile_plan(shape, r, f, itemsize)
+    ty, tx, tt = plan['tile']
+    ny, nx, nt, nv = shape
+    # the kernel's block order: t fastest, then x, then y
+    nbt, nbx = -(-nt // tt), -(-nx // tx)
+    count = np.zeros((ny, nx, nt), np.int64)
+    for b in range(plan['blocks']):
+        y0, x0, t0 = (b // nbt // nbx) * ty, (b // nbt % nbx) * tx, \
+            (b % nbt) * tt
+        count[y0:y0 + ty, x0:x0 + tx, t0:t0 + tt] += 1
+    assert (count == 1).all()
+    assert plan['threads'] * nlmeans_cuda.OUTS_PER_THREAD == ty * tx * tt
+    assert 32 <= plan['threads'] <= 512 and plan['threads'] % 32 == 0
+    # the halo is r + f on each side: what one block holds
+    halo = [t + 2 * (ri + fi) for t, ri, fi in zip(plan['tile'], r, f)]
+    region = [t + ri + 2 * fi for t, ri, fi in zip(plan['tile'], r, f)]
+    assert plan['smem'] == (nv * np.prod(halo) + 2 * np.prod(region)) \
+        * itemsize
+    assert plan['smem'] <= nlmeans_cuda.SMEM_MAX
+
+
+@pytest.mark.parametrize('shape,r,f', PLAN_CASES[:4])
+def test_tile_plan_fits_two_blocks_per_sm_at_the_path_shapes(shape, r, f):
+    assert nlmeans_cuda._tile_plan(shape, r, f, 4)['smem'] \
+        <= nlmeans_cuda.SMEM_BUDGET
+
+
+def test_tile_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match='no tile fits'):
+        nlmeans_cuda._tile_plan((64, 64, 64, 400), (4, 4, 4), (3, 3, 3), 8)
+
+
+@pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),
+                                 ((2, 1, 0), (2, 1, 0))])
+def test_plain_uses_each_offset_pair_once_in_both_directions(r, f):
+    # the kernel's order (pairs, forward and backward terms, separable
+    # patch sums) agrees with one pass per signed offset, the direct
+    # definition, to f32 rounding
+    import itertools
+    a = torch.from_numpy(_data((9, 11, 5, 3), seed=58))
+    got = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 1.0, 1.5)
+    pad = [ri + fi for ri, fi in zip(r, f)]
+    P = np.pad(a.double().numpy(), [(p, p) for p in pad] + [(0, 0)],
+               mode='reflect')
+    D = a.shape[:3]
+    norm = 3 * np.prod([2 * fi + 1 for fi in f])
+    wsum = np.zeros(D)
+    wmax = np.zeros(D)
+    acc = np.zeros(a.shape)
+    for off in itertools.product(*[range(-ri, ri + 1) for ri in r]):
+        if off == (0, 0, 0):
+            continue
+        dsq = np.zeros(D)
+        for u in itertools.product(*[range(-fi, fi + 1) for fi in f]):
+            s1 = tuple(slice(p + ui, p + ui + n)
+                       for p, ui, n in zip(pad, u, D))
+            s2 = tuple(slice(p + ui + o, p + ui + o + n)
+                       for p, ui, o, n in zip(pad, u, off, D))
+            dsq += ((P[s1] - P[s2]) ** 2).sum(-1)
+        w = np.exp(-np.maximum(dsq / norm - 2.0, 0) / 1.5 ** 2)
+        vals = P[tuple(slice(p + o, p + o + n)
+                       for p, o, n in zip(pad, off, D))]
+        wsum += w
+        wmax = np.maximum(wmax, w)
+        acc += w[..., None] * vals
+    w_self = np.where(wmax == 0, 1.0, wmax)
+    center = P[tuple(slice(p, p + n) for p, n in zip(pad, D))]
+    ref = (acc + w_self[..., None] * center) / (wsum + w_self)[..., None]
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)

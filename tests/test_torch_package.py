@@ -68,7 +68,7 @@ def test_from_jax_dataset_round_trip():
                                             dtype='datetime64[ns]'),
                            'x': np.arange(5.0)},
                    attrs={'crs': 'EPSG:32633'})
-    ds = from_jax_dataset(jds)
+    ds = from_jax_dataset(jds, device='cpu')
     assert ds.sizes == {'time': 3, 'x': 5, 'y': 4} or \
         dict(sorted(ds.sizes.items())) == {'time': 3, 'x': 5, 'y': 4}
     assert ds.attrs == {'crs': 'EPSG:32633'}

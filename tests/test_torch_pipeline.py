@@ -50,7 +50,7 @@ def test_omnibus_test_matches_jax(ml, alpha):
     jds = _jax_dataset(cube)
     ref = JOmnibusTest(ml=ml, n=9, alpha=alpha).apply(jds)
     got = ndt.OmnibusTest(ml=ml, n=9, alpha=alpha).apply(
-        from_jax_dataset(jds))
+        from_jax_dataset(jds, device='cpu'))
     assert got.dims == ref.dims == ('y', 'x', 'time')
     assert got.attrs == ref.attrs and 'time' in got.coords
     np.testing.assert_array_equal(got.values, np.asarray(ref.values))
@@ -61,7 +61,8 @@ def test_omnibus_wrapper_and_complex_input():
     c12 = (cube[..., 1] + 1j * cube[..., 2]).astype(np.complex64)
     ds = ndt.Dataset({'C11': (('y', 'x', 'time'), cube[..., 0]),
                       'C12': (('y', 'x', 'time'), c12),
-                      'C22': (('y', 'x', 'time'), cube[..., 3])})
+                      'C22': (('y', 'x', 'time'), cube[..., 3])},
+                     device='cpu')
     got = ndt.omnibus(ds, ml=3, alpha=0.01)
     ref = JOmnibusTest(ml=3, alpha=0.01).apply(_jax_dataset(cube))
     np.testing.assert_array_equal(got.values, np.asarray(ref.values))
@@ -73,13 +74,14 @@ def test_readme_chain_matches_jax():
     jflt = JNLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
                           h=3).apply(jds)
     flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
-                            h=3).apply(from_jax_dataset(jds))
+                            h=3).apply(from_jax_dataset(jds, device='cpu'))
     for v in VARS:
         np.testing.assert_allclose(flt[v].values, jflt[v].values,
                                    rtol=1e-5, atol=1e-6)
     # the omnibus stage on the same filtered data on both sides
     ref = JOmnibusTest(ml=3, alpha=0.01).apply(jflt)
-    got = ndt.OmnibusTest(ml=3, alpha=0.01).apply(from_jax_dataset(jflt))
+    got = ndt.OmnibusTest(ml=3, alpha=0.01).apply(
+        from_jax_dataset(jflt, device='cpu'))
     np.testing.assert_array_equal(got.values, np.asarray(ref.values))
 
 
@@ -88,7 +90,7 @@ def test_boxcar_filter_matches_jax():
     cube = sar_cube(13, 15, 4, seed=25, special=False)
     jds = _jax_dataset(cube)
     ref = JBoxcar(w=3).apply(jds)
-    got = ndt.boxcar(from_jax_dataset(jds), w=3)
+    got = ndt.boxcar(from_jax_dataset(jds, device='cpu'), w=3)
     for v in VARS:
         np.testing.assert_allclose(got[v].values, np.asarray(ref[v].values),
                                    rtol=1e-6, atol=1e-7)
@@ -106,6 +108,7 @@ def test_load_params_round_trips_init_params():
 
 
 def test_njobs_other_than_one_raises():
-    ds = from_jax_dataset(_jax_dataset(sar_cube(6, 6, 3, special=False)))
+    ds = from_jax_dataset(_jax_dataset(sar_cube(6, 6, 3, special=False)),
+                          device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP item 11'):
         ndt.BoxcarFilter(w=3).apply(ds, njobs=2)
