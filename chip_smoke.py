@@ -17,16 +17,23 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      flags (mismatch rate <= 1e-5; also at k=40, two flag planes) and the
      unpack_flags round trip at k=40; and ragged shapes that fill no
      tile: NLMeans (3-D window) at 37 x 53 x 5 x 4, sepconv with outer 4
-     at 37 x 53 x 7;
+     at 37 x 53 x 7; the rescan kernel ``mixed_scan`` on gathered rows
+     (N in {1, 33, 1088}, k in {2, 12, 48, 56, 200, 300}, float32 and
+     float64 input, zero, negative and NaN determinants, the bursty
+     column, alpha 1e-12, and 0.5 looks for the unfolded float64
+     branch): packed flags bit-equal to the plain version for 'mixed' and
+     'float64', mismatch rate <= 1e-5 for 'float32';
   4. exact omnibus (alpha 0.99, 9 looks, margin_eps 1e-4): 0
-     mismatches against the plain float64 'mixed' scan of the full grid;
+     mismatches against the plain float64 'mixed' scan of the full grid
+     (``change_detection_plain``, never a kernel);
   5. ``SARChangePipeline(ml=3, n=1, alpha=0.9).forward``: 0 mismatches
      against the plain path (plain multilook + 'mixed' scan);
   6. the README chain, ``NLMeansFilter(r=2, f=1, sigma=2, h=3)`` then
      ``OmnibusTest(ml=3, alpha=0.01)`` on a Dataset of the cube: NLMeans
      within the tolerance above, the change map with 0 mismatches
      against the plain scan of the same filtered data;
-  7. every kernel's launch counter rose during phases 4-6;
+  7. every kernel's launch counter rose during phases 4-6 (the round
+     kernel, the rescan kernel, NLMeans and sepconv);
   8. times from CUDA events (median of 7 after 2 warm-up runs) and
      Mpix/s (y*x*time pixels) of each kernel and its plain version and
      of phases 4-6, beside the card's name and power limit; for each
@@ -50,9 +57,11 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      sigma=2, h=3)`` then ``OmnibusTest(ml=3, alpha=0.99)`` on a Dataset
      of the stack: NLMeans within the tolerance above of the plain
      version, the change map with 0 mismatches against the plain float64
-     'mixed' scan of the plainly multilooked filtered data;
+     'mixed' scan of the plainly multilooked filtered data; the rescan
+     kernel on path A's suspect rows bit-equal to its plain version;
  11. path B: ``change_detection_exact`` at k=200 on a 256 x 512 stack
-     (0.42 GB): 0 mismatches against the plain 'mixed' scan;
+     (0.42 GB): 0 mismatches against the plain 'mixed' scan; the rescan
+     kernel on path B's suspect rows bit-equal to its plain version;
  12. path C: ``GaussianFilter(dims=('y','x','time'), sigma=1)`` and
      ``BoxcarFilter(dims=('y','x','time'), w=3)`` on the stack's C11
      DataArray, each with max abs diff 0 to the plain three-axis pass;
@@ -62,7 +71,13 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      kernel beside the round kernel at k=56 on the same input, and
      paths A, B and C against their plain routes (median of 3 after one
      warm-up; a plain route that runs for seconds once), with bounds and
-     yardsticks as in phase 8.
+     yardsticks as in phase 8; the rescan kernel alone on path A's and
+     path B's suspects, its bound from the steps its flags imply (float64
+     operations at 34 TFLOP/s, data sheet);
+ 14. the streaming probe: ``x + 1`` over the bench cube flattened to
+     (49152, 1024) float32 (201 MB), staged through shared memory; max abs
+     diff 0 to the plain version, GB/s (2 x bytes / time) of the kernel
+     and of ``torch.add(x, 1)``, the bandwidth a staging kernel reaches.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -88,6 +103,8 @@ SEED = 0
 DEVICE = 'cuda'
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, the same
+F64_OPS_PER_S = 34e12       # f64 outside the tensor cores, the same
+LOG_OPS = 20                # a float64 log counted as 20 operations
 # entry point -> (source, replaced TPU kernel, counting module, counter)
 KERNELS = {
     'sepconv': ('nd_tpu_torch/csrc/sepconv.cu',
@@ -107,6 +124,11 @@ KERNELS = {
     'omnibus_scan': ('nd_tpu_torch/csrc/omnibus_scan.cu',
                      'nd_tpu/ops/change_scan_pallas.py:421',
                      'change_scan_cuda', 'launches'),
+    'omnibus_mixed': ('nd_tpu_torch/csrc/omnibus_mixed.cu',
+                      'nd_tpu/ops/change.py:161', 'change_mixed_cuda',
+                      'launches'),
+    'stream_probe': ('nd_tpu_torch/csrc/stream_probe.cu', 'bench.py:176',
+                     'stream_cuda', 'launches'),
 }
 
 
@@ -187,7 +209,42 @@ def omnibus_bound(x, planes, margins=True):
     out = ny * nx * 4 * (planes + (1 if margins else 0))
     return bound(x.numel() * x.element_size() + out, ny * nx * k * 12)
 
+def scan_steps(planes, k):
+    """(steps, tested steps) that the round scan of these rows runs: one
+    round from l = 0 and one from every flag p < k-1, each over
+    t = l .. k-1, testing t >= l+1."""
+    import torch
+    nrows = planes.shape[1]
+    flags = torch.cat([((planes[pp][:, None] >> torch.arange(
+        min(31, k - 31 * pp), device=planes.device)) & 1) > 0
+        for pp in range(planes.shape[0])], 1)                  # (N, k)
+    anchors = flags[:, :k - 1]
+    rest = (k - torch.arange(k - 1, device=planes.device)) * anchors
+    rounds = nrows + int(anchors.sum())
+    steps = nrows * k + int(rest.sum())
+    return steps, steps - rounds
+
+
+def mixed_bound(rows, planes):
+    """The rescan kernel's bound: the rows read once and the planes
+    written once; per step the float64 operations of the folded test in
+    csrc/omnibus_mixed.cu (|det| converted, its log, the log sum; on a
+    tested step the sums and j converted, the window determinant, the
+    select, the statistic's products and difference, its log and the
+    compare) and the float32 operations of the determinant, the four
+    sums and the sign count."""
+    k = rows.shape[1]
+    steps, tested = scan_steps(planes, k)
+    f64 = steps * (2 + LOG_OPS) + tested * (16 + LOG_OPS)
+    f32 = steps * 10
+    t_bytes = (rows.numel() * rows.element_size()
+               + planes.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (f64 / F64_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
 def main():
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this '
@@ -204,17 +261,20 @@ def main():
     import torch.nn.functional as F
     from nd_tpu_torch import _build
     from nd_tpu_torch.core import Dataset
-    from nd_tpu_torch.ops import (change_cuda, change_scan_cuda, conv_cuda,
-                                  nlmeans_cuda)
-    from nd_tpu_torch.ops.change import (change_detection,
-                                         change_detection_exact,
-                                         pack_flags)
+    from nd_tpu_torch.ops import (change_cuda, change_mixed_cuda,
+                                  change_scan_cuda, conv_cuda, nlmeans_cuda,
+                                  stream_cuda)
+    from nd_tpu_torch.ops.change import (change_detection_exact,
+                                         change_detection_plain,
+                                         decision_tables, pack_flags)
     from nd_tpu_torch.ops.conv import (_separable_factors, gaussian_kernel1d,
                                        pad_reflect)
 
     modules = {'conv_cuda': conv_cuda, 'nlmeans_cuda': nlmeans_cuda,
                'change_cuda': change_cuda,
-               'change_scan_cuda': change_scan_cuda}
+               'change_scan_cuda': change_scan_cuda,
+               'change_mixed_cuda': change_mixed_cuda,
+               'stream_cuda': stream_cuda}
 
     def reset_counts():
         for mod in modules.values():
@@ -341,13 +401,75 @@ def main():
     phase(3, 'unpack_flags round trip at k=40 (2 planes): exact')
     del small40, flags40, packed40
 
+    def check_mixed(label, rows, alpha, n, mode, at=3):
+        """The rescan kernel against its plain version on the same rows:
+        0 flag mismatches for 'mixed' and 'float64', a rate <= 1e-5 for
+        'float32'. Returns the kernel's planes."""
+        got = change_mixed_cuda.mixed_scan(rows, alpha, n, mode)
+        ref = change_mixed_cuda.mixed_scan_plain(rows, alpha, n, mode)
+        torch.cuda.synchronize()
+        k = rows.shape[1]
+        diff = change_cuda.unpack_flags(got, k) \
+            != change_cuda.unpack_flags(ref, k)
+        mism = int(diff.sum())
+        if mode == 'float32':
+            check(mism <= 1e-5 * diff.numel(), 'omnibus_mixed', label, mism)
+        else:
+            check(mism == 0, 'omnibus_mixed', label, mism)
+            err['omnibus_mixed'] = max(err['omnibus_mixed'], float(mism > 0))
+        phase(at, 'omnibus_mixed %s: %d mismatches of %d flags (%d set)'
+              % (label, mism, diff.numel(),
+                 int(change_cuda.unpack_flags(ref, k).sum())))
+        return got
+
+    def degenerate_rows(k, seed):
+        """1088 rows gathered from a 32 x 34 cube with the bursty column
+        (every 34th row), exact zero determinants (row 1, steps 0, 3, 6
+        and 9: a log of -inf flags every window that holds one), negative
+        ones (row 2, every other step), a NaN (row 3) and a constant
+        series (row 4)."""
+        rows = make_cube(32, 34, k, seed=seed, burst=True).reshape(-1, k, 4)
+        rows[1, 0:12:3] = (1.0, 1.0, 0.0, 1.0)
+        rows[2, 1::2, 1] = 3.0
+        rows[3, k // 2, 0] = np.nan
+        rows[4] = rows[4, 0]
+        return torch.from_numpy(rows).to(dev)
+
+    for k in (2, 12, 48, 56, 200, 300):
+        rows = degenerate_rows(k, seed=10 + k)
+        check_mixed('k=%d N=1088 float32 rows, mixed' % k, rows, 0.99, 9,
+                    'mixed')
+        if k in (12, 56, 200):
+            rows64 = rows.double()
+            check_mixed('k=%d N=1088 float64 rows, mixed' % k, rows64, 0.99,
+                        9, 'mixed')
+            check_mixed('k=%d N=1088 float32 rows, float64' % k, rows, 0.99,
+                        9, 'float64')
+            check_mixed('k=%d N=1088 float32 rows, float32' % k, rows, 0.99,
+                        9, 'float32')
+            check_mixed('k=%d N=1088 float64 rows, float32' % k, rows64,
+                        0.99, 9, 'float32')
+        if k == 56:
+            for nrows in (1, 33):
+                check_mixed('k=56 N=%d float32 rows, mixed' % nrows,
+                            rows[:nrows], 0.99, 9, 'mixed')
+            check_mixed('k=56 N=1088 alpha=1e-12, mixed', rows, 1e-12, 9,
+                        'mixed')
+            check_mixed('k=56 N=1088 float64 rows alpha=1e-12, mixed',
+                        rows.double(), 1e-12, 9, 'mixed')
+            check(not decision_tables(
+                56, 0.5, 0.99, torch.float64)[0], 'unfolded tables')
+            check_mixed('k=56 N=1088 n=0.5 (unfolded float64), mixed',
+                        rows, 0.99, 0.5, 'mixed')
+    del rows, rows64
+
     # ---- 4-6. the main path, counted ------------------------------------------
     reset_counts()
 
     exact, suspects = change_detection_exact(cube, 0.99, n=9,
                                              margin_eps=1e-4,
                                              return_count=True)
-    mixed = change_detection(cube, 0.99, n=9, stat_dtype='mixed')
+    mixed = change_detection_plain(cube, 0.99, n=9, stat_dtype='mixed')
     mism = int((exact != mixed).sum())
     check(mism == 0, 'exact omnibus mismatches', mism)
     check(int(exact.sum()) > 0, 'the bench cube shows no change')
@@ -362,7 +484,7 @@ def main():
         looked = conv_cuda.sepconv2_plain(
             values.reshape(1, NY, NX, K * 4), ml_taps[0],
             ml_taps[1]).reshape(values.shape)
-        return change_detection(looked, 0.9, n=9)
+        return change_detection_plain(looked, 0.9, n=9)
 
     ref = plain_forward(cube)
     mism = int((fwd != ref).sum())
@@ -389,8 +511,8 @@ def main():
     def plain_omnibus(fds):
         st = torch.stack([fds[v].data for v in names])       # (4, y, x, t)
         looked = conv_cuda.sepconv2_plain(st, box_taps[0], box_taps[1])
-        return change_detection(looked.permute(1, 2, 3, 0).contiguous(),
-                                0.01, n=9)
+        return change_detection_plain(
+            looked.permute(1, 2, 3, 0).contiguous(), 0.01, n=9)
 
     ref_ch = plain_omnibus(flt)
     mism = int((change.data != ref_ch).sum())
@@ -404,7 +526,8 @@ def main():
 
     # ---- 7. the path went through every kernel ----------------------------------
     launches = read_counts()
-    check(all(launches[n] > 0 for n in ('sepconv', 'nlmeans', 'omnibus')),
+    check(all(launches[n] > 0 for n in ('sepconv', 'nlmeans', 'omnibus',
+                                        'omnibus_mixed')),
           'a kernel of the path was not launched', launches)
     phase(7, 'launches in phases 4-6: %s' % json.dumps(launches))
 
@@ -481,7 +604,7 @@ def main():
                 line += ' | bound %.3f ms (%s), %.1f%% of it' % (
                     bnd[0], bnd[1], 100.0 * bnd[0] / k_ms)
             if lib_ms is not None:
-                line += ' | cuDNN VALID part %.3f ms' % lib_ms
+                line += ' | library call %.3f ms' % lib_ms
             phase(n, line + ' | ' + card)
             if key:
                 row_ms[key] = {'ms': k_ms, 'plain_ms': p_ms,
@@ -529,7 +652,8 @@ def main():
          omnibus_bound(cube, (K + 30) // 31), None, False),
         ('phase 4 exact omnibus', None, mpix,
          lambda: change_detection_exact(cube, 0.99, n=9, margin_eps=1e-4),
-         lambda: change_detection(cube, 0.99, n=9), None, None, False),
+         lambda: change_detection_plain(cube, 0.99, n=9), None, None,
+         False),
         ('phase 5 pipeline forward', None, mpix,
          lambda: model(cube), lambda: plain_forward(cube), None, None,
          False),
@@ -647,7 +771,8 @@ def main():
     torch.cuda.synchronize()
     counts_a = read_counts()
     check(counts_a['nlmeans_3d'] > 0 and counts_a['omnibus_scan'] > 0
-          and counts_a['sepconv'] > 0, 'path A kernels', counts_a)
+          and counts_a['omnibus_mixed'] > 0 and counts_a['sepconv'] > 0,
+          'path A kernels', counts_a)
     stacked3 = torch.stack([flt3[v].data for v in names], -1)
     excess = float(((stacked3 - ref_nl3).abs()
                     - (1e-6 + 1e-5 * ref_nl3.abs())).max())
@@ -660,7 +785,7 @@ def main():
         return looked.permute(1, 2, 3, 0).contiguous()
 
     looked3 = plain_look(flt3)
-    mixed3 = change_detection(looked3, 0.99, n=9)
+    mixed3 = change_detection_plain(looked3, 0.99, n=9)
     mism = int((change3.data != mixed3).sum())
     check(change3.dims == ('y', 'x', 'time') and change3.data.device.type
           == 'cuda' and tuple(change3.data.shape) == (NY, NX, KL),
@@ -671,6 +796,19 @@ def main():
     _, suspects_a = change_detection_exact(looked3, 0.99, n=9,
                                            margin_eps=1e-4,
                                            return_count=True)
+
+    def suspect_rows(vals):
+        """The exact mode's gathered suspects of a long series."""
+        _, margin = change_scan_cuda.change_detection_scan(
+            vals, 0.99, n=9, return_packed=True)
+        idx = torch.nonzero(~(margin > 1e-4).reshape(-1)).squeeze(1)
+        return vals.reshape(-1, vals.shape[2], 4).index_select(0, idx)
+
+    rows_a = suspect_rows(looked3)
+    check(rows_a.shape[0] == suspects_a, 'path A suspects', suspects_a)
+    planes_a = check_mixed('path A suspects k=%d N=%d, mixed'
+                           % (KL, suspects_a), rows_a, 0.99, 9, 'mixed',
+                           at=10)
     phase(10, 'path A (NLMeans 3-D -> OmnibusTest ml=3 alpha=0.99, k=%d): '
           'NLMeans within rtol 1e-5/atol 1e-6 of plain; %d mismatches vs '
           'plain f64 mixed scan; %d changes; %d suspects rescanned (%.3f%%); '
@@ -686,9 +824,9 @@ def main():
                                                  return_count=True)
     torch.cuda.synchronize()
     counts_b = read_counts()
-    check(counts_b['omnibus_scan'] > 0 and counts_b['omnibus'] == 0,
-          'path B kernels', counts_b)
-    mixed_b = change_detection(bcube, 0.99, n=9)
+    check(counts_b['omnibus_scan'] > 0 and counts_b['omnibus_mixed'] > 0
+          and counts_b['omnibus'] == 0, 'path B kernels', counts_b)
+    mixed_b = change_detection_plain(bcube, 0.99, n=9)
     mism = int((exact_b != mixed_b).sum())
     check(mism == 0, 'path B mismatches', mism)
     check(int(mixed_b[:, 0].sum()) > 2 * BNY, 'path B: no restart churn')
@@ -699,6 +837,11 @@ def main():
              suspects_b, 100.0 * suspects_b / (BNY * BNX),
              json.dumps(counts_b)))
     del exact_b, mixed_b
+    rows_b = suspect_rows(bcube)
+    check(rows_b.shape[0] == suspects_b, 'path B suspects', suspects_b)
+    planes_b = check_mixed('path B suspects k=%d N=%d, mixed'
+                           % (BK, suspects_b), rows_b, 0.99, 9, 'mixed',
+                           at=11)
 
     # ---- 12. path C: three-axis filters of one variable, counted -------------------
     c11_da = ds_long['C11']
@@ -731,7 +874,7 @@ def main():
     def plain_chain_a():
         fds = expand_stack(nlmeans_cuda.nlmeans_3d_plain(stack, r3, f3, 2.0,
                                                          3.0))
-        return change_detection(plain_look(fds), 0.99, n=9)
+        return change_detection_plain(plain_look(fds), 0.99, n=9)
 
     def plain_c():
         conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3)
@@ -770,24 +913,67 @@ def main():
              bcube, 0.99, n=9, return_packed=True),
          lambda: change_scan_cuda.scan_plain(bcube, tabs200, 9.0),
          omnibus_bound(bcube, (BK + 30) // 31), None, True),
+        ('omnibus_mixed path A suspects', None, rows_a.shape[0] * KL / 1e6,
+         lambda: change_mixed_cuda.mixed_scan(rows_a, 0.99, 9, 'mixed'),
+         lambda: change_mixed_cuda.mixed_scan_plain(rows_a, 0.99, 9,
+                                                    'mixed'),
+         mixed_bound(rows_a, planes_a), None, True),
+        ('omnibus_mixed path B suspects', 'omnibus_mixed',
+         rows_b.shape[0] * BK / 1e6,
+         lambda: change_mixed_cuda.mixed_scan(rows_b, 0.99, 9, 'mixed'),
+         lambda: change_mixed_cuda.mixed_scan_plain(rows_b, 0.99, 9,
+                                                    'mixed'),
+         mixed_bound(rows_b, planes_b), None, True),
         ('path A long-stack chain', None, mpix_l,
          lambda: omn3.apply(nlm3.apply(ds_long)), plain_chain_a, None, None,
          True),
         ('path B exact k=200', None, mpix_b,
          lambda: change_detection_exact(bcube, 0.99, n=9, margin_eps=1e-4),
-         lambda: change_detection(bcube, 0.99, n=9), None, None, True),
+         lambda: change_detection_plain(bcube, 0.99, n=9), None, None,
+         True),
         ('path C Gaussian + boxcar', None, mpix_l,
          lambda: (gauss_f.apply(c11_da), box_f.apply(c11_da)), plain_c,
          None, None, False),
     ]
     time_rows(13, long_timed)
-    del lib_calls
+    del lib_calls, rows_a, rows_b
     phase(13, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
+    # ---- 14. the streaming probe, counted ------------------------------------------
+    flat = cube.reshape(-1, stream_cuda.COLS)              # (49152, 1024)
+    nbytes = flat.numel() * flat.element_size()
+    reset_counts()
+    got = stream_cuda.stream_plus_one(flat)
+    torch.cuda.synchronize()
+    counts_p = read_counts()
+    check(counts_p['stream_probe'] == 1, 'probe kernel', counts_p)
+    diff = float((got - stream_cuda.stream_plus_one_plain(flat)).abs().max())
+    check(diff == 0, 'stream probe', diff)
+    err['stream_probe'] = diff
+    del got
+    phase(14, 'stream probe on %s float32 (%.0f MB): max abs diff %.3g; '
+          'launches %s' % (tuple(flat.shape), nbytes / 1e6, diff,
+                           json.dumps(counts_p)))
+    time_rows(14, [
+        ('stream probe x + 1', 'stream_probe', flat.numel() / 1e6,
+         lambda: stream_cuda.stream_plus_one(flat),
+         lambda: stream_cuda.stream_plus_one_plain(flat),
+         bound(2 * nbytes, flat.numel()), lambda: torch.add(flat, 1),
+         False)])
+    row = row_ms['stream_probe']
+    phase(14, 'stream probe: kernel %.1f GB/s, plain x + 1 %.1f GB/s, '
+          'torch.add(x, 1) %.1f GB/s (2 x bytes / time); data sheet %.0f '
+          'GB/s | %s' % (2 * nbytes / row['ms'] / 1e6,
+                         2 * nbytes / row['plain_ms'] / 1e6,
+                         2 * nbytes / row['library_ms'] / 1e6,
+                         HBM_BYTES_PER_S / 1e9, card))
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
-                                          counts_c))
+                                          counts_c, counts_p))
               for name in KERNELS}
+    phase(14, 'chip_smoke ran %.1f s, the build included'
+          % (time.perf_counter() - started))
     kernels = [dict({'name': name, 'route': 'cuda', 'source': src,
                      'replaces': tpu, 'launches': totals[name],
                      'max_abs_err': err[name]}, **row_ms[name])

@@ -9,7 +9,7 @@ stack (k = 200 on 256 x 512), then prints one line per measurement:
   - path A: ``NLMeansFilter(dims=('y','x','time'), r=(2,2,1), f=1)``
     apply and ``OmnibusTest(ml=3, alpha=0.99)`` apply; inside the latter
     the multilook kernel, the scan kernel call and the float64 'mixed'
-    rescan of the suspects;
+    rescan of the suspects (gather and the ``omnibus_mixed`` kernel);
   - path B: ``change_detection_exact`` at k = 200: the scan kernel call
     and the rescan of the suspects;
   - one ``torch.profiler`` window each around ``OmnibusTest.apply`` and
@@ -35,7 +35,8 @@ from .change import MARGIN_EPS, OmnibusTest
 from .core import Dataset
 from .filters import BoxcarFilter, NLMeansFilter
 from .ops import change_scan_cuda, conv_cuda
-from .ops.change import change_detection, change_detection_exact
+from .ops.change import change_detection_exact
+from .ops.change_mixed_cuda import mixed_scan
 from .ops.conv import _separable_factors
 
 NAMES = ('C11', 'C12__re', 'C12__im', 'C22')
@@ -80,11 +81,12 @@ def _profiled(fn):
 
 
 def _suspect_rescan(values, margin, alpha, n):
-    """The exact mode's rescan: gather the suspects, float64 'mixed'."""
+    """The exact mode's rescan: gather the suspects, then the float64
+    'mixed' scan of the ``omnibus_mixed`` kernel; (P, N) planes."""
     k = values.shape[2]
     idx = torch.nonzero(~(margin > MARGIN_EPS).reshape(-1)).squeeze(1)
     series = values.reshape(-1, k, 4).index_select(0, idx)
-    return change_detection(series[None], alpha, n=n, stat_dtype='mixed')
+    return mixed_scan(series, alpha, n, 'mixed')
 
 
 def main():

@@ -9,18 +9,22 @@ pixel jumps to its first significant change point.
 
 Two routes:
 
-  - :func:`change_detection`: the scan in PyTorch operations, with
-    'mixed' (channel sums in the input precision, determinant/log/
-    decision in float64 — the exact reference decisions), float32 or
-    float64 statistics;
+  - :func:`change_detection`: the scan with 'mixed' (channel sums in the
+    input precision, determinant/log/decision in float64 — the exact
+    reference decisions), float32 or float64 statistics. On a CUDA
+    tensor it runs the ``omnibus_mixed`` kernel
+    (``ops/change_mixed_cuda.py``), or for float32 statistics at
+    k <= 48 the round kernel ``omnibus``, as the reference sends them to
+    its fused kernel; on a CPU tensor it runs the plain version,
+    :func:`change_detection_plain`;
   - :func:`change_detection_exact`: a float32 kernel reports each
     pixel's decision margin — the round kernel ``omnibus``
     (``ops/change_cuda.py``) for k <= 48, the sequential scan
     ``omnibus_scan`` (``ops/change_scan_cuda.py``) for 48 < k <= 256;
     the pixels whose margin is not above ``margin_eps`` (NaN included)
-    are rescanned with the float64 'mixed' scan and patched in. Longer
-    series take the 'mixed' scan whole. The decisions equal the 'mixed'
-    scan's.
+    are gathered and rescanned with the float64 'mixed' scan, whose
+    packed flags are scattered back. Longer series take the 'mixed'
+    scan whole. The decisions equal the 'mixed' scan's.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import torch
 
 from ..core.variable import as_tensor
 
-__all__ = ['omnibus_rho', 'omnibus_thresholds', 'change_detection',
+__all__ = ['omnibus_rho', 'omnibus_thresholds', 'decision_tables',
+           'change_detection', 'change_detection_plain',
            'change_detection_exact', 'pack_flags']
 
 _P = 2.0  # dual-pol covariance matrices are 2x2
@@ -94,8 +99,57 @@ _DTYPES = {'float32': torch.float32, 'float64': torch.float64,
            torch.float32: torch.float32, torch.float64: torch.float64}
 
 
+def stat_types(stat_dtype, dtype):
+    """(sum dtype, log dtype) of the scan for ``stat_dtype`` and input
+    ``dtype``: 'mixed' sums in the input precision and runs the
+    determinant/log/decision math in float64; 'float32' and 'float64'
+    run everything in that type."""
+    if stat_dtype == 'mixed':
+        return dtype, torch.float64
+    if stat_dtype in _DTYPES:
+        return _DTYPES[stat_dtype], _DTYPES[stat_dtype]
+    raise ValueError('stat_dtype must be mixed, float32 or float64, not %r'
+                     % (stat_dtype,))
+
+
+def decision_tables(k, n, alpha, log_dtype):
+    """Per-window-length decision tables of the scan, shared by the plain
+    version and the ``omnibus_mixed`` kernel: ``(use_folded, table)``
+    with ``table`` a read-only float64 array of length k+1 indexed by
+    the window length j.
+
+    Folded (float64 log type, and rho(j) > 0 wherever the threshold is
+    finite): the decision z > thr(j) is
+    ``n log_prod - n j ln det_sum < C(j)``,
+    ``C(j) = -thr(j)/(2 rho(j)) - n P j ln j`` (-inf: never hits).
+    Otherwise the table is the z-thresholds themselves (+inf: never
+    hits) and the caller evaluates z. Solved on the host in float64 and
+    cached per (k, n, alpha, log dtype)."""
+    return _decision_tables(int(k), float(n), float(alpha),
+                            log_dtype == torch.float64)
+
+
+@functools.lru_cache(maxsize=64)
+def _decision_tables(k, n, alpha, log_f64):
+    z_thresh = _thresholds(k, n, alpha)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        rho_tab = omnibus_rho(np.arange(k + 1), n)
+    folded = np.full(k + 1, -np.inf)
+    use_folded = log_f64
+    for j in range(2, k + 1):
+        if np.isfinite(z_thresh[j]):
+            if rho_tab[j] <= 0:
+                use_folded = False
+                break
+            folded[j] = (-z_thresh[j] / (2 * rho_tab[j])
+                         - n * _P * j * np.log(j))
+    table = folded if use_folded else z_thresh.copy()
+    table.flags.writeable = False
+    return use_folded, table
+
+
 def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
-    """Iterative omnibus change-point detection in PyTorch operations.
+    """Iterative omnibus change-point detection.
 
     Parameters
     ----------
@@ -117,6 +171,12 @@ def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
         Where non-tensor ``values`` land (default ``cuda``); a tensor
         stays on its device.
 
+    On a CUDA tensor the scan is the ``omnibus_mixed`` kernel, except
+    that float32 statistics at k <= ``change_cuda.K_MAX`` take the round
+    kernel (uncapped, no margins), as the reference sends them to its
+    fused kernel on its accelerator. On a CPU tensor it is the plain
+    version, :func:`change_detection_plain`; any other device raises.
+
     Returns
     -------
     bool tensor, shape (y, x, time), on ``values``' device
@@ -124,14 +184,32 @@ def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
     values = as_tensor(values, device)
     if not values.is_floating_point():
         values = values.to(torch.float32)
-    if stat_dtype == 'mixed':
-        sdtype = values.dtype
-        ldtype = torch.float64
-    elif stat_dtype in _DTYPES:
-        sdtype = ldtype = _DTYPES[stat_dtype]
-    else:
-        raise ValueError('stat_dtype must be mixed, float32 or float64, '
-                         'not %r' % (stat_dtype,))
+    _, ldtype = stat_types(stat_dtype, values.dtype)
+    if values.ndim != 4 or values.shape[3] != 4:
+        raise ValueError('values must be (y, x, time, 4)')
+    if values.device.type == 'cpu':
+        return change_detection_plain(values, alpha, n, stat_dtype)
+    if values.device.type != 'cuda':
+        raise ValueError('change_detection runs on cuda or cpu tensors, '
+                         'not %s' % values.device)
+    from .change_cuda import K_MAX, change_detection_fast, unpack_flags
+    from .change_mixed_cuda import mixed_scan
+    ny, nx, k, _ = values.shape
+    if ldtype == torch.float32 and k <= K_MAX:
+        return change_detection_fast(values, alpha, n=n)
+    planes = mixed_scan(values.reshape(ny * nx, k, 4).contiguous(), alpha,
+                        n, stat_dtype)
+    return unpack_flags(planes.view(-1, ny, nx), k)
+
+
+def change_detection_plain(values, alpha, n=1, stat_dtype='mixed'):
+    """The scan in PyTorch operations over a (y, x, time, 4) float
+    tensor, on its device: the plain version of the ``omnibus_mixed``
+    kernel, and the route of :func:`change_detection` for CPU tensors.
+    Per restart round, running sums from the anchor l (strictly left to
+    right) give every window's statistic; each active pixel jumps to
+    its first significant change point. Returns (y, x, time) bool."""
+    sdtype, ldtype = stat_types(stat_dtype, values.dtype)
     ny, nx, k, _ = values.shape
     dev = values.device
     nf = float(n)
@@ -141,23 +219,9 @@ def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
     logdet_t = torch.log(torch.abs(dets).to(ldtype))
     neg_t = (dets < 0).to(sdtype)
 
-    z_thresh = omnibus_thresholds(k, n, float(alpha))
-    with np.errstate(divide='ignore', invalid='ignore'):
-        rho_tab = omnibus_rho(np.arange(k + 1), n)
-    folded = np.full(k + 1, -np.inf)
-    use_folded = ldtype == torch.float64
-    for j in range(2, k + 1):
-        if np.isfinite(z_thresh[j]):
-            if rho_tab[j] <= 0:
-                use_folded = False
-                break
-            folded[j] = (-z_thresh[j] / (2 * rho_tab[j])
-                         - n * _P * j * np.log(j))
-    # per-length tables indexed by window length j (0..k)
-    if use_folded:
-        c_tab = torch.as_tensor(folded, dtype=ldtype, device=dev)
-    else:
-        thr_tab = torch.as_tensor(z_thresh, dtype=ldtype, device=dev)
+    # per-length table indexed by window length j (0..k)
+    use_folded, table = decision_tables(k, n, alpha, ldtype)
+    tab = torch.tensor(table, dtype=ldtype, device=dev)
 
     l = torch.zeros((ny, nx), dtype=torch.int64, device=dev)
     active = torch.ones((ny, nx), dtype=torch.bool, device=dev)
@@ -191,14 +255,14 @@ def change_detection(values, alpha, n=1, stat_dtype='mixed', device=None):
             j_idx = jt_i.clamp(0, k)
             if use_folded:
                 stat = nf * log_prod - (nf * jt) * torch.log(det_of_sum)
-                hit = stat < c_tab[j_idx]
+                hit = stat < tab[j_idx]
             else:
                 logq = nf * (_P * jt * torch.log(jt) + log_prod
                              - jt * torch.log(det_of_sum))
                 rho_t = 1 - (2 * _P ** 2 - 1) / (6 * (jt - 1) * _P) \
                     * (jt / nf - 1 / (nf * jt))
                 z = -2 * rho_t * logq
-                hit = z > thr_tab[j_idx]
+                hit = z > tab[j_idx]
             hit = hit & (t >= l + 1)                      # j >= 2
             t_first = torch.where(hit & (t_first == k),
                                   torch.full_like(t_first, t), t_first)
@@ -254,11 +318,12 @@ def _exact_packed(values, alpha, n, margin_eps):
     idx = torch.nonzero(suspect.reshape(-1)).squeeze(1)
     count = int(idx.numel())
     if count:
+        from .change_mixed_cuda import mixed_scan, mixed_scan_plain
         series = values.reshape(ny * nx, k, 4).index_select(0, idx)
-        rows = change_detection(series[None], alpha, n=n,
-                                stat_dtype='mixed')[0]       # (N, k)
+        scan = mixed_scan if series.device.type == 'cuda' \
+            else mixed_scan_plain
         planes = packed.view(packed.shape[0], -1)
-        planes[:, idx] = pack_flags(rows)
+        planes[:, idx] = scan(series, alpha, n, 'mixed')        # (P, N)
     return packed, count
 
 
@@ -277,12 +342,14 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     scan. Pixels whose margin is not above ``margin_eps`` — the only
     ones whose f32 decisions could differ from float64, NaN included —
     are gathered with ``torch.nonzero``, rescanned with the float64
-    'mixed' scan (reading the input in its own dtype), bit-packed and
-    scattered back.
+    'mixed' scan (reading the input in its own dtype; the
+    ``omnibus_mixed`` kernel on a CUDA tensor), whose packed flag rows
+    are scattered straight into the planes.
 
     Series longer than 256 steps, and (n, alpha) whose folded scan
     thresholds are infeasible, take the full-grid float64 'mixed' scan
-    instead (``change_cuda.supports_rescan``), as the reference does;
+    instead (``change_cuda.supports_rescan``; on a CUDA tensor the
+    ``omnibus_mixed`` kernel over every pixel), as the reference does;
     every pixel then counts as rescanned.
 
     This is the logic of the reference's ``change_detection_exact`` and

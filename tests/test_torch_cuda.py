@@ -13,7 +13,10 @@ windows) rtol 1e-5, atol 1e-6 (float64: rtol 1e-12); omnibus flag
 mismatch rate <= 1e-5 and margins within 1e-4 relative; the long-series
 scan's flags and margins exactly equal to its plain version (the same
 f32 operations in the same order); exact and pipeline change maps
-exactly equal.
+exactly equal, against the plain float64 'mixed' scan
+(``change_detection_plain``); the rescan kernel's packed flags exactly
+equal to its plain version for 'mixed' and 'float64' statistics, a
+mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1.
 """
 
 import os
@@ -26,8 +29,8 @@ import nd_tpu_torch as ndt
 from nd_tpu_torch import _build
 from nd_tpu_torch.ops import change as tchange
 from nd_tpu_torch.core import Dataset, from_jax_dataset
-from nd_tpu_torch.ops import change_cuda, change_scan_cuda, conv_cuda, \
-    nlmeans_cuda
+from nd_tpu_torch.ops import change_cuda, change_mixed_cuda, \
+    change_scan_cuda, conv_cuda, nlmeans_cuda, stream_cuda
 from nd_tpu_torch.ops.conv import gaussian_kernel1d
 from torch_cubes import cuda, long_stack_cube, sar_cube  # noqa: F401
 
@@ -107,10 +110,16 @@ def test_omnibus_kernel_matches_plain(cuda, k, with_margin):
 
 def test_exact_on_the_card_equals_plain_mixed(cuda):
     cube = torch.from_numpy(sar_cube(64, 96, 12, seed=16)).to(cuda)
-    got = tchange.change_detection_exact(cube, 0.99, n=9)
-    ref = tchange.change_detection(cube, 0.99, n=9)
+    change_mixed_cuda.reset_launches()
+    got, count = tchange.change_detection_exact(cube, 0.99, n=9,
+                                                return_count=True)
+    assert count > 0 and change_mixed_cuda.launches == 1   # the rescan
+    ref = tchange.change_detection_plain(cube, 0.99, n=9)
     assert got.device.type == 'cuda'
     assert bool((got == ref).all())
+    # change_detection on the card is the rescan kernel over every pixel
+    assert bool((tchange.change_detection(cube, 0.99, n=9) == ref).all())
+    assert change_mixed_cuda.launches == 2
 
 
 def test_pipeline_on_the_card_matches_cpu(cuda):
@@ -216,7 +225,7 @@ def test_exact_long_series_on_the_card_equals_plain_mixed(cuda):
     got, count = tchange.change_detection_exact(cube, 0.99, n=9,
                                                 return_count=True)
     assert change_scan_cuda.launches == 1
-    ref = tchange.change_detection(cube, 0.99, n=9)
+    ref = tchange.change_detection_plain(cube, 0.99, n=9)
     assert got.device.type == 'cuda' and bool((got == ref).all())
     assert bool(ref.any()) and 0 <= count < 24 * 40
 
@@ -224,11 +233,12 @@ def test_exact_long_series_on_the_card_equals_plain_mixed(cuda):
 @pytest.mark.parametrize('k,alpha', [(300, 0.99), (56, 1e-12)])
 def test_exact_without_a_kernel_route_on_the_card(cuda, k, alpha):
     cube = torch.from_numpy(long_stack_cube(4, 6, k, seed=16)).to(cuda)
-    for mod in (change_cuda, change_scan_cuda):
+    for mod in (change_cuda, change_scan_cuda, change_mixed_cuda):
         mod.reset_launches()
     got = tchange.change_detection_exact(cube, alpha, n=9)
     assert change_cuda.launches == 0 and change_scan_cuda.launches == 0
-    ref = tchange.change_detection(cube, alpha, n=9)
+    assert change_mixed_cuda.launches == 1        # the full-grid scan
+    ref = tchange.change_detection_plain(cube, alpha, n=9)
     assert bool((got == ref).all())
 
 
@@ -391,3 +401,104 @@ def test_numpy_input_lands_on_the_card_by_default(cuda):
     assert tchange.change_detection(cube, 0.99, n=9).device.type == 'cuda'
     assert from_jax_dataset(_DuckDataset(cube), device='cpu')['C11'] \
         .data.device.type == 'cpu'
+
+
+# ---- the rescan kernel and the streaming probe ------------------------------
+
+def _mixed_rows(k, seed, n=200):
+    """Gathered series with the bursty column (every 20th row; its
+    backscatter alternates every 3 steps, every k // 16 for long series,
+    which keeps the plain scan's rounds few), exact zero, negative and
+    NaN determinants and a constant series."""
+    rows = sar_cube(10, 20, k, seed=seed, special=False)
+    rows[:, 0] = long_stack_cube(10, 1, k, seed=seed)[:, 0]
+    wave = np.where((np.arange(k) // max(3, k // 16)) % 2 == 0, 1.0, 5.0)
+    rows[:, 0, :, 0] = wave
+    rows[:, 0, :, 3] = wave
+    rows = rows.reshape(-1, k, 4)[:n].copy()
+    rows[1, 0:12:3] = (1.0, 1.0, 0.0, 1.0)
+    rows[2, 1::2, 1] = 3.0
+    rows[3, k // 2, 0] = np.nan
+    rows[4] = rows[4, 0]
+    return rows
+
+
+def _check_mixed(rows, alpha, n, mode):
+    before = change_mixed_cuda.launches
+    got = change_mixed_cuda.mixed_scan(rows, alpha, n, mode)
+    assert change_mixed_cuda.launches == before + 1
+    ref = change_mixed_cuda.mixed_scan_plain(rows, alpha, n, mode)
+    torch.cuda.synchronize()
+    k = rows.shape[1]
+    assert got.shape == ref.shape == ((k + 30) // 31, rows.shape[0])
+    mism = change_cuda.unpack_flags(got, k) != change_cuda.unpack_flags(ref, k)
+    if mode == 'float32':
+        assert float(mism.float().mean()) <= 1e-5
+    else:
+        assert bool((got == ref).all())
+    return ref
+
+
+@pytest.mark.parametrize('k', [2, 12, 48, 56, 200, 300])
+@pytest.mark.parametrize('dtype,mode', [(torch.float32, 'mixed'),
+                                        (torch.float64, 'mixed'),
+                                        (torch.float32, 'float64'),
+                                        (torch.float32, 'float32')])
+def test_mixed_scan_kernel_matches_plain(cuda, k, dtype, mode):
+    rows = torch.from_numpy(_mixed_rows(k, seed=40 + k, n=197)).to(cuda,
+                                                                   dtype)
+    ref = _check_mixed(rows, 0.99, 9, mode)
+    assert bool(ref.any())
+
+
+@pytest.mark.parametrize('nrows', [1, 33, 200])
+@pytest.mark.parametrize('alpha,n', [(0.99, 9), (1e-12, 9), (0.99, 0.5)])
+def test_mixed_scan_kernel_far_tails_and_unfolded(cuda, nrows, alpha, n):
+    rows = torch.from_numpy(_mixed_rows(56, seed=50)).to(cuda)
+    _check_mixed(rows[:nrows], alpha, n, 'mixed')
+    _check_mixed(rows[:nrows].double(), alpha, n, 'float64')
+
+
+def test_mixed_scan_raises_on_what_it_does_not_take(cuda):
+    rows = torch.zeros(5, 12, 4, device=cuda)
+    with pytest.raises(ValueError, match='CUDA'):
+        change_mixed_cuda.mixed_scan(rows.cpu(), 0.9, 9)
+    with pytest.raises(TypeError):
+        change_mixed_cuda.mixed_scan(rows.half(), 0.9, 9)
+    with pytest.raises(ValueError, match='contiguous'):
+        change_mixed_cuda.mixed_scan(
+            torch.zeros(12, 5, 4, device=cuda).transpose(0, 1), 0.9, 9)
+    with pytest.raises(ValueError, match='N, k, 4'):
+        change_mixed_cuda.mixed_scan(torch.zeros(5, 12, 3, device=cuda),
+                                     0.9, 9)
+    empty = change_mixed_cuda.mixed_scan(rows[:0], 0.9, 9)
+    assert empty.shape == (1, 0)
+
+
+def test_float32_statistics_take_the_kernels_on_the_card(cuda):
+    short = torch.from_numpy(sar_cube(24, 40, 12, seed=51)).to(cuda)
+    for mod in (change_cuda, change_mixed_cuda):
+        mod.reset_launches()
+    got = tchange.change_detection(short, 0.99, n=9, stat_dtype='float32')
+    assert change_cuda.launches == 1 and change_mixed_cuda.launches == 0
+    assert bool((got == change_cuda.change_detection_fast(short, 0.99,
+                                                          n=9)).all())
+    long = torch.from_numpy(long_stack_cube(8, 12, 56, seed=52)).to(cuda)
+    got = tchange.change_detection(long, 0.99, n=9, stat_dtype='float32')
+    assert change_mixed_cuda.launches == 1
+    ref = tchange.change_detection_plain(long, 0.99, n=9,
+                                         stat_dtype='float32')
+    assert float((got != ref).float().mean()) <= 1e-5
+
+
+def test_stream_probe_matches_plain(cuda):
+    x = _data((1000, 1024), seed=53).to(cuda, torch.float32)
+    before = stream_cuda.launches
+    got = stream_cuda.stream_plus_one(x)
+    assert stream_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert float((got - stream_cuda.stream_plus_one_plain(x)).abs().max()) \
+        == 0.0
+    with pytest.raises(ValueError, match='aligned'):
+        stream_cuda.stream_plus_one(x.reshape(-1)[1:1 + 1024 * 3]
+                                    .reshape(3, 1024))
