@@ -38,10 +38,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      Mpix/s (y*x*time pixels) of each kernel and its plain version and
      of phases 4-6, beside the card's name and power limit; for each
      kernel row its bound (the least time the card could take: bytes at
-     3.35 TB/s or f32 operations at 67 TFLOP/s, the larger) and its share
-     of it, and for sepconv the library yardstick: cuDNN's depthwise
-     convolution of the already padded tensor (VALID part only, pad
-     excluded; TF32 off), which the port never calls;
+     3.35 TB/s or f32 operations at 67 TFLOP/s, the larger; the omnibus
+     kernels' operations counted from their sources, the round kernel's
+     over the steps its flags imply) and its share of it, and for sepconv
+     the library yardstick: cuDNN's depthwise convolution of the already
+     padded tensor (VALID part only, pad excluded; TF32 off), which the
+     port never calls;
 
 and the long-stack path, on a one-year Sentinel-1 stack: 1024 x 1024 x
 56 float32 covariance cube (0.94 GB) with a 5x backscatter step half-way
@@ -71,13 +73,17 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      kernel beside the round kernel at k=56 on the same input, and
      paths A, B and C against their plain routes (median of 3 after one
      warm-up; a plain route that runs for seconds once), with bounds and
-     yardsticks as in phase 8; the rescan kernel alone on path A's and
-     path B's suspects, its bound from the steps its flags imply (float64
-     operations at 34 TFLOP/s, data sheet);
+     yardsticks as in phase 8; the scan kernel's GB/s beside its ms; the
+     rescan kernel alone on path A's and path B's suspects, its bound
+     from the steps its flags imply (float64 operations at 34 TFLOP/s,
+     data sheet);
  14. the streaming probe: ``x + 1`` over the bench cube flattened to
-     (49152, 1024) float32 (201 MB), staged through shared memory; max abs
-     diff 0 to the plain version, GB/s (2 x bytes / time) of the kernel
-     and of ``torch.add(x, 1)``, the bandwidth a staging kernel reaches.
+     (49152, 1024) float32 (201 MB), staged through shared memory by TMA
+     bulk copies; max abs diff 0 to the plain version, GB/s (2 x bytes /
+     time) of the kernel and of ``torch.add(x, 1)``, the bandwidth a
+     staging kernel reaches, from single calls and from runs of 50
+     back-to-back calls between one event pair (the host's share of a
+     single call shows in the difference).
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -201,24 +207,66 @@ def nlmeans_bound(x, r, f):
     return bound(2 * x.numel() * x.element_size(), npix * pairs * per_pair)
 
 
-def omnibus_bound(x, planes, margins=True):
-    """Bytes: the series read once, the flag planes (and the margins)
-    written once; operations: one pass of the test statistic per date
-    (a lower count: restarts add more)."""
-    ny, nx, k, _ = x.shape
-    out = ny * nx * 4 * (planes + (1 if margins else 0))
-    return bound(x.numel() * x.element_size() + out, ny * nx * k * 12)
+# f32 operations of the omnibus kernels, counted from their sources: each
+# add, multiply, division, sqrt, |.|, floor, compare, select and
+# int-to-float conversion is one; a NaN-propagating min or max (two NaN
+# tests, the add, the min, the select) five; mlog (csrc/mlog.cuh) 25.
+MLOG_OPS = 25
+ELEM_OPS = 55       # a step's determinant, log|det|, signed conditioning
+WINDOW_OPS = 42     # a window's determinant, margin and compare, no log
 
-def scan_steps(planes, k):
+
+def scan_bound(x, tabs):
+    """The scan kernel's bound: the series read once, the flag planes and
+    the margin written once; per pixel the f32 operations of
+    csrc/omnibus_scan.cu with each statistic counted once: every step's
+    element terms (ELEM_OPS), pass B's suffix sums (7 adds, the window
+    length and the threshold test) and, where the global threshold is
+    finite, its window statistic (WINDOW_OPS + 4 + MLOG_OPS), and pass
+    A's running sums, the next length's threshold (sqrt, the Horner of
+    the fitted polynomial, the j = 2..5 immediates, 1/j), the averaged
+    window statistic (WINDOW_OPS + 6 + MLOG_OPS), the gated margin and
+    the chain's selects."""
+    ny, nx, k, _ = x.shape
+    finite = int(np.isfinite(np.asarray(tabs['cg_tab'][2:k + 1])).sum())
+    thresh = 7 + 2 * (len(tabs['f2_coefs']) - 1) + 3 * len(tabs['f2_small'])
+    per_pix = (ELEM_OPS * k + 9 * (k - 1)
+               + finite * (WINDOW_OPS + 4 + MLOG_OPS)
+               + (k - 1) * (7 + thresh + WINDOW_OPS + 7 + MLOG_OPS + 18))
+    out = ny * nx * 4 * ((k + 30) // 31 + 1)
+    return bound(x.numel() * x.element_size() + out, ny * nx * per_pix)
+
+
+def round_bound(x, planes, max_rounds, margins=True):
+    """The round kernel's bound: the series read once, the flag planes
+    (and the margins) written once; the f32 operations of csrc/omnibus.cu
+    over the steps these flags imply (``scan_steps``, at most
+    ``max_rounds`` rounds a pixel): per step the determinant, its log and
+    the running sums (14 + MLOG_OPS; 16 more for the margin's
+    conditioning), per tested step the window statistic (19 + MLOG_OPS;
+    28 more for its margin)."""
+    ny, nx, k, _ = x.shape
+    steps, tested = scan_steps(planes.reshape(planes.shape[0], -1), k,
+                               max_rounds)
+    ops = (steps * (14 + MLOG_OPS + 16 * margins)
+           + tested * (19 + MLOG_OPS + 28 * margins))
+    out = ny * nx * 4 * (planes.shape[0] + (1 if margins else 0))
+    return bound(x.numel() * x.element_size() + out, ops)
+
+
+def scan_steps(planes, k, max_rounds=None):
     """(steps, tested steps) that the round scan of these rows runs: one
-    round from l = 0 and one from every flag p < k-1, each over
-    t = l .. k-1, testing t >= l+1."""
+    round from l = 0 and one from every flag p < k-1 (the first
+    ``max_rounds`` rounds only, where given), each over t = l .. k-1,
+    testing t >= l+1."""
     import torch
     nrows = planes.shape[1]
     flags = torch.cat([((planes[pp][:, None] >> torch.arange(
         min(31, k - 31 * pp), device=planes.device)) & 1) > 0
         for pp in range(planes.shape[0])], 1)                  # (N, k)
     anchors = flags[:, :k - 1]
+    if max_rounds is not None:      # flag i (1-based) starts round i
+        anchors = anchors & (torch.cumsum(anchors.int(), 1) < max_rounds)
     rest = (k - torch.arange(k - 1, device=planes.device)) * anchors
     rounds = nrows + int(anchors.sum())
     steps = nrows * k + int(rest.sum())
@@ -649,7 +697,9 @@ def main():
          lambda: change_cuda.omnibus_plain(
              cube, *change_cuda.omnibus_tables(K, 9, 0.99), 9.0, cap,
              True),
-         omnibus_bound(cube, (K + 30) // 31), None, False),
+         round_bound(cube, change_cuda.change_detection_fast(
+             cube, 0.99, n=9, return_margin=True, return_packed=True,
+             max_rounds=cap)[0], cap), None, False),
         ('phase 4 exact omnibus', None, mpix,
          lambda: change_detection_exact(cube, 0.99, n=9, margin_eps=1e-4),
          lambda: change_detection_plain(cube, 0.99, n=9), None, None,
@@ -902,17 +952,19 @@ def main():
          lambda: change_scan_cuda.change_detection_scan(
              stack, 0.99, n=9, return_packed=True),
          lambda: change_scan_cuda.scan_plain(stack, tabs56, 9.0),
-         omnibus_bound(stack, (KL + 30) // 31), None, True),
+         scan_bound(stack, tabs56), None, True),
         ('omnibus round k=56 capped', None, mpix_l,
          lambda: change_cuda.change_detection_fast(
              stack, 0.99, n=9, return_margin=True, return_packed=True,
              max_rounds=cap56), None,
-         omnibus_bound(stack, (KL + 30) // 31), None, False),
-        ('omnibus_scan k=200', None, mpix_b,
+         round_bound(stack, change_cuda.change_detection_fast(
+             stack, 0.99, n=9, return_margin=True, return_packed=True,
+             max_rounds=cap56)[0], cap56), None, False),
+        ('omnibus_scan k=200', 'omnibus_scan_200', mpix_b,
          lambda: change_scan_cuda.change_detection_scan(
              bcube, 0.99, n=9, return_packed=True),
          lambda: change_scan_cuda.scan_plain(bcube, tabs200, 9.0),
-         omnibus_bound(bcube, (BK + 30) // 31), None, True),
+         scan_bound(bcube, tabs200), None, True),
         ('omnibus_mixed path A suspects', None, rows_a.shape[0] * KL / 1e6,
          lambda: change_mixed_cuda.mixed_scan(rows_a, 0.99, 9, 'mixed'),
          lambda: change_mixed_cuda.mixed_scan_plain(rows_a, 0.99, 9,
@@ -936,6 +988,13 @@ def main():
          None, None, False),
     ]
     time_rows(13, long_timed)
+    for key, vals in (('omnibus_scan', stack), ('omnibus_scan_200', bcube)):
+        ny, nx, k, _ = vals.shape
+        moved = vals.numel() * 4 + ny * nx * 4 * ((k + 30) // 31 + 1)
+        phase(13, 'omnibus_scan k=%d: %.3f ms, %.1f GB/s (the series read '
+              'once, planes and margins written once; data sheet %.0f GB/s)'
+              ' | %s' % (k, row_ms[key]['ms'], moved / row_ms[key]['ms'] / 1e6,
+                         HBM_BYTES_PER_S / 1e9, card))
     del lib_calls, rows_a, rows_b
     phase(13, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
@@ -968,6 +1027,39 @@ def main():
                          2 * nbytes / row['plain_ms'] / 1e6,
                          2 * nbytes / row['library_ms'] / 1e6,
                          HBM_BYTES_PER_S / 1e9, card))
+
+    def run_ms(fn, n=50, reps=5):
+        """ms per call of n back-to-back calls between one event pair
+        (median of reps runs after one warm-up run): the host work of a
+        call hides behind the previous call's device time."""
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        return statistics.median(times)
+
+    probe_runs, add_runs = [], []
+    for runs, fn in ((probe_runs, lambda: stream_cuda.stream_plus_one(flat)),
+                     (add_runs, lambda: torch.add(flat, 1)),
+                     (add_runs, lambda: torch.add(flat, 1)),
+                     (probe_runs, lambda: stream_cuda.stream_plus_one(flat))):
+        runs.append(run_ms(fn))
+    run_k, run_add = min(probe_runs), min(add_runs)
+    phase(14, 'stream probe, 50 back-to-back calls per event pair: kernel '
+          '%.4f ms (%.1f GB/s), torch.add(x, 1) %.4f ms (%.1f GB/s), x%.3f; '
+          'single calls: kernel %.4f ms, torch.add %.4f ms | %s'
+          % (run_k, 2 * nbytes / run_k / 1e6, run_add,
+             2 * nbytes / run_add / 1e6, run_add / run_k, row['ms'],
+             row['library_ms'], card))
 
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p))

@@ -22,12 +22,17 @@ decisions:
 Outputs are the bit-packed int32 flag planes (bit t%31 of plane t//31)
 and each pixel's smallest decision margin net of the f32 error bound;
 the exact mode (``ops.change.change_detection_exact``) rescans the
-pixels whose margin is not above its eps. On the H100 the kernel is
-bound by arithmetic: one thread per pixel, O(k) work. See the source for
-the design.
+pixels whose margin is not above its eps. On the H100 the kernel's
+bound is device-memory bytes, with f32 arithmetic close behind: one
+thread per pixel, O(k) work, each block's series staged through shared
+memory in chunks of T steps; the kernel runs pass A first, so that B
+tests only the anchors C can commit. ``_scan_plan`` picks the block's
+pixels, T and the ring of chunk buffers. See the source for the
+design.
 
-``change_detection_scan`` runs the kernel for a CUDA tensor and the
-plain version for a CPU tensor; for any other device it raises.
+``scan_kernel`` (and ``change_detection_scan`` through it) runs the
+kernel for a CUDA tensor and the plain version for a CPU tensor; for
+any other device it raises.
 """
 
 from __future__ import annotations
@@ -42,10 +47,14 @@ from ..core.variable import as_tensor
 from .change import _P, omnibus_rho, omnibus_thresholds
 from .change_cuda import _mlog, unpack_flags
 
-__all__ = ['change_detection_scan', 'scan_plain', 'scan_tables',
-           'K_SCAN_MAX', 'launches']
+__all__ = ['change_detection_scan', 'scan_kernel', 'scan_plain',
+           'scan_tables', 'scan_smem', 'plan_candidates', 'K_SCAN_MAX',
+           'SMEM_MAX', 'launches']
 
 K_SCAN_MAX = 256       # kMaxK in csrc/omnibus_scan.cu
+SMEM_MAX = 232448      # kSmemMax: shared memory a block may use (H100)
+SMS = 132              # streaming multiprocessors of the H100 SXM
+SNAPSHOTS = 8          # kSnap in csrc/omnibus_scan.cu
 _U64 = 64 * 1.2e-7     # f32 rounding with the margin safety factor
 _LOG_ERR = 1e-5        # absolute _mlog error bound (per evaluation)
 
@@ -315,38 +324,143 @@ def change_detection_scan(values, alpha, n=1, return_packed=False,
     if tabs is None:
         raise ValueError('folded thresholds infeasible for (k=%d, n=%s, '
                          'alpha=%s)' % (k, n, alpha))
-    values = values.to(torch.float32).contiguous()
-    if values.device.type == 'cpu':
-        packed, margin = scan_plain(values, tabs, float(n))
-    elif values.device.type == 'cuda':
-        packed, margin = _launch(values, tabs, float(n))
-    else:
-        raise ValueError('change_detection_scan runs on cuda or cpu '
-                         'tensors, not %s' % values.device)
+    packed, margin = scan_kernel(values.to(torch.float32).contiguous(),
+                                 tabs, float(n))
     result = packed if return_packed else unpack_flags(packed, k)
     return result, margin
 
 
-def _launch(values, tabs, nf):
+def scan_kernel(values, tabs, nf, plan=None):
+    """The scan of a contiguous (y, x, k, 4) float32 tensor with the
+    tables of :func:`scan_tables` (``nf`` looks): the (P, y, x) int32
+    packed planes and the (y, x) float32 margin. A CUDA tensor launches
+    the kernel with ``plan`` (one of :func:`plan_candidates`, for tests
+    and the plan sweep) or :func:`_scan_plan`; a CPU tensor takes
+    :func:`scan_plain`; any other device raises."""
+    if values.ndim != 4 or values.shape[3] != 4:
+        raise ValueError('values must be (y, x, time, 4)')
+    if values.dtype != torch.float32:
+        raise TypeError('the scan takes float32, not %s' % values.dtype)
+    if not values.is_contiguous():
+        raise ValueError('the scan takes a contiguous tensor')
+    _check_length(values.shape[2])
+    if values.device.type == 'cpu':
+        return scan_plain(values, tabs, nf)
+    if values.device.type != 'cuda':
+        raise ValueError('the scan runs on cuda or cpu tensors, not %s'
+                         % values.device)
+    return _launch(values, tabs, nf, plan)
+
+
+# ---- the kernel's plan ------------------------------------------------------
+
+_THREADS = (32, 64, 128, 256)   # pixels (threads) of a block
+_CHUNK_STEPS = (3, 5, 7, 15, 31)  # T, and k itself (one chunk)
+_ONE_WAVE = SMS * 10 * 128      # pixels resident at once in 128-pixel blocks
+
+
+def scan_smem(k, threads, T, nbuf):
+    """Shared-memory bytes of a block (``scan_smem`` in
+    csrc/omnibus_scan.cu): ``nbuf`` chunk buffers of ``threads`` rows at
+    a stride of ``T | 1`` 16-byte steps (odd, so a warp's reads of one
+    step are free of bank conflicts), the interior thresholds of window
+    lengths 0 .. k+1 (16 bytes each) and ``SNAPSHOTS`` floats a pixel
+    (pass A's running minimum at its first tentative hits)."""
+    return (nbuf * threads * (T | 1) * 16 + (k + 2) * 16
+            + SNAPSHOTS * threads * 4)
+
+
+def _plan(k, npix, threads, T, nbuf):
+    T = min(T, k)
+    nbuf = min(nbuf, -(-k // T))
+    return dict(threads=threads, T=T, nbuf=nbuf,
+                smem=scan_smem(k, threads, T, nbuf),
+                blocks=-(-npix // threads))
+
+
+@functools.lru_cache(maxsize=512)
+def plan_candidates(k, npix):
+    """Every plan of the sweep that fits ``SMEM_MAX``: ``threads`` pixels
+    per block, chunks of ``T`` steps (3 to 31 or the whole series), a
+    ring of 2 or 3 buffers or one per chunk (the series read from device
+    memory once). Returns a tuple of plan dicts."""
+    plans = {}
+    for threads in _THREADS:
+        for T in _CHUNK_STEPS + (k,):
+            for nbuf in (2, 3, k):
+                p = _plan(k, npix, threads, T, nbuf)
+                key = (threads, p['T'], p['nbuf'])
+                if p['smem'] <= SMEM_MAX and key not in plans:
+                    plans[key] = p
+    return tuple(plans.values())
+
+
+@functools.lru_cache(maxsize=512)
+def _scan_plan(k, npix):
+    """The kernel's plan for ``npix`` series of ``k`` steps: a dict with
+    ``threads`` (the block's pixels, one thread each), ``T`` (steps per
+    chunk), ``nbuf`` (chunk buffers), ``smem`` (bytes) and ``blocks``.
+
+    The rule is the forced-plan sweep's (``python -m
+    nd_tpu_torch.scan_sweep``; PERF.md, PR 5) on the H100: chunks of 7
+    steps through a double buffer at every k it ran (16 to 256; fewer
+    steps pay more barriers, more buffers or whole series cost
+    residency), 128-pixel blocks where the image fits in about one wave
+    of them (10 blocks an SM), 64-pixel blocks for larger images, and
+    fewer pixels a block where that leaves under two blocks an SM.
+    Cached per (k, npix)."""
+    threads = 128 if npix <= _ONE_WAVE else 64
+    while threads > 32 and -(-npix // threads) < 2 * SMS:
+        threads //= 2
+    return _plan(k, npix, threads, 7, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(device_index):
+    """Raise the kernels' dynamic shared-memory limit on one device, once."""
+    with torch.cuda.device(device_index):
+        _build.check('nd_omnibus_scan_setup',
+                     _build.function('nd_omnibus_scan_setup', '')())
+
+
+_arrays = {}           # id(tables) -> (tables, their float64 arrays)
+
+
+def _table_arrays(tabs):
+    """The tables as float64 arrays for the C entry point, made once per
+    :func:`scan_tables` result (hashing its tuples costs more host time
+    than building them costs once)."""
+    hit = _arrays.get(id(tabs))
+    if hit is None or hit[0] is not tabs:
+        if len(_arrays) >= 64:
+            _arrays.clear()
+        hit = (tabs, tuple(np.asarray(tabs[name], np.float64) for name in
+                           ('f2_coefs', 'f2_small', 's_small', 'cg_tab',
+                            'sg_tab')))
+        _arrays[id(tabs)] = hit
+    return hit[1]
+
+
+def _launch(values, tabs, nf, plan=None):
     if values.data_ptr() % 16:
         values = values.clone()      # the kernel loads 16-byte steps
     ny, nx, k, _ = values.shape
     npix = ny * nx
     dev = values.device
+    if plan is None:
+        plan = _scan_plan(k, npix)
+    _setup(dev.index if dev.index is not None
+           else torch.cuda.current_device())
     packed = torch.empty(((k + 30) // 31, ny, nx), dtype=torch.int32,
                          device=dev)
     margin = torch.empty((ny, nx), dtype=torch.float32, device=dev)
-    rel_b = torch.empty((k, npix), dtype=torch.float32, device=dev)
-    coefs = np.asarray(tabs['f2_coefs'], np.float64)
-    small = np.asarray(tabs['f2_small'], np.float64)
-    s_small = np.asarray(tabs['s_small'], np.float64)
-    cg = np.asarray(tabs['cg_tab'], np.float64)
-    sg = np.asarray(tabs['sg_tab'], np.float64)
-    fn = _build.function('nd_omnibus_scan_f32', 'ppppqipippippdddddp')
+    coefs, small, s_small, cg, sg = _table_arrays(tabs)
+    fn = _build.function('nd_omnibus_scan_f32', 'pppqiiiipippippdddddp')
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(values.data_ptr(), packed.data_ptr(), margin.data_ptr(),
-                 rel_b.data_ptr(), npix, k, coefs.ctypes.data, len(coefs),
+                 npix, k, plan['threads'], plan['T'], plan['nbuf'],
+                 coefs.ctypes.data, len(coefs),
                  small.ctypes.data, s_small.ctypes.data, len(small),
                  cg.ctypes.data, sg.ctypes.data, tabs['f2_rel_err'],
                  1.0 + tabs['f2_rel_err'], tabs['za'], tabs['zb'], nf,

@@ -1,6 +1,7 @@
 """Streaming probe: the ``stream_probe`` CUDA kernel
 (``csrc/stream_probe.cu``), ``x + 1`` over a (M, 1024) float32 tensor
-with its row slabs staged through shared memory, and its plain version.
+with its row slabs staged through shared memory by TMA bulk copies, and
+its plain version.
 
 Replaces ``bench.py`` ``_measure_dma_through``, the TPU benchmark's
 ceiling for streaming kernels that stage their data (double-buffered
@@ -13,6 +14,9 @@ version for a CPU tensor; for any other device it raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -35,6 +39,19 @@ def stream_plus_one_plain(x):
     return x + 1
 
 
+@functools.lru_cache(maxsize=None)
+def _grid(device_index):
+    """The kernel's persistent grid on one device (one or two blocks per
+    SM, from its occupancy), queried once: the query and the
+    shared-memory attribute cost host time that ``torch.add`` does not
+    pay."""
+    per_sm = ctypes.c_int(0)
+    fn = _build.function('nd_stream_probe_setup', 'p')
+    _build.check('nd_stream_probe_setup', fn(ctypes.addressof(per_sm)))
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm.value * sms
+
+
 def stream_plus_one(x):
     """``x + 1`` for a contiguous (M, 1024) float32 tensor whose data
     starts on a 16-byte boundary; raises on anything else."""
@@ -53,10 +70,11 @@ def stream_plus_one(x):
     if x.data_ptr() % 16:
         raise ValueError('stream_plus_one needs 16-byte aligned data')
     out = torch.empty_like(x)
-    fn = _build.function('nd_stream_plus_one_f32', 'ppqp')
+    fn = _build.function('nd_stream_plus_one_f32', 'ppqip')
     with torch.cuda.device(x.device):
+        blocks = _grid(torch.cuda.current_device())
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.shape[0], stream)
+        err = fn(x.data_ptr(), out.data_ptr(), x.shape[0], blocks, stream)
     global launches
     launches += 1
     _build.check('nd_stream_plus_one_f32', err)

@@ -19,6 +19,7 @@ equal to its plain version for 'mixed' and 'float64' statistics, a
 mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1.
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -201,22 +202,84 @@ def test_nlmeans_3d_kernel_float64_and_n_eff(cuda):
                                equal_nan=True)
 
 
-@pytest.mark.parametrize('k', [16, 56, 200])
-def test_scan_kernel_matches_plain(cuda, k):
-    cube = sar_cube(37, 53, k, seed=14)
-    cube[:, 0] = long_stack_cube(37, 1, k, seed=14)[:, 0]
-    cube = torch.from_numpy(cube).to(cuda)
-    before = change_scan_cuda.launches
-    got, gm = change_scan_cuda.change_detection_scan(cube, 0.99, n=9,
-                                                     return_packed=True)
-    assert change_scan_cuda.launches == before + 1
+SCAN_KS = [3, 4, 16, 31, 32, 33, 48, 49, 56, 64, 65, 128, 200, 255, 256]
+
+
+def _scan_cube(ny, nx, k, seed):
+    """A scan input with the bursty column, zero determinants (pixel
+    (3, 4), every third step up to 12), negative ones (pixel (4, 5), every
+    other step), the NaN and constant pixels of ``sar_cube`` (on cubes
+    large enough to hold them)."""
+    big = ny * nx > 40
+    cube = sar_cube(ny, nx, k, seed=seed, special=big)
+    if nx > 1:
+        cube[:, 0] = long_stack_cube(ny, 1, k, seed=seed)[:, 0]
+    if big:
+        cube[3, 4, 0:12:3] = (1.0, 1.0, 0.0, 1.0)
+        cube[4, 5, 1::2, 1] = 3.0
+    return np.ascontiguousarray(cube)
+
+
+def _scan_tables(k):
+    """scan_tables(k, 9, 0.99); for the short series whose polynomial
+    fit is infeasible, k=16's fit with its global tables cut to k (the
+    kernel and its plain version take the same tables either way)."""
     tabs = change_scan_cuda.scan_tables(k, 9, 0.99)
-    ref, rm = change_scan_cuda.scan_plain(cube, tabs, 9.0)
+    if tabs is None:
+        base = change_scan_cuda.scan_tables(16, 9, 0.99)
+        tabs = dict(base, cg_tab=base['cg_tab'][:k + 1],
+                    sg_tab=base['sg_tab'][:k + 1])
+    return tabs
+
+
+def _assert_scan_equal(got, ref):
+    (gp, gm), (rp, rm) = got, ref
+    assert bool((gp == rp).all())
+    # margins bit for bit, NaN where NaN
+    assert bool((gm.view(torch.int32) == rm.view(torch.int32)).all())
+
+
+@pytest.mark.parametrize('k', SCAN_KS)
+@pytest.mark.parametrize('shape', [(37, 53), (1, 1)])
+def test_scan_kernel_matches_plain(cuda, k, shape):
+    cube = torch.from_numpy(_scan_cube(*shape, k, seed=14 + k)).to(cuda)
+    tabs = _scan_tables(k)
+    before = change_scan_cuda.launches
+    got = change_scan_cuda.scan_kernel(cube, tabs, 9.0)
+    assert change_scan_cuda.launches == before + 1
+    ref = change_scan_cuda.scan_plain(cube, tabs, 9.0)
     torch.cuda.synchronize()
-    assert bool((got == ref).all())
-    gm, rm = gm.cpu().numpy(), rm.cpu().numpy()
-    np.testing.assert_array_equal(gm, rm)          # NaN where NaN
-    assert np.isfinite(gm).mean() > 0.5
+    _assert_scan_equal(got, ref)
+    if shape != (1, 1):
+        assert float(torch.isfinite(ref[1]).float().mean()) > 0.5
+    if change_scan_cuda.scan_tables(k, 9, 0.99) is not None:
+        packed, margin = change_scan_cuda.change_detection_scan(
+            cube, 0.99, n=9, return_packed=True)
+        _assert_scan_equal((packed, margin), ref)
+
+
+@pytest.mark.parametrize('k', [16, 56, 200])
+def test_every_scan_plan_is_bit_equal(cuda, k):
+    cube = torch.from_numpy(_scan_cube(37, 53, k, seed=60 + k)).to(cuda)
+    tabs = _scan_tables(k)
+    ref = change_scan_cuda.scan_plain(cube, tabs, 9.0)
+    plans = change_scan_cuda.plan_candidates(k, 37 * 53)
+    assert len(plans) >= 20
+    for plan in plans:
+        got = change_scan_cuda.scan_kernel(cube, tabs, 9.0, plan)
+        torch.cuda.synchronize()
+        _assert_scan_equal(got, ref)
+
+
+def test_scan_plan_shared_memory_matches_the_kernel(cuda):
+    lib = _build.library()
+    fn = lib.nd_omnibus_scan_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 4
+    for k in (3, 56, 200, 256):
+        for plan in change_scan_cuda.plan_candidates(k, 1 << 20):
+            assert fn(k, plan['threads'], plan['T'],
+                      plan['nbuf']) == plan['smem']
 
 
 def test_exact_long_series_on_the_card_equals_plain_mixed(cuda):
@@ -491,14 +554,15 @@ def test_float32_statistics_take_the_kernels_on_the_card(cuda):
     assert float((got != ref).float().mean()) <= 1e-5
 
 
-def test_stream_probe_matches_plain(cuda):
-    x = _data((1000, 1024), seed=53).to(cuda, torch.float32)
+@pytest.mark.parametrize('m', [1, 7, 8, 9, 1000, 49152])
+def test_stream_probe_matches_plain(cuda, m):
+    x = _data((m, 1024), seed=53).to(cuda, torch.float32)
     before = stream_cuda.launches
-    got = stream_cuda.stream_plus_one(x)
-    assert stream_cuda.launches == before + 1
-    torch.cuda.synchronize()
-    assert float((got - stream_cuda.stream_plus_one_plain(x)).abs().max()) \
-        == 0.0
+    for _ in range(2):         # the second call takes the cached grid
+        got = stream_cuda.stream_plus_one(x)
+        torch.cuda.synchronize()
+        assert bool((got == stream_cuda.stream_plus_one_plain(x)).all())
+    assert stream_cuda.launches == before + 2
+    unaligned = torch.zeros(m * 1024 + 1, device=cuda)[1:].reshape(m, 1024)
     with pytest.raises(ValueError, match='aligned'):
-        stream_cuda.stream_plus_one(x.reshape(-1)[1:1 + 1024 * 3]
-                                    .reshape(3, 1024))
+        stream_cuda.stream_plus_one(unaligned)
