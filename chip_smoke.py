@@ -13,16 +13,20 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   3. every kernel against its plain PyTorch version on the card, at the
      path's shapes: sepconv in both layouts (max abs diff 0: the tiled
      kernel does the plain version's operations in its order), NLMeans
-     r=1/f=1, r=2/f=2, r=2/f=1 (rtol 1e-5, atol 1e-6), the omnibus fast
-     flags (mismatch rate <= 1e-5; also at k=40, two flag planes) and the
-     unpack_flags round trip at k=40; and ragged shapes that fill no
+     r=1/f=1, r=2/f=2, r=2/f=1 (rtol 1e-5, atol 1e-6), the round
+     kernel's flags and margins bit-equal to its plain version (margins
+     compared as int32; k=12 capped and uncapped, k=40 and k=48 capped)
+     and the unpack_flags round trip at k=40; and ragged shapes that fill no
      tile: NLMeans (3-D window) at 37 x 53 x 5 x 4, sepconv with outer 4
      at 37 x 53 x 7; the rescan kernel ``mixed_scan`` on gathered rows
      (N in {1, 33, 1088}, k in {2, 12, 48, 56, 200, 300}, float32 and
      float64 input, zero, negative and NaN determinants, the bursty
      column, alpha 1e-12, and 0.5 looks for the unfolded float64
      branch): packed flags bit-equal to the plain version for 'mixed' and
-     'float64', mismatch rate <= 1e-5 for 'float32';
+     'float64', mismatch rate <= 1e-5 for 'float32'; the exact mode's
+     rescan entry point ``rescan`` (suspects selected on the card from
+     margins with NaN, written into the planes) bit-equal to its plain
+     version, with the same suspect count;
   4. exact omnibus (alpha 0.99, 9 looks, margin_eps 1e-4): 0
      mismatches against the plain float64 'mixed' scan of the full grid
      (``change_detection_plain``, never a kernel);
@@ -83,7 +87,21 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      time) of the kernel and of ``torch.add(x, 1)``, the bandwidth a
      staging kernel reaches, from single calls and from runs of 50
      back-to-back calls between one event pair (the host's share of a
-     single call shows in the difference).
+     single call shows in the difference);
+ 15. the long-tap route: ``GaussianFilter(dims=('y','x','time'),
+     sigma=16)`` (129 taps) on path C's C11 DataArray, counted (one
+     sepconv pass per axis with its taps in shared memory), max abs diff
+     0 to the same passes' plain versions, timed;
+ 16. the wide-window route: ``NLMeansFilter(dims=('y','x','time'),
+     r=(10,10,3), f=3)`` on a 128 x 128 x 56 x 4 slab of the long stack
+     (its halo tile of every variable fits no block: the global-halo
+     route), counted, within rtol 1e-5, atol 1e-6 of the plain version,
+     timed;
+ 17. the exact calls' host share: one ``torch.profiler`` window around
+     each exact call (phase 4, path A's, path B's): wall ms, device-busy
+     ms and share, device events; and that device time over the call's
+     CUDA-event time without the profiler (the profiler's own host work
+     inflates its wall).
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -135,6 +153,12 @@ KERNELS = {
                       'launches'),
     'stream_probe': ('nd_tpu_torch/csrc/stream_probe.cu', 'bench.py:176',
                      'stream_cuda', 'launches'),
+    # routes of the kernels above, counted apart (the reference sends
+    # these shapes to XLA)
+    'sepconv_long': ('nd_tpu_torch/csrc/sepconv.cu', 'nd_tpu/ops/conv.py:567',
+                     'conv_cuda', 'launches_long'),
+    'nlmeans_wide': ('nd_tpu_torch/csrc/nlmeans.cu', 'nd_tpu/ops/nlmeans.py:46',
+                     'nlmeans_cuda', 'launches_wide'),
 }
 
 
@@ -241,14 +265,17 @@ def round_bound(x, planes, max_rounds, margins=True):
     """The round kernel's bound: the series read once, the flag planes
     (and the margins) written once; the f32 operations of csrc/omnibus.cu
     over the steps these flags imply (``scan_steps``, at most
-    ``max_rounds`` rounds a pixel): per step the determinant, its log and
-    the running sums (14 + MLOG_OPS; 16 more for the margin's
-    conditioning), per tested step the window statistic (19 + MLOG_OPS;
-    28 more for its margin)."""
+    ``max_rounds`` rounds a pixel): once per pixel and step its terms that
+    do not depend on the anchor (the determinant, its log and the sign,
+    6 + MLOG_OPS; 16 more for the margin's conditioning), per step of a
+    round the running sums and the sign parity (6; 2 more with margins),
+    per tested step the window statistic (19 + MLOG_OPS; 28 more for its
+    margin)."""
     ny, nx, k, _ = x.shape
     steps, tested = scan_steps(planes.reshape(planes.shape[0], -1), k,
                                max_rounds)
-    ops = (steps * (14 + MLOG_OPS + 16 * margins)
+    ops = (ny * nx * k * (6 + MLOG_OPS + 16 * margins)
+           + steps * (6 + 2 * margins)
            + tested * (19 + MLOG_OPS + 28 * margins))
     out = ny * nx * 4 * (planes.shape[0] + (1 if margins else 0))
     return bound(x.numel() * x.element_size() + out, ops)
@@ -273,20 +300,21 @@ def scan_steps(planes, k, max_rounds=None):
     return steps, steps - rounds
 
 
-def mixed_bound(rows, planes):
+def mixed_bound(rows, planes, margins=0):
     """The rescan kernel's bound: the rows read once and the planes
-    written once; per step the float64 operations of the folded test in
-    csrc/omnibus_mixed.cu (|det| converted, its log, the log sum; on a
-    tested step the sums and j converted, the window determinant, the
-    select, the statistic's products and difference, its log and the
-    compare) and the float32 operations of the determinant, the four
-    sums and the sign count."""
+    written once (and ``margins`` float32 margins read once, where the
+    suspects are selected from them); per step the float64 operations of
+    the folded test in csrc/omnibus_mixed.cu (|det| converted, its log,
+    the log sum; on a tested step the sums and j converted, the window
+    determinant, the select, the statistic's products and difference,
+    its log and the compare) and the float32 operations of the
+    determinant, the four sums and the sign count."""
     k = rows.shape[1]
     steps, tested = scan_steps(planes, k)
     f64 = steps * (2 + LOG_OPS) + tested * (16 + LOG_OPS)
     f32 = steps * 10
     t_bytes = (rows.numel() * rows.element_size()
-               + planes.numel() * 4) / HBM_BYTES_PER_S * 1e3
+               + planes.numel() * 4 + margins * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = (f64 / F64_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
@@ -411,12 +439,19 @@ def main():
           '1e-6 held); sepconv at %s max abs diff %.3g'
           % (tuple(rag.shape), float(diff.max()), tuple(rag4.shape), sdiff))
     del rag, rag4, got, ref, diff
-    small40 = torch.from_numpy(make_cube(256, 256, 40, seed=1)).to(dev)
+    small40 = torch.from_numpy(make_cube(256, 256, 40, seed=1,
+                                         burst=True)).to(dev)
+    small48 = torch.from_numpy(make_cube(256, 256, 48, seed=2,
+                                         burst=True)).to(dev)
+
+    def capped(k):
+        return dict(return_margin=True, max_rounds=change_cuda._round_cap(k))
     for label, vals, kw in (
             ('k=12 uncapped', cube, {}),
-            ('k=12 capped+margins', cube,
-             dict(return_margin=True, max_rounds=change_cuda._round_cap(K))),
-            ('k=40 uncapped', small40, {})):
+            ('k=12 capped+margins', cube, capped(K)),
+            ('k=40 uncapped', small40, {}),
+            ('k=40 capped+margins', small40, capped(40)),
+            ('k=48 capped+margins', small48, capped(48))):
         k = vals.shape[2]
         out = change_cuda.change_detection_fast(vals, 0.99, n=9,
                                                 return_packed=True, **kw)
@@ -426,19 +461,16 @@ def main():
             vals, c_tab, s_tab, 9.0, kw.get('max_rounds', k - 1),
             bool(kw))
         torch.cuda.synchronize()
-        rate = float((change_cuda.unpack_flags(got, k)
-                      != change_cuda.unpack_flags(ref[0], k)).float().mean())
-        check(rate <= 1e-5, 'omnibus flags', label, rate)
-        line = 'omnibus fast flags %s: mismatch rate %.3g <= 1e-5' % (
-            label, rate)
+        mism = int((got != ref[0]).sum())
+        check(mism == 0, 'omnibus flags', label, mism)
+        line = 'omnibus round kernel %s (plan %s): flag planes bit-equal' % (
+            label, change_cuda._round_plan(k, vals.shape[0] * vals.shape[1]))
         if kw:
-            gm, rm = out[1], ref[1]
-            fin = torch.isfinite(gm) & torch.isfinite(rm)
-            check(bool((torch.isneginf(gm) == torch.isneginf(rm)).all()),
-                  'omnibus -inf margins', label)
-            mdiff = float((gm[fin] - rm[fin]).abs().max())
-            err['omnibus'] = max(err['omnibus'], mdiff)
-            line += '; margins max abs diff %.3g' % mdiff
+            mism = int((out[1].view(torch.int32)
+                        != ref[1].view(torch.int32)).sum())
+            check(mism == 0, 'omnibus margins', label, mism)
+            line += ', margins bit-equal (%d of them -inf)' % int(
+                torch.isneginf(ref[1]).sum())
         phase(3, line)
     flags40 = torch.rand((NY, NX, 40), generator=torch.Generator(
         device=dev).manual_seed(SEED), device=dev) > 0.7
@@ -447,7 +479,7 @@ def main():
           and bool((change_cuda.unpack_flags(packed40, 40) == flags40).all()),
           'unpack_flags round trip at k=40')
     phase(3, 'unpack_flags round trip at k=40 (2 planes): exact')
-    del small40, flags40, packed40
+    del small40, small48, flags40, packed40
 
     def check_mixed(label, rows, alpha, n, mode, at=3):
         """The rescan kernel against its plain version on the same rows:
@@ -509,6 +541,30 @@ def main():
                 56, 0.5, 0.99, torch.float64)[0], 'unfolded tables')
             check_mixed('k=56 N=1088 n=0.5 (unfolded float64), mixed',
                         rows, 0.99, 0.5, 'mixed')
+        if k in (12, 56, 200):
+            # the rescan entry point: suspects from margins (NaN every
+            # 7th), planes written in place, the others untouched
+            gen = torch.Generator(device=dev).manual_seed(k)
+            margin = torch.rand(rows.shape[0], generator=gen,
+                                device=dev) * 2 - 1
+            margin[::7] = float('nan')
+            start = torch.randint(0, 2 ** 30, ((k + 30) // 31,
+                                               rows.shape[0]),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+            for vals in (rows, rows.double()):
+                got_p, ref_p = start.clone(), start.clone()
+                got_n = change_mixed_cuda.rescan(vals, margin, got_p, 0.99,
+                                                 9, 1e-4)
+                ref_n = change_mixed_cuda.rescan_plain(vals, margin, ref_p,
+                                                       0.99, 9, 1e-4)
+                torch.cuda.synchronize()
+                mism = int((got_p != ref_p).sum())
+                check(mism == 0 and int(got_n) == int(ref_n), 'rescan', k,
+                      vals.dtype, mism, int(got_n), int(ref_n))
+                phase(3, 'rescan k=%d N=1088 %s rows: %d suspects selected '
+                      'on the card, planes bit-equal to the plain version'
+                      % (k, vals.dtype, int(got_n)))
     del rows, rows64
 
     # ---- 4-6. the main path, counted ------------------------------------------
@@ -661,6 +717,14 @@ def main():
 
     mpix = NY * NX * K / 1e6
     cap = change_cuda._round_cap(K)
+    rows4 = cube.reshape(-1, K, 4)
+    packed4, margin4 = change_cuda.change_detection_fast(
+        cube, 0.99, n=9, return_margin=True, return_packed=True,
+        max_rounds=cap)
+    plain4 = packed4.clone()
+    idx4 = torch.nonzero(~(margin4 > 1e-4).reshape(-1)).squeeze(1)
+    planes4 = change_mixed_cuda.mixed_scan(rows4.index_select(0, idx4), 0.99,
+                                           9)
     ml_got = conv_cuda.sepconv2(x_ml, *ml_taps)
     st_got = conv_cuda.sepconv2(x_stack, *box_taps)
     timed = [
@@ -700,6 +764,13 @@ def main():
          round_bound(cube, change_cuda.change_detection_fast(
              cube, 0.99, n=9, return_margin=True, return_packed=True,
              max_rounds=cap)[0], cap), None, False),
+        ('rescan phase 4 from margins', None, idx4.numel() * K / 1e6,
+         lambda: change_mixed_cuda.rescan(rows4, margin4, packed4, 0.99, 9,
+                                          1e-4),
+         lambda: change_mixed_cuda.rescan_plain(rows4, margin4, plain4,
+                                                0.99, 9, 1e-4),
+         mixed_bound(rows4.index_select(0, idx4), planes4, NY * NX), None,
+         False),
         ('phase 4 exact omnibus', None, mpix,
          lambda: change_detection_exact(cube, 0.99, n=9, margin_eps=1e-4),
          lambda: change_detection_plain(cube, 0.99, n=9), None, None,
@@ -715,6 +786,7 @@ def main():
     ]
     del ml_got, st_got
     time_rows(8, timed)
+    del packed4, plain4, planes4
     phase(8, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
@@ -865,7 +937,7 @@ def main():
           'launches %s' % (KL, mism, int(mixed3.sum()), suspects_a,
                            100.0 * suspects_a / (NY * NX),
                            json.dumps(counts_a)))
-    del flt3, change3, looked3, mixed3
+    del flt3, change3, mixed3
 
     # ---- 11. path B: exact omnibus at k=200, counted -------------------------------
     reset_counts()
@@ -930,6 +1002,15 @@ def main():
         conv_cuda.sepconv3_plain(c11v, *(gauss_taps,) * 3)
         conv_cuda.sepconv3_plain(c11v, *box3)
 
+    # the exact mode's rescan from the scan kernel's margins (suspects
+    # selected on the card), on paths A's and B's series
+    rescans = {}
+    for key, vals in (('A', looked3), ('B', bcube)):
+        pk, mg = change_scan_cuda.change_detection_scan(vals, 0.99, n=9,
+                                                        return_packed=True)
+        rescans[key] = (vals.reshape(-1, vals.shape[2], 4), mg, pk,
+                        pk.clone())
+
     long_timed = [
         # label, key, Mpix, kernel, plain, bound, yardstick, plain once
         ('sepconv3 gaussian (y,x,t)', 'sepconv3', mpix_l,
@@ -976,6 +1057,20 @@ def main():
          lambda: change_mixed_cuda.mixed_scan_plain(rows_b, 0.99, 9,
                                                     'mixed'),
          mixed_bound(rows_b, planes_b), None, True),
+        ('rescan path A from margins', None, rows_a.shape[0] * KL / 1e6,
+         lambda: change_mixed_cuda.rescan(*rescans['A'][:3], 0.99, 9, 1e-4),
+         lambda: change_mixed_cuda.rescan_plain(
+             *rescans['A'][:2], rescans['A'][3], 0.99, 9, 1e-4),
+         mixed_bound(rows_a, planes_a, NY * NX), None, True),
+        ('rescan path B from margins', None, rows_b.shape[0] * BK / 1e6,
+         lambda: change_mixed_cuda.rescan(*rescans['B'][:3], 0.99, 9, 1e-4),
+         lambda: change_mixed_cuda.rescan_plain(
+             *rescans['B'][:2], rescans['B'][3], 0.99, 9, 1e-4),
+         mixed_bound(rows_b, planes_b, BNY * BNX), None, True),
+        ('path A exact k=56', None, mpix_l,
+         lambda: change_detection_exact(looked3, 0.99, n=9, margin_eps=1e-4),
+         lambda: change_detection_plain(looked3, 0.99, n=9), None, None,
+         True),
         ('path A long-stack chain', None, mpix_l,
          lambda: omn3.apply(nlm3.apply(ds_long)), plain_chain_a, None, None,
          True),
@@ -995,7 +1090,7 @@ def main():
               'once, planes and margins written once; data sheet %.0f GB/s)'
               ' | %s' % (k, row_ms[key]['ms'], moved / row_ms[key]['ms'] / 1e6,
                          HBM_BYTES_PER_S / 1e9, card))
-    del lib_calls, rows_a, rows_b
+    del lib_calls, rows_a, rows_b, rescans
     phase(13, 'peak device memory %.2f GiB | %s'
           % (torch.cuda.max_memory_allocated() / 2 ** 30, card))
 
@@ -1061,10 +1156,101 @@ def main():
              2 * nbytes / run_add / 1e6, run_add / run_k, row['ms'],
              row['library_ms'], card))
 
+    # ---- 15. the long-tap route, counted ------------------------------------------
+    g16 = np.flip(gaussian_kernel1d(16.0))          # 129 taps, as convolve
+    gauss16 = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=16)
+
+    def plain_long(x):
+        """The same one-axis passes (ops/conv.py ``_sep_pass``'s (1, outer,
+        n, inner) views), each by sepconv's plain version."""
+        out = x
+        for ax in range(3):
+            shape = out.shape
+            view = (1, int(np.prod(shape[:ax])), shape[ax],
+                    int(np.prod(shape[ax + 1:])))
+            out = conv_cuda.sepconv2_plain(out.contiguous().reshape(view),
+                                           np.ones(1), g16).reshape(shape)
+        return out
+
+    reset_counts()
+    smooth16 = gauss16.apply(c11_da)
+    torch.cuda.synchronize()
+    counts_long = read_counts()
+    check(counts_long['sepconv_long'] == 3 and counts_long['sepconv'] == 3,
+          'long-tap kernels', counts_long)
+    diff = float((smooth16.data - plain_long(c11_da.data)).abs().max())
+    check(diff == 0 and smooth16.dims == ('y', 'x', 'time'), 'long taps',
+          diff)
+    err['sepconv_long'] = diff
+    phase(15, 'GaussianFilter(dims=(y,x,time), sigma=16): %d taps per axis, '
+          'one pass per axis, max abs diff %.3g vs the plain passes; '
+          'launches %s' % (len(g16), diff, json.dumps(counts_long)))
+    del smooth16
+    time_rows(15, [
+        ('GaussianFilter sigma=16', 'sepconv_long', mpix_l,
+         lambda: gauss16.apply(c11_da), lambda: plain_long(c11_da.data),
+         sepconv_bound(c11v, g16, g16, g16), None, False)])
+
+    # ---- 16. the wide-window route, counted ---------------------------------------
+    rw, fw = (10, 10, 3), (3, 3, 3)
+    slab = stack[:128, :128].contiguous()                 # 128 x 128 x 56 x 4
+    plan = nlmeans_cuda._tile_plan(tuple(slab.shape), rw, fw, 4)
+    check(plan['route'] == 'global', 'wide-window route', plan)
+    nlm_wide = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=rw, f=3,
+                                 sigma=2, h=3)
+    ds_slab = Dataset({v: (('y', 'x', 'time'), slab[..., i])
+                       for i, v in enumerate(names)})
+    reset_counts()
+    wide = nlm_wide.apply(ds_slab)
+    torch.cuda.synchronize()
+    counts_wide = read_counts()
+    check(counts_wide['nlmeans_wide'] == 1
+          and counts_wide['nlmeans_3d'] == 1, 'wide-window kernels',
+          counts_wide)
+    wide = torch.stack([wide[v].data for v in names], -1)
+    ref_w, wide_plain_ms = once_ms(
+        lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0))
+    diff = (wide - ref_w).abs()
+    excess = float((diff - (1e-6 + 1e-5 * ref_w.abs())).max())
+    check(bool(torch.isfinite(wide).all()) and excess <= 0, 'wide window',
+          excess)
+    err['nlmeans_wide'] = float(diff.max())
+    phase(16, 'NLMeansFilter(dims=(y,x,time), r=%r, f=3) on %s: route %s, '
+          'tile %r, %d bytes of shared memory a block; max abs diff %.3g '
+          '(rtol 1e-5, atol 1e-6 held); plain once %.1f ms; launches %s'
+          % (rw, tuple(slab.shape), plan['route'], plan['tile'],
+             plan['smem'], err['nlmeans_wide'], wide_plain_ms,
+             json.dumps(counts_wide)))
+    del wide, ref_w, diff
+    time_rows(16, [
+        ('nlmeans_3d wide r=(10,10,3) f=3', 'nlmeans_wide',
+         slab.numel() / 4 / 1e6,
+         lambda: nlmeans_cuda.nlmeans_3d(slab, rw, fw, 2.0, 3.0),
+         lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0),
+         nlmeans_bound(slab, rw, fw), None, True)])
+
+    # ---- 17. the exact calls' host share --------------------------------------------
+    from nd_tpu_torch.breakdown import profiled
+    for label, vals in (('phase 4 exact (k=%d)' % K, cube),
+                        ('path A exact (k=%d)' % KL, looked3),
+                        ('path B exact (k=%d)' % BK, bcube)):
+        def call():
+            return change_detection_exact(vals, 0.99, n=9, margin_eps=1e-4)
+        event_ms = cuda_ms(call)
+        wall, busy, events, top = profiled(call)
+        phase(17, '%s: under torch.profiler wall %.3f ms, device busy %.3f '
+              'ms (%.1f%%), %d device events; that device time over the '
+              'call\'s CUDA-event time (%.3f ms, median of 7, no profiler): '
+              '%.1f%%; top %s | %s'
+              % (label, wall, busy, 100.0 * busy / wall, events, event_ms,
+                 100.0 * busy / event_ms,
+                 ', '.join('%s %.3f ms' % kv for kv in top), card))
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
-                                          counts_c, counts_p))
+                                          counts_c, counts_p, counts_long,
+                                          counts_wide))
               for name in KERNELS}
-    phase(14, 'chip_smoke ran %.1f s, the build included'
+    phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))
     kernels = [dict({'name': name, 'route': 'cuda', 'source': src,
                      'replaces': tpu, 'launches': totals[name],

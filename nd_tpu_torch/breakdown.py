@@ -9,7 +9,8 @@ stack (k = 200 on 256 x 512), then prints one line per measurement:
   - path A: ``NLMeansFilter(dims=('y','x','time'), r=(2,2,1), f=1)``
     apply and ``OmnibusTest(ml=3, alpha=0.99)`` apply; inside the latter
     the multilook kernel, the scan kernel call and the float64 'mixed'
-    rescan of the suspects (gather and the ``omnibus_mixed`` kernel);
+    rescan of the suspects (``change_mixed_cuda.rescan``: their selection
+    on the card and the ``omnibus_mixed`` kernel);
   - path B: ``change_detection_exact`` at k = 200: the scan kernel call
     and the rescan of the suspects;
   - one ``torch.profiler`` window each around ``OmnibusTest.apply`` and
@@ -36,7 +37,7 @@ from .core import Dataset
 from .filters import BoxcarFilter, NLMeansFilter
 from .ops import change_scan_cuda, conv_cuda
 from .ops.change import change_detection_exact
-from .ops.change_mixed_cuda import mixed_scan
+from .ops.change_mixed_cuda import rescan
 from .ops.conv import _separable_factors
 
 NAMES = ('C11', 'C12__re', 'C12__im', 'C22')
@@ -54,7 +55,7 @@ def _host_ms(fn, reps=3):
     return statistics.median(times)
 
 
-def _profiled(fn):
+def profiled(fn):
     """(wall ms, device-busy ms, device events, top kernels) of one call
     under torch.profiler, after one warm-up call."""
     from torch.autograd import DeviceType
@@ -80,15 +81,6 @@ def _profiled(fn):
     return wall, busy / 1e3, len(spans), top
 
 
-def _suspect_rescan(values, margin, alpha, n):
-    """The exact mode's rescan: gather the suspects, then the float64
-    'mixed' scan of the ``omnibus_mixed`` kernel; (P, N) planes."""
-    k = values.shape[2]
-    idx = torch.nonzero(~(margin > MARGIN_EPS).reshape(-1)).squeeze(1)
-    series = values.reshape(-1, k, 4).index_select(0, idx)
-    return mixed_scan(series, alpha, n, 'mixed')
-
-
 def main():
     if not torch.cuda.is_available():
         print('breakdown: needs a CUDA device', file=sys.stderr)
@@ -104,7 +96,7 @@ def main():
         print('%s | %s' % (text, card), flush=True)
 
     def say_profile(label, fn):
-        wall, busy, events, top = _profiled(fn)
+        wall, busy, events, top = profiled(fn)
         say('%s: wall %.3f ms under the profiler, device busy %.3f ms '
             '(%.1f%%), %d device events; top %s'
             % (label, wall, busy, 100.0 * busy / wall, events,
@@ -136,14 +128,16 @@ def main():
 
     for label, vals in (('A (k=%d, %dx%d)' % (cs.KL, cs.NY, cs.NX), looked),
                         ('B (k=%d, %dx%d)' % (cs.BK, cs.BNY, cs.BNX), bcube)):
-        _, margin = change_scan_cuda.change_detection_scan(
+        packed, margin = change_scan_cuda.change_detection_scan(
             vals, 0.99, n=9, return_packed=True)
         count = int((~(margin > MARGIN_EPS)).sum())
         exact_ms = _host_ms(lambda: change_detection_exact(
             vals, 0.99, n=9, margin_eps=MARGIN_EPS))
         scan_ms = _host_ms(lambda: change_scan_cuda.change_detection_scan(
             vals, 0.99, n=9, return_packed=True))
-        rescan_ms = _host_ms(lambda: _suspect_rescan(vals, margin, 0.99, 9))
+        rows = vals.reshape(-1, vals.shape[2], 4)
+        rescan_ms = _host_ms(lambda: rescan(rows, margin, packed, 0.99, 9,
+                                            MARGIN_EPS))
         say('%s: exact %.3f ms; scan kernel call %.3f ms; rescan of %d '
             'suspects %.3f ms' % (label, exact_ms, scan_ms, count,
                                   rescan_ms))

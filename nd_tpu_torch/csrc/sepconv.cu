@@ -40,8 +40,18 @@
 //    would have cost one);
 //  - the n2, n0 and n1 passes then run inside shared memory: every
 //    partial sum is formed once per tile instead of once per output.
-// A window too wide to stage (up to 64 taps per axis are taken) runs
-// the n2 pass from device memory instead, as a per-element loop.
+// A window too wide to stage runs the n2 pass from device memory
+// instead, as a per-element loop.
+//
+// Tap vectors of up to kInlineTaps weights travel by value in the launch
+// parameters, where a warp reads each weight as one broadcast operand.
+// Longer ones (GaussianFilter past sigma 7.8 at truncate 4: 65 taps and
+// more) come as device buffers that each block copies into shared memory
+// once; the tile plan counts them, and its tile sides shrink to an axis
+// shorter than a side, so a single long axis (the n1 axis of the
+// (1, outer, n, inner) view ops/conv.py gives a one-axis pass) always
+// finds a tile. Two long axes in one launch may find none: ops/conv.py
+// pairs axes only up to kInlineTaps taps each.
 //
 // Numerics: the add order is that of ops.conv._shift_add_valid: per
 // output, the n2 pass, then the n0 pass over those sums, then the n1 pass
@@ -56,7 +66,7 @@
 
 namespace {
 
-constexpr int kMaxTaps = 64;
+constexpr int kInlineTaps = 64;        // taps per axis passed by value
 constexpr int kThreads = 256;
 constexpr int kSmemMax = 232448;       // shared memory a block may use
 constexpr int kSmemPerSM = 233472;     // shared memory of an SM
@@ -67,12 +77,16 @@ enum Mode { kReflect = 0, kMirror = 1, kNearest = 2, kConstant = 3, kWrap = 4 };
 
 template <typename T>
 struct Taps {
-  T w[kMaxTaps];
+  T w[kInlineTaps];      // the weights, when k <= kInlineTaps
+  const T* wl;           // the weights on the device (k > kInlineTaps)
   T scale;
   int k;
   int lo;
   int uniform;
   int apply_scale;
+  __device__ __forceinline__ T at(int i) const {
+    return wl ? wl[i] : w[i];
+  }
 };
 
 // In-range source index of position j on an axis of n samples under the
@@ -104,18 +118,29 @@ __device__ __forceinline__ int edge_src(int j, int n, int mode) {
 }
 
 // One pass's sum over its taps, in the reference's order; K > 0 is the
-// tap count known at compile time (the loop unrolls), K == 0 reads t.k.
+// tap count known at compile time (the loop unrolls), K == 0 reads t.k,
+// K < 0 reads t.k and the weights from ws (shared memory: long taps).
 template <int K, typename T>
-__device__ __forceinline__ T tap_sum(const T* s, int stride, const Taps<T>& t) {
-  const int k = K > 0 ? K : t.k;
-  T acc = t.uniform ? s[0] : s[0] * t.w[0];
+__device__ __forceinline__ T tap_sum(const T* s, int stride, const Taps<T>& t,
+                                     const T* ws) {
+  if constexpr (K < 0) {
+    T acc = t.uniform ? s[0] : s[0] * ws[0];
+    for (int i = 1; i < t.k; ++i) {
+      const T v = s[i * stride];
+      acc = acc + (t.uniform ? v : v * ws[i]);
+    }
+    return t.apply_scale ? acc * t.scale : acc;
+  } else {
+    const int k = K > 0 ? K : t.k;
+    T acc = t.uniform ? s[0] : s[0] * t.w[0];
 #pragma unroll
-  for (int i = 1; i < (K > 0 ? K : kMaxTaps); ++i) {
-    if (K == 0 && i >= k) break;
-    const T v = s[i * stride];
-    acc = acc + (t.uniform ? v : v * t.w[i]);
+    for (int i = 1; i < (K > 0 ? K : kInlineTaps); ++i) {
+      if (K == 0 && i >= k) break;
+      const T v = s[i * stride];
+      acc = acc + (t.uniform ? v : v * t.w[i]);
+    }
+    return t.apply_scale ? acc * t.scale : acc;
   }
-  return t.apply_scale ? acc * t.scale : acc;
 }
 
 // cp.async: global -> shared without registers; 4, 8 or 16 bytes.
@@ -151,6 +176,7 @@ struct Geo {
   int vec;                 // elements per cp.async (16 bytes or one)
   int shift, lp;           // raw row: start offset in the staged row, length
   int staged, nbuf, needs_t;
+  int wtaps;               // long taps' weights in shared memory (k0+k1+k2)
   int nb0, nb1, nbc;       // tiles per axis
   long long tiles;
 };
@@ -216,10 +242,11 @@ __device__ void stage(const T* __restrict__ in, T* buf, long long tile,
   }
 }
 
-// The n2 pass from device memory, for windows too wide to stage.
-template <typename T>
+// The n2 pass from device memory, for windows too wide to stage; LONG:
+// the n2 weights are ws (shared memory), else a.a2.w.
+template <bool LONG, typename T>
 __device__ void direct_t_pass(const T* __restrict__ in, T* st, long long tile,
-                              const Geo& g, const Args<T>& a) {
+                              const Geo& g, const Args<T>& a, const T* ws) {
   const int bc = (int)(tile % g.nbc);
   long long rest = tile / g.nbc;
   const int b1 = (int)(rest % g.nb1);
@@ -244,7 +271,7 @@ __device__ void direct_t_pass(const T* __restrict__ in, T* st, long long tile,
       for (int u = 0; u < a.a2.k; ++u) {
         const int q = edge_src(i2 - a.a2.lo + u, g.n2, a.mode);
         const T v = (fill || q < 0) ? a.cval : src[(long long)q * g.inner];
-        const T term = a.a2.uniform ? v : v * a.a2.w[u];
+        const T term = a.a2.uniform ? v : v * (LONG ? ws[u] : a.a2.w[u]);
         tsum = (u == 0) ? term : tsum + term;
       }
       if (a.a2.apply_scale) tsum = tsum * a.a2.scale;
@@ -254,7 +281,8 @@ __device__ void direct_t_pass(const T* __restrict__ in, T* st, long long tile,
 }
 
 // KA: taps of the n0 and n1 passes, KB: of the n2 pass, when known at
-// compile time (0: read from the taps).
+// compile time (0: read from the taps; -1 for both: long taps, every
+// pass's weights in shared memory).
 template <typename T, int KA, int KB>
 __global__ void __launch_bounds__(kThreads)
     sepconv_tiled(const T* __restrict__ in, T* __restrict__ out, Geo g,
@@ -267,6 +295,17 @@ __global__ void __launch_bounds__(kThreads)
   T* const sy = st + (g.needs_t ? g.h0 * g.h1 * g.chunk : 0);
   const int chunk = g.chunk;
   const int tid = threadIdx.x, nth = blockDim.x;
+  // long taps: the three weight vectors, copied once per block
+  T* const w0 = sy + g.t0 * g.h1 * chunk;
+  T* const w1 = w0 + a.a0.k;
+  T* const w2 = w1 + a.a1.k;
+  if constexpr (KA < 0) {
+    for (int i = tid; i < g.wtaps; i += nth) {
+      const int j1 = i - a.a0.k, j2 = j1 - a.a1.k;
+      w0[i] = j1 < 0 ? a.a0.at(i) : (j2 < 0 ? a.a1.at(j1) : a.a2.at(j2));
+    }
+    __syncthreads();
+  }
 
   long long tile = blockIdx.x;
   if (g.staged && g.nbuf == 2 && tile < g.tiles) stage(in, raw0, tile, g, a);
@@ -295,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
           const T* s = cur + c * g.lp + g.shift + (e - c * chunk);
           for (int r = 0; r < g.h0; ++r)
             st[r * g.h1 * chunk + e] =
-                tap_sum<KB>(s + r * g.h1 * g.lp, g.inner, a.a2);
+                tap_sum<KB>(s + r * g.h1 * g.lp, g.inner, a.a2, w2);
         }
         __syncthreads();
       } else {
@@ -303,7 +342,7 @@ __global__ void __launch_bounds__(kThreads)
         S = g.lp;
       }
     } else {
-      direct_t_pass(in, st, tile, g, a);
+      direct_t_pass<(KA < 0)>(in, st, tile, g, a, w2);
       __syncthreads();
     }
 
@@ -313,7 +352,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = e / chunk;
       const T* s = ysrc + c * S + (e - c * chunk);
       for (int y = 0; y < g.t0; ++y)
-        sy[y * g.h1 * chunk + e] = tap_sum<KA>(s + y * yrow, yrow, a.a0);
+        sy[y * g.h1 * chunk + e] = tap_sum<KA>(s + y * yrow, yrow, a.a0, w0);
     }
     __syncthreads();
 
@@ -335,16 +374,19 @@ __global__ void __launch_bounds__(kThreads)
       const T* s = sy + x * chunk + l;
       T* d = dst + (long long)x * g.row_len + l;
       for (int y = 0; y < ny; ++y)
-        d[y * out_row] = tap_sum<KA>(s + y * g.h1 * chunk, chunk, a.a1);
+        d[y * out_row] = tap_sum<KA>(s + y * g.h1 * chunk, chunk, a.a1, w1);
     }
     __syncthreads();
   }
 }
 
+// wl: the weights as T on the device (read when k > kInlineTaps)
 template <typename T>
-Taps<T> make_taps(const double* w, int k, int uniform, int apply_scale) {
+Taps<T> make_taps(const double* w, const void* wl, int k, int uniform,
+                  int apply_scale) {
   Taps<T> t;
-  for (int i = 0; i < kMaxTaps; ++i) t.w[i] = T(i < k ? w[i] : 0.0);
+  for (int i = 0; i < kInlineTaps; ++i) t.w[i] = T(i < k ? w[i] : 0.0);
+  t.wl = static_cast<const T*>(wl);
   t.k = k;
   t.lo = (k - 1) / 2;
   t.uniform = uniform;
@@ -356,7 +398,8 @@ Taps<T> make_taps(const double* w, int k, int uniform, int apply_scale) {
 size_t smem_bytes(const Geo& g, size_t item) {
   const size_t raw = g.staged ? (size_t)g.h0 * g.h1 * g.lp : 0;
   const size_t st = g.needs_t ? (size_t)g.h0 * g.h1 * g.chunk : 0;
-  return (g.nbuf * raw + st + (size_t)g.t0 * g.h1 * g.chunk) * item;
+  return (g.nbuf * raw + st + (size_t)g.t0 * g.h1 * g.chunk + g.wtaps) *
+         item;
 }
 
 // The tile. Estimated cost: the shared-memory and copy work of a tile
@@ -368,12 +411,13 @@ size_t smem_bytes(const Geo& g, size_t item) {
 // 48 bytes unless they are whole rows (shorter segments waste most of
 // each 32-byte sector); these limits and constants were chosen from a
 // sweep of forced tiles over the five sepconv rows of chip_smoke.py on
-// the H100 (PERF.md, PR 3). If no tile meets them, the cheapest tile
-// that fits; the n2 pass from device memory only when no staged tile
-// fits at all.
+// the H100 (PERF.md, section 6). A side longer than its axis is cut to the
+// axis. If no tile meets them, the cheapest tile that fits; the n2 pass
+// from device memory only when no staged tile fits at all. wtaps: the
+// long taps' weights a block keeps in shared memory (0 for short taps).
 template <typename T>
 Geo plan(int outer, int n0, int n1, int n2, int inner, int k0, int k1, int k2,
-         int needs_t, bool aligned) {
+         int needs_t, bool aligned, int wtaps) {
   Geo best{};
   double best_cost = 0.0;
   const int row_len = n2 * inner;
@@ -392,7 +436,10 @@ Geo plan(int outer, int n0, int n1, int n2, int inner, int k0, int k1, int k2,
             Geo g{};
             g.outer = outer; g.n0 = n0; g.n1 = n1; g.n2 = n2;
             g.inner = inner; g.row_len = row_len;
-            g.t0 = sides[a]; g.t1 = sides[b]; g.chunk = chunk;
+            g.t0 = sides[a] < n0 ? sides[a] : n0;
+            g.t1 = sides[b] < n1 ? sides[b] : n1;
+            g.chunk = chunk;
+            g.wtaps = wtaps;
             g.h0 = g.t0 + k0 - 1; g.h1 = g.t1 + k1 - 1;
             g.vec = vec;
             // the staged row starts at chunk*bc - lo2*inner, aligned down
@@ -460,10 +507,15 @@ template <typename T>
 int launch(const void* in, void* out, long long outer, int n0, int n1, int n2,
            long long inner, const double* w0, int k0, int uniform0,
            int scale0, const double* w1, int k1, int uniform1, int scale1,
-           const double* w2, int k2, int uniform2, int scale2, int mode,
+           const double* w2, int k2, int uniform2, int scale2,
+           const void* wl0, const void* wl1, const void* wl2, int mode,
            double cval, void* stream) {
-  if (k0 < 1 || k0 > kMaxTaps || k1 < 1 || k1 > kMaxTaps || k2 < 1 ||
-      k2 > kMaxTaps)
+  // device weights take the long-tap route: required past kInlineTaps,
+  // allowed for shorter vectors (the route's timing against the inline
+  // weights, nd_tpu_torch/scan_sweep.py taps)
+  const bool long_taps = wl0 || wl1 || wl2;
+  if (k0 < 1 || k1 < 1 || k2 < 1 || (k0 > kInlineTaps && !wl0) ||
+      (k1 > kInlineTaps && !wl1) || (k2 > kInlineTaps && !wl2))
     return (int)cudaErrorInvalidValue;
   if ((long long)n2 * inner >= (1LL << 31) || outer >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -472,17 +524,18 @@ int launch(const void* in, void* out, long long outer, int n0, int n1, int n2,
   // 16-byte copies need a 16-byte aligned input
   const bool aligned = (reinterpret_cast<unsigned long long>(in) & 15) == 0;
   Geo g = plan<T>((int)outer, n0, n1, n2, (int)inner, k0, k1, k2, needs_t,
-                  aligned);
+                  aligned, long_taps ? k0 + k1 + k2 : 0);
   if (g.tiles == 0) return (int)cudaErrorInvalidValue;
   Args<T> a;
-  a.a0 = make_taps<T>(w0, k0, uniform0, scale0);
-  a.a1 = make_taps<T>(w1, k1, uniform1, scale1);
-  a.a2 = make_taps<T>(w2, k2, uniform2, scale2);
+  a.a0 = make_taps<T>(w0, wl0, k0, uniform0, scale0);
+  a.a1 = make_taps<T>(w1, wl1, k1, uniform1, scale1);
+  a.a2 = make_taps<T>(w2, wl2, k2, uniform2, scale2);
   a.mode = mode;
   a.cval = T(cval);
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
+  if (long_taps) return launch_tiled<T, -1, -1>(src, dst, g, a, s);
   // the path's windows (3 taps: multilook and boxcar; 9: the Gaussian
   // at sigma 1), on n0 and n1 and none or as many on n2, unroll their
   // tap loops
@@ -507,44 +560,51 @@ const char* nd_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int nd_sepconv_max_taps() { return kMaxTaps; }
+int nd_sepconv_inline_taps() { return kInlineTaps; }
 
+// wl0, wl1 (wl2): each axis' weights as the kernel's type on the device,
+// required where its tap count exceeds kInlineTaps (null: the weights
+// travel by value); any of them given takes the long-tap route.
 int nd_sepconv_f32(const void* in, void* out, long long outer, int n0, int n1,
                    long long inner, const double* w0, int k0, int uniform0,
                    int scale0, const double* w1, int k1, int uniform1,
-                   int scale1, int mode, double cval, void* stream) {
+                   int scale1, const void* wl0, const void* wl1, int mode,
+                   double cval, void* stream) {
   return launch<float>(in, out, outer, n0, n1, 1, inner, w0, k0, uniform0,
-                       scale0, w1, k1, uniform1, scale1, &kOne, 1, 1, 0, mode,
-                       cval, stream);
+                       scale0, w1, k1, uniform1, scale1, &kOne, 1, 1, 0, wl0,
+                       wl1, nullptr, mode, cval, stream);
 }
 
 int nd_sepconv_f64(const void* in, void* out, long long outer, int n0, int n1,
                    long long inner, const double* w0, int k0, int uniform0,
                    int scale0, const double* w1, int k1, int uniform1,
-                   int scale1, int mode, double cval, void* stream) {
+                   int scale1, const void* wl0, const void* wl1, int mode,
+                   double cval, void* stream) {
   return launch<double>(in, out, outer, n0, n1, 1, inner, w0, k0, uniform0,
-                        scale0, w1, k1, uniform1, scale1, &kOne, 1, 1, 0,
-                        mode, cval, stream);
+                        scale0, w1, k1, uniform1, scale1, &kOne, 1, 1, 0, wl0,
+                        wl1, nullptr, mode, cval, stream);
 }
 
 int nd_sepconv3_f32(const void* in, void* out, int n0, int n1, int n2,
                     long long inner, const double* w0, int k0, int uniform0,
                     int scale0, const double* w1, int k1, int uniform1,
                     int scale1, const double* w2, int k2, int uniform2,
-                    int scale2, int mode, double cval, void* stream) {
+                    int scale2, const void* wl0, const void* wl1,
+                    const void* wl2, int mode, double cval, void* stream) {
   return launch<float>(in, out, 1, n0, n1, n2, inner, w0, k0, uniform0,
                        scale0, w1, k1, uniform1, scale1, w2, k2, uniform2,
-                       scale2, mode, cval, stream);
+                       scale2, wl0, wl1, wl2, mode, cval, stream);
 }
 
 int nd_sepconv3_f64(const void* in, void* out, int n0, int n1, int n2,
                     long long inner, const double* w0, int k0, int uniform0,
                     int scale0, const double* w1, int k1, int uniform1,
                     int scale1, const double* w2, int k2, int uniform2,
-                    int scale2, int mode, double cval, void* stream) {
+                    int scale2, const void* wl0, const void* wl1,
+                    const void* wl2, int mode, double cval, void* stream) {
   return launch<double>(in, out, 1, n0, n1, n2, inner, w0, k0, uniform0,
                         scale0, w1, k1, uniform1, scale1, w2, k2, uniform2,
-                        scale2, mode, cval, stream);
+                        scale2, wl0, wl1, wl2, mode, cval, stream);
 }
 
 }  // extern "C"

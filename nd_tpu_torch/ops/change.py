@@ -22,9 +22,10 @@ Two routes:
     (``ops/change_cuda.py``) for k <= 48, the sequential scan
     ``omnibus_scan`` (``ops/change_scan_cuda.py``) for 48 < k <= 256;
     the pixels whose margin is not above ``margin_eps`` (NaN included)
-    are gathered and rescanned with the float64 'mixed' scan, whose
-    packed flags are scattered back. Longer series take the 'mixed'
-    scan whole. The decisions equal the 'mixed' scan's.
+    are rescanned with the float64 'mixed' scan, selected on the card
+    and written straight into the packed flags
+    (``ops/change_mixed_cuda.py`` ``rescan``). Longer series take the
+    'mixed' scan whole. The decisions equal the 'mixed' scan's.
 """
 
 from __future__ import annotations
@@ -302,9 +303,12 @@ def _exact_packed(values, alpha, n, margin_eps):
     """Kernel pass with margins + float64 'mixed' rescan of the suspect
     pixels. Series up to ``K_MAX`` take the round kernel with the round
     cap, longer ones the sequential scan (no rounds, polynomial interior
-    thresholds whose fit error rides the margins). Returns the (P, y, x)
-    int32 packed planes and the suspect count."""
+    thresholds whose fit error rides the margins). The rescan selects
+    the suspects on the card and writes into the planes (no host sync).
+    Returns the (P, y, x) int32 packed planes and the suspect count as a
+    1-element int32 tensor on ``values``' device."""
     from .change_cuda import K_MAX, _round_cap, change_detection_fast
+    from .change_mixed_cuda import rescan
     ny, nx, k, _ = values.shape
     if k <= K_MAX:
         packed, margin = change_detection_fast(
@@ -314,16 +318,8 @@ def _exact_packed(values, alpha, n, margin_eps):
         from .change_scan_cuda import change_detection_scan
         packed, margin = change_detection_scan(values, alpha, n=n,
                                                return_packed=True)
-    suspect = ~(margin > margin_eps)                  # NaN-inclusive
-    idx = torch.nonzero(suspect.reshape(-1)).squeeze(1)
-    count = int(idx.numel())
-    if count:
-        from .change_mixed_cuda import mixed_scan, mixed_scan_plain
-        series = values.reshape(ny * nx, k, 4).index_select(0, idx)
-        scan = mixed_scan if series.device.type == 'cuda' \
-            else mixed_scan_plain
-        planes = packed.view(packed.shape[0], -1)
-        planes[:, idx] = scan(series, alpha, n, 'mixed')        # (P, N)
+    count = rescan(values.reshape(ny * nx, k, 4), margin, packed, alpha, n,
+                   margin_eps)
     return packed, count
 
 
@@ -341,10 +337,11 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     pixels margin -inf; series of 49 to 256 steps take the sequential
     scan. Pixels whose margin is not above ``margin_eps`` — the only
     ones whose f32 decisions could differ from float64, NaN included —
-    are gathered with ``torch.nonzero``, rescanned with the float64
-    'mixed' scan (reading the input in its own dtype; the
-    ``omnibus_mixed`` kernel on a CUDA tensor), whose packed flag rows
-    are scattered straight into the planes.
+    are rescanned with the float64 'mixed' scan, reading the input in
+    its own dtype: on a CUDA tensor the ``omnibus_mixed`` kernels select
+    them on the card and write their flags straight into the planes, so
+    the host waits for nothing (the count is read back only with
+    ``return_count``).
 
     Series longer than 256 steps, and (n, alpha) whose folded scan
     thresholds are infeasible, take the full-grid float64 'mixed' scan
@@ -370,6 +367,6 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     if not supports_rescan(k, n, alpha):
         flags = change_detection(values, alpha, n=n, stat_dtype='mixed')
         return (flags, ny * nx) if return_count else flags
-    packed, count = _exact_packed(values, alpha, n, margin_eps)
+    packed, count = _exact_packed(values.contiguous(), alpha, n, margin_eps)
     flags = unpack_flags(packed, k)
-    return (flags, count) if return_count else flags
+    return (flags, int(count)) if return_count else flags

@@ -6,9 +6,12 @@ Replaces ``nd_tpu/ops/change_pallas.py`` ``change_detection_pallas``
 (bit t%31 of plane t//31) and, with ``return_margin``, each pixel's
 smallest decision margin net of the f32 error bound — the input of the
 exact mode's rescan (``ops.change.change_detection_exact``). On the H100
-the kernel is bound by arithmetic: one thread runs one pixel's whole
-restart scan and stops when the pixel is done. See the source for the
-design.
+the kernel is bound by device-memory bytes with f32 arithmetic close
+behind: a block of threads owns consecutive pixels and stages their
+series through shared memory with coalesced copies; one thread runs one
+pixel's restart rounds and stops when the pixel is done. ``_round_plan``
+picks the block's pixels and whether the series stays resident or
+streams its chunks. See the source for the design.
 
 ``change_detection_fast`` runs the kernel for a CUDA tensor and the
 plain version for a CPU tensor; for any other device it raises.
@@ -26,15 +29,23 @@ from ..core.variable import as_tensor
 from .change import _P, omnibus_rho, omnibus_thresholds
 
 __all__ = ['change_detection_fast', 'omnibus_plain', 'unpack_flags',
-           'omnibus_tables', 'supports_rescan', 'MAX_K', 'K_MAX',
-           'K_RESCAN_MAX', 'launches']
+           'omnibus_tables', 'supports_rescan', 'round_smem',
+           'round_plan_candidates', 'MAX_K', 'K_MAX', 'K_RESCAN_MAX',
+           'launches']
 
 MAX_K = 256            # kMaxK in csrc/omnibus.cu
+SMEM_MAX = 232448      # kSmemMax: shared memory a block may use (H100)
+STATIC_SMEM = 2064     # kStatic: the kernel's tables and anchors
 # Series lengths the exact mode sends to the round kernel; longer ones
 # take the sequential scan (ops/change_scan_cuda.py) up to K_RESCAN_MAX
 # (its kMaxK), and the float64 'mixed' scan beyond.
 K_MAX = 48
 K_RESCAN_MAX = 256
+# The longest series the round kernel keeps resident (the whole series
+# staged once); longer ones stream their chunks each round. From the
+# round plan sweep (nd_tpu_torch/scan_sweep.py round): resident blocks of
+# 128 won at k = 16, 20 and 28, streamed ones from k = 32 on.
+RESIDENT_K = 28
 
 launches = 0           # kernel launches since import (or reset)
 
@@ -236,20 +247,133 @@ def omnibus_plain(values, c_tab, s_tab, nf, rounds, with_margin):
     return packed, margin
 
 
+@functools.lru_cache(maxsize=64)
+def _bits(nb, device):
+    """1 << t for t < nb as int32 on ``device``, cached: unpacking is two
+    elementwise kernels a plane and no host-to-device copy."""
+    return torch.tensor([1 << t for t in range(nb)], dtype=torch.int32,
+                        device=device)
+
+
 def unpack_flags(packed, k):
     """(P, ..., y, x) int32 bit-packed planes -> (..., y, x, k) bool
-    (bit t%31 of plane t//31 = flag at time t)."""
-    parts = []
+    (bit t%31 of plane t//31 = flag at time t): per plane one AND with
+    the plane's bits and one compare written into its slice of the
+    output."""
+    out = torch.empty(packed.shape[1:] + (k,), dtype=torch.bool,
+                      device=packed.device)
     for pp in range((k + 30) // 31):
         nb = min(31, k - 31 * pp)
-        shifts = torch.arange(nb, dtype=torch.int32, device=packed.device) \
-            .reshape((nb,) + (1,) * (packed.ndim - 1))
-        parts.append(((packed[pp][None] >> shifts) & 1) > 0)
-    return torch.movedim(torch.cat(parts, 0), 0, -1)
+        torch.ne(packed[pp][..., None] & _bits(nb, packed.device), 0,
+                 out=out[..., 31 * pp:31 * pp + nb])
+    return out
+
+
+# ---- the kernel's plan ------------------------------------------------------
+
+_THREADS = (32, 64, 128, 256)   # pixels (threads) of a block
+_CHUNK_STEPS = (3, 7, 15, 31)   # T of the streamed mode
+
+
+def round_smem(threads, T, nbuf):
+    """Dynamic shared-memory bytes of a block (``round_smem`` in
+    csrc/omnibus.cu): ``nbuf`` chunk buffers of ``threads`` rows at a
+    stride of ``T | 1`` 16-byte steps. The tables add ``STATIC_SMEM``
+    bytes of static shared memory."""
+    return nbuf * threads * (T | 1) * 16
+
+
+def _round(k, npix, threads, T, nbuf):
+    T = min(T, k)
+    nbuf = min(nbuf, -(-k // T))
+    return dict(threads=threads, T=T, nbuf=nbuf, resident=nbuf * T >= k,
+                smem=round_smem(threads, T, nbuf),
+                blocks=-(-npix // threads))
+
+
+@functools.lru_cache(maxsize=512)
+def round_plan_candidates(k, npix):
+    """Every plan of the sweep that fits the shared memory: resident
+    (the whole series in one chunk) and, where the series has more than
+    one chunk, streamed (chunks of 3, 7, 15 or 31 steps through 2 or 3
+    buffers), at 32 to 256 pixels a block. Returns a tuple of plan
+    dicts."""
+    plans = {}
+    limit = SMEM_MAX - STATIC_SMEM
+    for threads in _THREADS:
+        shapes = [(k, 1)] + [(T, nbuf) for T in _CHUNK_STEPS
+                             for nbuf in (2, 3) if T < k]
+        for T, nbuf in shapes:
+            p = _round(k, npix, threads, T, nbuf)
+            key = (threads, p['T'], p['nbuf'])
+            if p['smem'] <= limit and key not in plans:
+                plans[key] = p
+    return tuple(plans.values())
+
+
+@functools.lru_cache(maxsize=512)
+def _round_plan(k, npix):
+    """The kernel's plan for ``npix`` series of ``k`` steps: a dict with
+    ``threads`` (the block's pixels), ``T`` (steps per chunk), ``nbuf``
+    (chunk buffers), ``resident``, ``smem`` (dynamic bytes) and
+    ``blocks``. Series of up to RESIDENT_K steps stay resident in blocks
+    of 128 pixels; longer ones stream chunks of 7 steps through three
+    buffers in blocks of 128. Cached per (k, npix)."""
+    if k <= RESIDENT_K:
+        return _round(k, npix, 128, k, 1)
+    return _round(k, npix, 128, 7, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(device_index):
+    """Raise the kernel's dynamic shared-memory limit on one device,
+    once."""
+    with torch.cuda.device(device_index):
+        _build.check('nd_omnibus_setup',
+                     _build.function('nd_omnibus_setup', '')())
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(k, n, alpha, device):
+    """(C, S) of :func:`_tables` on the card as float32, cached so that
+    a call copies nothing to the device."""
+    c_tab, s_tab = _tables(k, n, alpha)
+    return (torch.tensor(c_tab, device=device),
+            torch.tensor(s_tab, device=device))
+
+
+def _launch(values, k, n, alpha, rounds, with_margin, plan):
+    ny, nx = values.shape[:2]
+    npix = ny * nx
+    dev = values.device
+    if values.data_ptr() % 16:
+        values = values.clone()      # the kernel loads 16-byte steps
+    if plan is None:
+        plan = _round_plan(k, npix)
+    _setup(dev.index if dev.index is not None
+           else torch.cuda.current_device())
+    c_dev, s_dev = _device_tables(int(k), float(n), float(alpha), dev)
+    packed = torch.empty(((k + 30) // 31, ny, nx), dtype=torch.int32,
+                         device=dev)
+    margin = torch.empty((ny, nx), dtype=torch.float32, device=dev) \
+        if with_margin else None
+    fn = _build.function('nd_omnibus_f32', 'pppqiiiippfip')
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(values.data_ptr(), packed.data_ptr(),
+                 margin.data_ptr() if with_margin else None, npix, k,
+                 plan['threads'], plan['T'], plan['nbuf'],
+                 c_dev.data_ptr(), s_dev.data_ptr(),
+                 float(n), rounds, stream)
+    global launches
+    launches += 1
+    _build.check('nd_omnibus_f32', err)
+    return packed, margin
 
 
 def change_detection_fast(values, alpha, n=1, return_margin=False,
-                          return_packed=False, max_rounds=None, device=None):
+                          return_packed=False, max_rounds=None, device=None,
+                          plan=None):
     """Fast (f32) omnibus change detection: values (y, x, time, 4) ->
     (y, x, time) bool, or with ``return_packed`` the (P, y, x) int32
     planes; with ``return_margin`` also the (y, x) float32 margins.
@@ -258,7 +382,9 @@ def change_detection_fast(values, alpha, n=1, return_margin=False,
     cap has incomplete flags and gets margin -inf, so a cap below k-1
     requires ``return_margin`` (the caller must rescan those pixels).
     Float64 input is cast to float32 for the scan. Non-tensor ``values``
-    land on ``device`` (default ``cuda``).
+    land on ``device`` (default ``cuda``). ``plan`` forces one of
+    :func:`round_plan_candidates` on the card (tests and the plan
+    sweep); by default :func:`_round_plan` picks it.
     """
     values = as_tensor(values, device)
     if values.ndim != 4 or values.shape[3] != 4:
@@ -272,26 +398,12 @@ def change_detection_fast(values, alpha, n=1, return_margin=False,
                          'pixel can finish; return_margin=True is '
                          'required')
     values = values.to(torch.float32).contiguous()
-    c_tab, s_tab = omnibus_tables(k, n, alpha)
     if values.device.type == 'cpu':
-        packed, margin = omnibus_plain(values, c_tab, s_tab, float(n),
-                                       rounds, return_margin)
+        packed, margin = omnibus_plain(values, *omnibus_tables(k, n, alpha),
+                                       float(n), rounds, return_margin)
     elif values.device.type == 'cuda':
-        packed = torch.empty(((k + 30) // 31, ny, nx), dtype=torch.int32,
-                             device=values.device)
-        margin = torch.empty((ny, nx), dtype=torch.float32,
-                             device=values.device) if return_margin \
-            else None
-        fn = _build.function('nd_omnibus_f32', 'pppqippfip')
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream(values.device).cuda_stream
-            err = fn(values.data_ptr(), packed.data_ptr(),
-                     margin.data_ptr() if return_margin else None,
-                     ny * nx, k, c_tab.ctypes.data, s_tab.ctypes.data,
-                     float(n), rounds, stream)
-        global launches
-        launches += 1
-        _build.check('nd_omnibus_f32', err)
+        packed, margin = _launch(values, k, n, alpha, rounds, return_margin,
+                                 plan)
     else:
         raise ValueError('change_detection_fast runs on cuda or cpu '
                          'tensors, not %s' % values.device)

@@ -14,8 +14,15 @@ Separable (rank-1) kernels run as 1-d tap passes through the
 axes {0, 1, 2} — a single-variable (y, x, time) stack — takes the
 three-axis kernel in one pass (time first, as the reference's fused TPU
 route does); otherwise the passes run in axis order, two adjacent axes
-per launch. Non-separable kernels
-are not ported yet.
+per launch where both have at most ``conv_cuda.INLINE_TAPS`` taps (the
+kernel's tap vectors passed by value), one axis per launch otherwise
+(taps of any length: a halo along one axis always fits a tile). Non-separable kernels are not
+ported yet.
+
+Dtypes: float16 and bfloat16 input is filtered in float32 and returned
+in its own dtype (the reference filters float16 in float16, so the two
+agree to float16 rounding); integer input is filtered in float32, as in
+the reference; float32, float64 and complex keep their dtype.
 """
 
 from __future__ import annotations
@@ -150,14 +157,17 @@ def _const_pass(cv, taps, np_dtype):
 
 def _sep_pass(arr, ax, taps0, taps1, mode, cval):
     """One ``sepconv`` pass over axis ``ax`` (taps0) and, when taps1 is
-    given, axis ``ax + 1`` — through a contiguous 4-d view."""
+    given, axis ``ax + 1`` — through a contiguous 4-d view. A one-axis
+    pass is the view (1, outer, n, inner) filtered over n, with one tap
+    of weight 1 (an exact copy) over the outer axis, so that a block's
+    tile spans outer rows rather than a single one."""
     from .conv_cuda import sepconv2
     shape = arr.shape
     outer = int(np.prod(shape[:ax], dtype=np.int64))
     if taps1 is None:
-        view = (outer, shape[ax], 1,
+        view = (1, outer, shape[ax],
                 int(np.prod(shape[ax + 1:], dtype=np.int64)))
-        taps1 = np.ones(1)
+        taps0, taps1 = np.ones(1), taps0
     else:
         view = (outer, shape[ax], shape[ax + 1],
                 int(np.prod(shape[ax + 2:], dtype=np.int64)))
@@ -202,7 +212,8 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
 
     Matches ``scipy.ndimage.convolve`` semantics (kernel flip, origin at
     ``size // 2``, default 'reflect' boundary). The result stays on
-    ``arr``'s device, in its dtype.
+    ``arr``'s device, in its dtype (float16 and bfloat16 are filtered in
+    float32); integer input comes back as float32.
 
     Parameters
     ----------
@@ -232,6 +243,10 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
         return torch.complex(re, im)
     if not arr.is_floating_point():
         arr = arr.to(torch.float32)
+    from .conv_cuda import INLINE_TAPS, LOW_PRECISION
+    if arr.dtype in LOW_PRECISION:
+        return convolve(arr.to(torch.float32), kernel, axes, mode,
+                        cval).to(arr.dtype)
 
     kflip = np.flip(kernel, axis=tuple(range(kernel.ndim)))
     factors = _separable_factors(kflip)
@@ -239,11 +254,6 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
         raise NotImplementedError(
             'non-separable convolution kernels are not ported yet '
             '(ROADMAP item 8)')
-    from .conv_cuda import MAX_TAPS
-    if any(len(f) > MAX_TAPS for f in factors):
-        raise NotImplementedError(
-            'separable kernels over %d taps per axis are not ported yet '
-            '(ROADMAP item 8)' % MAX_TAPS)
 
     passes = list(zip(axes, factors))
     if arr.dtype == torch.float32:
@@ -262,7 +272,8 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
             i += 1
             continue
         nxt = passes[i + 1] if i + 1 < len(passes) else None
-        if nxt is not None and nxt[0] == ax + 1 and len(nxt[1]) > 1:
+        if nxt is not None and nxt[0] == ax + 1 and len(nxt[1]) > 1 \
+                and max(len(fac), len(nxt[1])) <= INLINE_TAPS:
             out = _sep_pass(out, ax, fac, nxt[1], mode, float(cv))
             cv = _const_pass(_const_pass(cv, fac, np_dtype), nxt[1],
                              np_dtype)
@@ -284,8 +295,13 @@ def separable_convolve(arr, kernels, axes, mode='reflect', cval=0.0,
     cval != 0: there each stage re-pads with cval, which only sequential
     passes give. Otherwise one ``convolve`` per axis, in the given
     order. Non-tensor ``arr`` lands on ``device`` (default ``cuda``).
+    Dtypes as in :func:`convolve`.
     """
     arr = as_tensor(arr, device)
+    from .conv_cuda import LOW_PRECISION
+    if arr.dtype in LOW_PRECISION:
+        return separable_convolve(arr.to(torch.float32), kernels, axes,
+                                  mode, cval).to(arr.dtype)
     active = [(int(ax) % arr.ndim, np.asarray(k, np.float64))
               for ax, k in zip(axes, kernels) if np.shape(k)[0] > 1]
     if not active:

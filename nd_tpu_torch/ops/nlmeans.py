@@ -153,6 +153,11 @@ def nlmeans(arr, r, f, sigma, h, n_eff=-1.0, device=None):
     device : torch.device or str, optional
         Where non-tensor ``arr`` lands (default ``cuda``); a tensor stays
         on its device.
+
+    Dtypes: float32 and float64 are filtered as they are; float16 and
+    bfloat16 are filtered in float32 and returned in their own dtype
+    (the reference filters float16 in float16, so the two agree to
+    float16 rounding); integer input is filtered in float32.
     """
     arr = as_tensor(arr, device)
     if arr.ndim != 4:

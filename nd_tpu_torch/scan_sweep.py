@@ -1,17 +1,36 @@
-"""The forced-plan sweep behind ``ops.change_scan_cuda._scan_plan``.
+"""The forced-plan sweeps behind ``ops.change_scan_cuda._scan_plan`` and
+``ops.change_cuda._round_plan``, and the sepconv kernel's tap routes.
 
-    python -m nd_tpu_torch.scan_sweep       # from the repository root
+    python -m nd_tpu_torch.scan_sweep [scan|round|taps]  # default: all
 
-Runs the long-series scan kernel with every plan of
+scan: runs the long-series scan kernel with every plan of
 ``change_scan_cuda.plan_candidates`` on ``chip_smoke.py``'s long stack
 (1024 x 1024 x 56) and path-B stack (256 x 512 x 200), and on 256 x 512
-stacks at k = 16, 100 and 256 (the same generator). Each plan's flags
-and margins must be bit-equal to the plain version's (a failure raises);
-its time is the median of 5 CUDA-event timings of one kernel call after
-one warm-up. Prints one line per shape and plan, fastest first, with
-the plan's shared memory and blocks per SM, then the chosen plan's time
-and rank. Every line ends with the card's name and power limit. Without
-a CUDA device it exits non-zero.
+stacks at k = 16, 100 and 256 (the same generator).
+
+round: runs the round kernel (``csrc/omnibus.cu``) with every plan of
+``change_cuda.round_plan_candidates`` (resident, streamed chunks) on
+``chip_smoke.py``'s bench cube (1024 x 1024 x 12, the exact mode's
+capped pass with margins, and uncapped without margins, as
+``stat_dtype='float32'`` runs it), on the long stack at k = 56 with 14
+rounds, and on 256 x 512 stacks at k = 16, 20, 24, 28, 32, 40, 48 and
+100 (capped, margins): the lengths around ``change_cuda.RESIDENT_K``,
+where the chosen plan turns from resident to streamed.
+
+taps: times the sepconv rows of ``chip_smoke.py`` (the multilook and
+stacked two-axis rows of the bench cube and of the long stack, the
+three-axis Gaussian and boxcar of path C) with their short tap vectors
+passed by value (the default) and forced onto the long-tap route
+(``conv_cuda.INLINE_TAPS`` set to 0: device buffers copied into each
+block's shared memory), alternating the two four times; the two outputs
+must be bit-equal.
+
+Each plan's flags and margins must be bit-equal to the plain version's
+(a failure raises); its time is the median of 5 CUDA-event timings of
+one kernel call after one warm-up. Prints one line per shape and plan,
+fastest first, with the plan's shared memory and blocks per SM, then
+the chosen plan's time and rank. Every line ends with the card's name
+and power limit. Without a CUDA device it exits non-zero.
 """
 
 import statistics
@@ -21,6 +40,7 @@ from pathlib import Path
 
 import torch
 
+from .ops import change_cuda as rnd
 from .ops import change_scan_cuda as scan
 
 
@@ -39,8 +59,103 @@ def _ms(fn, reps=5):
     return statistics.median(times)
 
 
-def _key(plan):
-    return (plan['threads'], plan['T'], plan['nbuf'])
+def _report(label, rows, chosen, key, smem_limit, card):
+    rows.sort(key=lambda r: r[0])
+    for ms, plan in rows:
+        print('%s %s smem %6d (%d blocks/SM by smem): %.4f ms | %s'
+              % (label, ' '.join('%s %s' % (k, plan[k]) for k in key),
+                 plan['smem'],
+                 min(smem_limit // max(plan['smem'], 1),
+                     2048 // plan['threads']), ms, card), flush=True)
+    keys = [tuple(p[k] for k in key) for _, p in rows]
+    rank = keys.index(tuple(chosen[k] for k in key))
+    print('%s chosen plan %r: %.4f ms, rank %d of %d (best %.4f ms) | %s'
+          % (label, keys[rank], rows[rank][0], rank + 1, len(rows),
+             rows[0][0], card), flush=True)
+
+
+def _round_sweep(cs, card, dev):
+    shapes = [(cs.NY, cs.NX, cs.K, cs.SEED, True),
+              (cs.NY, cs.NX, cs.K, cs.SEED, False),
+              (cs.NY, cs.NX, cs.KL, cs.SEED + 3, True),
+              (256, 512, 16, 4, True), (256, 512, 20, 5, True),
+              (256, 512, 24, 6, True), (256, 512, 28, 10, True),
+              (256, 512, 32, 11, True), (256, 512, 40, 7, True),
+              (256, 512, 48, 8, True), (256, 512, 100, 9, True)]
+    for ny, nx, k, seed, margins in shapes:
+        vals = torch.from_numpy(cs.make_cube(
+            ny, nx, k, seed=seed, step=2.5 if k == cs.K else 5.0,
+            burst=k != cs.K)).to(dev)
+        rounds = rnd._round_cap(k) if margins else k - 1
+        ref = rnd.omnibus_plain(vals, *rnd.omnibus_tables(k, 9, 0.99), 9.0,
+                                rounds, margins)
+
+        def call(plan):
+            return rnd.change_detection_fast(
+                vals, 0.99, n=9, return_margin=margins, return_packed=True,
+                max_rounds=rounds, plan=plan)
+        rows = []
+        for plan in rnd.round_plan_candidates(k, ny * nx):
+            got = call(plan)
+            torch.cuda.synchronize()
+            gp, gm = got if margins else (got, None)
+            same = bool((gp == ref[0]).all()) and (not margins or bool(
+                (gm.view(torch.int32) == ref[1].view(torch.int32)).all()))
+            if not same:
+                raise RuntimeError('round plan %r at k=%d differs from the '
+                                   'plain version' % (plan, k))
+            rows.append((_ms(lambda: call(plan)), plan))
+        _report('round %dx%dx%d %s' % (ny, nx, k, 'capped+margins' if margins
+                                       else 'flags'), rows,
+                rnd._round_plan(k, ny * nx), ('threads', 'T', 'nbuf'),
+                rnd.SMEM_MAX - rnd.STATIC_SMEM, card)
+        del vals, ref
+
+
+def _taps_sweep(cs, card, dev):
+    import numpy as np
+    from .ops import conv_cuda
+    from .ops.conv import _separable_factors, gaussian_kernel1d
+    cube = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.K)).to(dev)
+    stack = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.KL,
+                                          seed=cs.SEED + 3, step=5.0,
+                                          burst=True)).to(dev)
+    ml = _separable_factors(np.flip(np.ones((3, 3), np.float32) / 9))
+    box = _separable_factors(np.ones((3, 3)) / 9)
+    c11v = stack[..., 0].contiguous().reshape(cs.NY, cs.NX, cs.KL, 1)
+    rows = [
+        ('multilook (1,y,x,48)', conv_cuda.sepconv2,
+         cube.reshape(1, cs.NY, cs.NX, cs.K * 4), ml),
+        ('stacked (4,y,x,12)', conv_cuda.sepconv2,
+         cube.permute(3, 0, 1, 2).contiguous(), box),
+        ('path A multilook (4,y,x,56)', conv_cuda.sepconv2,
+         stack.permute(3, 0, 1, 2).contiguous(), box),
+        ('Gaussian sigma 1 (y,x,56,1)', conv_cuda.sepconv3, c11v,
+         (gaussian_kernel1d(1.0),) * 3),
+        ('boxcar w 3 (y,x,56,1)', conv_cuda.sepconv3, c11v,
+         tuple(_separable_factors(np.ones((3, 3, 3)) / 27)))]
+    inline = conv_cuda.INLINE_TAPS
+    for label, fn, x, taps in rows:
+        def by_value():
+            return fn(x, *taps)
+
+        def forced():
+            conv_cuda.INLINE_TAPS = 0
+            try:
+                return fn(x, *taps)
+            finally:
+                conv_cuda.INLINE_TAPS = inline
+        if not bool((by_value() == forced()).all()):
+            raise RuntimeError('sepconv %s: the long-tap route differs from '
+                               'the inline taps' % label)
+        ms = {'by value': [], 'forced long-tap route': []}
+        for _ in range(4):
+            ms['by value'].append(_ms(by_value))
+            ms['forced long-tap route'].append(_ms(forced))
+        for route, times in ms.items():
+            print('taps %s %s: %s ms (median %.4f) | %s'
+                  % (label, route, ' '.join('%.4f' % t for t in times),
+                     statistics.median(times), card), flush=True)
 
 
 def main():
@@ -54,6 +169,13 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device('cuda')
+    which = sys.argv[1:] or ['scan', 'round', 'taps']
+    if 'round' in which:
+        _round_sweep(cs, card, dev)
+    if 'taps' in which:
+        _taps_sweep(cs, card, dev)
+    if 'scan' not in which:
+        return 0
     shapes = [(cs.NY, cs.NX, cs.KL, cs.SEED + 3), (cs.BNY, cs.BNX, cs.BK,
                                                    cs.SEED + 2),
               (256, 512, 16, 7), (256, 512, 100, 8), (256, 512, 256, 9)]
@@ -74,19 +196,8 @@ def main():
                                    'version' % (plan, k))
             rows.append((_ms(lambda: scan.scan_kernel(vals, tabs, 9.0, plan)),
                          plan))
-        rows.sort(key=lambda r: r[0])
-        label = '%dx%dx%d' % (ny, nx, k)
-        for ms, plan in rows:
-            print('%s threads %3d T %3d nbuf %2d smem %6d '
-                  '(%d blocks/SM by smem): %.4f ms | %s'
-                  % (label, plan['threads'], plan['T'], plan['nbuf'],
-                     plan['smem'],
-                     min(scan.SMEM_MAX // max(plan['smem'], 1),
-                         2048 // plan['threads']), ms, card), flush=True)
-        rank = [_key(p) for _, p in rows].index(_key(chosen))
-        print('%s chosen plan %r: %.4f ms, rank %d of %d (best %.4f ms) | %s'
-              % (label, _key(chosen), rows[rank][0], rank + 1, len(rows),
-                 rows[0][0], card), flush=True)
+        _report('scan %dx%dx%d' % (ny, nx, k), rows, chosen,
+                ('threads', 'T', 'nbuf'), scan.SMEM_MAX, card)
         del vals, ref_p, ref_m
     return 0
 

@@ -8,14 +8,17 @@ PyTorch is installed:
 
 Tolerances: sepconv (two and three axes) max abs diff <= 1e-6 max|x|
 (1e-13 in float64), and 0 for the tiled kernel against its plain version
-(the same operations in the same order); NLMeans (spatial and 3-D
-windows) rtol 1e-5, atol 1e-6 (float64: rtol 1e-12); omnibus flag
-mismatch rate <= 1e-5 and margins within 1e-4 relative; the long-series
-scan's flags and margins exactly equal to its plain version (the same
-f32 operations in the same order); exact and pipeline change maps
-exactly equal, against the plain float64 'mixed' scan
-(``change_detection_plain``); the rescan kernel's packed flags exactly
-equal to its plain version for 'mixed' and 'float64' statistics, a
+(the same operations in the same order), long taps included; NLMeans
+(spatial and 3-D windows, both routes) rtol 1e-5, atol 1e-6 (float64:
+rtol 1e-12; float16 in and out: rtol 1e-3, atol 1e-3, one float16
+rounding of results that agree in float32); the round kernel's flags
+and margins exactly equal to its plain version (margins compared as
+int32; the same f32 operations in the same order), and a flag mismatch
+rate <= 1e-5 in the older uncapped checks; the long-series scan's flags
+and margins exactly equal to its plain version; exact and pipeline
+change maps exactly equal, against the plain float64 'mixed' scan
+(``change_detection_plain``); the rescan kernels' packed flags exactly
+equal to their plain versions for 'mixed' and 'float64' statistics, a
 mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1.
 """
 
@@ -138,7 +141,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                            .transpose(1, 2), t, t)
     with pytest.raises(TypeError):
         nlmeans_cuda.nlmeans_spatial(
-            torch.zeros(5, 5, 1, 1, device=cuda, dtype=torch.float16),
+            torch.zeros(5, 5, 1, 1, device=cuda, dtype=torch.int32),
             (1, 1), (1, 1), 1.0, 1.0)
     with pytest.raises(ValueError):
         change_cuda.change_detection_fast(
@@ -341,7 +344,7 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                 1.0, 1.0)
     with pytest.raises(TypeError):
         nlmeans_cuda.nlmeans_3d(
-            torch.zeros(5, 5, 5, 1, device=cuda, dtype=torch.float16),
+            torch.zeros(5, 5, 5, 1, device=cuda, dtype=torch.int32),
             (1, 1, 1), (1, 1, 1), 1.0, 1.0)
 
 
@@ -566,3 +569,253 @@ def test_stream_probe_matches_plain(cuda, m):
     unaligned = torch.zeros(m * 1024 + 1, device=cuda)[1:].reshape(m, 1024)
     with pytest.raises(ValueError, match='aligned'):
         stream_cuda.stream_plus_one(unaligned)
+
+
+# ---- the redesigned round and rescan kernels, the repaired routes ----------
+
+def _assert_round_equal(got, ref, with_margin):
+    assert bool((got[0] == ref[0]).all())
+    if with_margin:
+        assert bool((got[1].view(torch.int32) == ref[1].view(torch.int32))
+                    .all())
+
+
+@pytest.mark.parametrize('k', range(2, 49))
+def test_round_kernel_is_bit_equal_to_plain(cuda, k):
+    # 37 x 53 pixels fill no block; the bursty column, zero, negative and
+    # NaN determinants and a constant series
+    cube = torch.from_numpy(_scan_cube(37, 53, k, seed=70 + k)).to(cuda)
+    c_tab, s_tab = change_cuda.omnibus_tables(k, 9, 0.99)
+    for with_margin, rounds in ((False, k - 1), (True, k - 1),
+                                (True, change_cuda._round_cap(k))):
+        before = change_cuda.launches
+        got = change_cuda.change_detection_fast(
+            cube, 0.99, n=9, return_margin=with_margin, return_packed=True,
+            max_rounds=rounds)
+        assert change_cuda.launches == before + 1
+        ref = change_cuda.omnibus_plain(cube, c_tab, s_tab, 9.0, rounds,
+                                        with_margin)
+        torch.cuda.synchronize()
+        _assert_round_equal(got if with_margin else (got, None), ref,
+                            with_margin)
+
+
+@pytest.mark.parametrize('k', [12, 40, 48, 56, 100, 256])
+def test_every_round_plan_is_bit_equal(cuda, k):
+    cube = torch.from_numpy(_scan_cube(37, 53, k, seed=80 + k)).to(cuda)
+    c_tab, s_tab = change_cuda.omnibus_tables(k, 9, 0.99)
+    cap = change_cuda._round_cap(k)
+    ref = change_cuda.omnibus_plain(cube, c_tab, s_tab, 9.0, cap, True)
+    plans = change_cuda.round_plan_candidates(k, 37 * 53)
+    assert any(p['resident'] for p in plans) or k > 200
+    assert any(not p['resident'] for p in plans)
+    for plan in plans:
+        got = change_cuda.change_detection_fast(
+            cube, 0.99, n=9, return_margin=True, return_packed=True,
+            max_rounds=cap, plan=plan)
+        torch.cuda.synchronize()
+        _assert_round_equal(got, ref, True)
+
+
+def test_round_plan_shared_memory_matches_the_kernel(cuda):
+    lib = _build.library()
+    fn = lib.nd_omnibus_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    assert lib.nd_omnibus_static_smem() == change_cuda.STATIC_SMEM
+    for k in (2, 12, 48, 56, 256):
+        for plan in change_cuda.round_plan_candidates(k, 1 << 20):
+            assert fn(plan['threads'], plan['T'], plan['nbuf']) \
+                == plan['smem']
+
+
+def test_rescan_shared_memory_matches_the_kernel(cuda):
+    lib = _build.library()
+    fn = lib.nd_omnibus_mixed_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    f32, f64 = torch.float32, torch.float64
+    for k in (1, 12, 56, 200, 256, 300, 1000, 1500, 3000):
+        for sdtype, ldtype in ((f32, f64), (f64, f64), (f32, f32)):
+            assert fn(k, int(sdtype == f64), int(ldtype == f64)) == \
+                change_mixed_cuda.rescan_smem(k, sdtype, ldtype)
+
+
+RESCAN_KS = [3, 4, 12, 31, 32, 33, 48, 49, 56, 64, 65, 128, 200, 255, 256]
+
+
+@pytest.mark.parametrize('k', RESCAN_KS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_rescan_of_the_suspects_matches_plain(cuda, k, dtype):
+    values = torch.from_numpy(_mixed_rows(k, seed=90 + k, n=197)).to(cuda,
+                                                                     dtype)
+    rng = np.random.RandomState(k)
+    margin = torch.from_numpy(rng.uniform(-1, 1, 197).astype(np.float32))
+    margin[::7] = float('nan')
+    margin = margin.to(cuda)
+    planes = torch.from_numpy(rng.randint(0, 2 ** 31 - 1, ((k + 30) // 31,
+                                                            197),
+                                          dtype=np.int64).astype(np.int32))
+    got_planes = planes.to(cuda)
+    before = change_mixed_cuda.launches
+    count = change_mixed_cuda.rescan(values, margin, got_planes, 0.99, 9,
+                                     1e-4)
+    assert change_mixed_cuda.launches == before + 1
+    assert count.device.type == 'cuda'
+    ref_planes = planes.to(cuda)
+    ref_count = change_mixed_cuda.rescan_plain(values, margin, ref_planes,
+                                               0.99, 9, 1e-4)
+    torch.cuda.synchronize()
+    assert int(count) == int(ref_count) == int((~(margin > 1e-4)).sum())
+    assert bool((got_planes == ref_planes).all())
+    # the suspects' planes are the full-grid scan's, the others untouched
+    full = change_mixed_cuda.mixed_scan(values, 0.99, 9)
+    suspect = ~(margin > 1e-4)
+    assert bool((got_planes[:, suspect] == full[:, suspect]).all())
+    assert bool((got_planes[:, ~suspect] == planes.to(cuda)[:, ~suspect])
+                .all())
+
+
+# series whose warp scratch is past the shared memory: the kernel keeps
+# it in a device workspace (float64 sums from k = 1416, float32 from 2377)
+LONG_SERIES = [(1500, torch.float64, 'mixed'), (1416, torch.float32,
+                                               'float64'),
+               (2400, torch.float32, 'mixed')]
+
+
+@pytest.mark.parametrize('k,dtype,mode', LONG_SERIES)
+def test_mixed_scan_of_series_past_the_shared_memory(cuda, k, dtype, mode):
+    sdtype, ldtype = tchange.stat_types(mode, dtype)
+    assert change_mixed_cuda.rescan_smem(k, sdtype, ldtype) \
+        > change_mixed_cuda.SMEM_MAX
+    rows = torch.from_numpy(_mixed_rows(k, seed=97, n=33)).to(cuda, dtype)
+    ref = _check_mixed(rows, 0.99, 9, mode)
+    assert bool(ref.any())
+
+
+def test_rescan_of_series_past_the_shared_memory(cuda):
+    k = 1500
+    values = torch.from_numpy(_mixed_rows(k, seed=98, n=33)).to(cuda,
+                                                                torch.float64)
+    margin = torch.ones(33, device=cuda)
+    margin[::3] = -1.0
+    margin[1] = float('nan')
+    planes = torch.full(((k + 30) // 31, 33), 5, dtype=torch.int32,
+                        device=cuda)
+    ref_planes = planes.clone()
+    count = change_mixed_cuda.rescan(values, margin, planes, 0.99, 9, 1e-4)
+    ref_count = change_mixed_cuda.rescan_plain(values, margin, ref_planes,
+                                               0.99, 9, 1e-4)
+    torch.cuda.synchronize()
+    assert int(count) == int(ref_count) == 12
+    assert bool((planes == ref_planes).all())
+
+
+@pytest.mark.parametrize('margins', ['none', 'all'])
+def test_rescan_with_no_suspect_or_every_pixel(cuda, margins):
+    values = torch.from_numpy(_mixed_rows(40, seed=95)).to(cuda)
+    fill = 1.0 if margins == 'none' else -1.0
+    margin = torch.full((200,), fill, device=cuda)
+    planes = torch.full((2, 200), 5, dtype=torch.int32, device=cuda)
+    count = change_mixed_cuda.rescan(values, margin, planes, 0.99, 9, 1e-4)
+    if margins == 'none':
+        assert int(count) == 0 and bool((planes == 5).all())
+    else:
+        assert int(count) == 200
+        assert bool((planes == change_mixed_cuda.mixed_scan_plain(
+            values, 0.99, 9)).all())
+
+
+def test_exact_mode_keeps_the_suspect_count_on_the_card(cuda):
+    cube = torch.from_numpy(sar_cube(64, 96, 12, seed=96)).to(cuda)
+    packed, count = tchange._exact_packed(cube, 0.99, 9, 1e-4)
+    assert isinstance(count, torch.Tensor) and count.device.type == 'cuda'
+    _, margin = change_cuda.change_detection_fast(
+        cube, 0.99, n=9, return_margin=True, return_packed=True,
+        max_rounds=change_cuda._round_cap(12))
+    assert int(count) == int((~(margin > 1e-4)).sum()) > 0
+    ref = tchange.change_detection_plain(cube, 0.99, n=9)
+    assert bool((change_cuda.unpack_flags(packed, 12) == ref).all())
+
+
+LONG_TAPS = {'65': np.linspace(0.5, 1.5, 65), '129 uniform': np.ones(129),
+             'gaussian sigma 32': gaussian_kernel1d(32.0)}
+
+
+@pytest.mark.parametrize('taps', sorted(LONG_TAPS))
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_long_tap_sepconv_is_bit_equal_to_plain(cuda, taps, mode, dtype):
+    w = LONG_TAPS[taps]
+    # a one-axis pass as ops/conv.py sends it: (1, outer, n, inner)
+    a = _data((1, 37, 53, 7), seed=97).to(cuda, dtype)
+    got = conv_cuda.sepconv2(a, np.ones(1), w, mode=mode, cval=0.5)
+    ref = conv_cuda.sepconv2_plain(a, np.ones(1), w, mode=mode, cval=0.5)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) == 0.0
+    # a long axis beside short ones, both entry points
+    b = _data((3, 21, 70, 5), seed=98).to(cuda, dtype)
+    got = conv_cuda.sepconv2(b, np.array([0.25, 0.5, 0.25]), w, mode=mode)
+    ref = conv_cuda.sepconv2_plain(b, np.array([0.25, 0.5, 0.25]), w,
+                                   mode=mode)
+    assert float((got - ref).abs().max()) == 0.0
+    c = _data((21, 23, 19, 2), seed=99).to(cuda, dtype)
+    t3 = np.array([0.25, 0.5, 0.25])
+    got = conv_cuda.sepconv3(c, t3, t3, w, mode=mode)
+    ref = conv_cuda.sepconv3_plain(c, t3, t3, w, mode=mode)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('sigma', [7.9, 16.0])
+def test_long_gaussian_filter_on_the_card_matches_the_cpu(cuda, sigma):
+    x = _data((40, 48, 20), seed=100).to(torch.float32)
+    g = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=sigma)
+    da = Dataset({'C11': (('y', 'x', 'time'), x)}, device='cpu')['C11']
+    ref = g.apply(da).data
+    conv_cuda.reset_launches()
+    got = g.apply(Dataset({'C11': (('y', 'x', 'time'), x.to(cuda))})['C11'])
+    assert conv_cuda.launches == 3            # one pass per axis
+    assert float((got.data.cpu() - ref).abs().max()) == 0.0
+
+
+WIDE = [((24, 26, 9, 4), (10, 10, 3), (3, 3, 3), torch.float32),
+        ((12, 13, 12, 4), (5, 5, 5), (2, 2, 2), torch.float64),
+        ((12, 13, 12, 8), (5, 5, 5), (2, 2, 2), torch.float32),
+        ((13, 14, 10, 4), (4, 4, 4), (3, 3, 3), torch.float64)]
+
+
+@pytest.mark.parametrize('shape,r,f,dtype', WIDE)
+@pytest.mark.parametrize('n_eff', [-1.0, 4.0])
+def test_wide_window_nlmeans_route_matches_plain(cuda, shape, r, f, dtype,
+                                                 n_eff):
+    a = _data(shape, seed=101).to(cuda, dtype)
+    plan = nlmeans_cuda._tile_plan(shape, r, f, a.element_size())
+    assert plan['route'] == 'global'
+    before = nlmeans_cuda.launches_3d
+    got = nlmeans_cuda.nlmeans_3d(a, r, f, 0.3, 0.4, n_eff)
+    assert nlmeans_cuda.launches_3d == before + 1
+    ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 0.3, 0.4, n_eff)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=1e-12, atol=1e-13)
+    torch.testing.assert_close(got, ref, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float16, torch.bfloat16])
+def test_low_precision_filters_on_the_card(cuda, dtype):
+    a = _data((17, 19, 6, 4), seed=102).to(cuda, dtype)
+    tol = dict(rtol=1e-3, atol=1e-3) if dtype == torch.float16 \
+        else dict(rtol=8e-3, atol=8e-3)
+    for got, ref in (
+            (nlmeans_cuda.nlmeans_spatial(a, (2, 2), (1, 1), 0.3, 0.4),
+             nlmeans_cuda.nlmeans_spatial_plain(a, (2, 2), (1, 1), 0.3,
+                                                0.4)),
+            (nlmeans_cuda.nlmeans_3d(a, (2, 2, 1), (1, 1, 1), 0.3, 0.4),
+             nlmeans_cuda.nlmeans_3d_plain(a, (2, 2, 1), (1, 1, 1), 0.3,
+                                           0.4)),
+            (conv_cuda.sepconv3(a, *([np.array([0.25, 0.5, 0.25])] * 3)),
+             conv_cuda.sepconv3_plain(a, *([np.array([0.25, 0.5,
+                                                      0.25])] * 3)))):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), **tol)

@@ -156,8 +156,12 @@ def test_sepconv3_checks():
     with pytest.raises(ValueError, match='contiguous'):
         conv_cuda.sepconv3(torch.zeros(4, 5, 6, 2).transpose(0, 1), t, t, t)
     with pytest.raises(TypeError):
-        conv_cuda.sepconv3(torch.zeros(4, 5, 6, 2, dtype=torch.float16),
+        conv_cuda.sepconv3(torch.zeros(4, 5, 6, 2, dtype=torch.int32),
                            t, t, t)
+    # float16 is filtered in float32 and comes back as float16
+    half = conv_cuda.sepconv3(torch.ones(4, 5, 6, 2, dtype=torch.float16),
+                              t, t, t)
+    assert half.dtype == torch.float16 and bool((half == 27).all())
     with pytest.raises(ValueError, match='4-d'):
         conv_cuda.sepconv3(torch.zeros(4, 5, 6), t, t, t)
     with pytest.raises(ValueError, match='cuda or cpu'):

@@ -215,6 +215,7 @@ def test_tile_plan_covers_every_output_once(shape, r, f, itemsize):
     # the halo is r + f on each side: what one block holds
     halo = [t + 2 * (ri + fi) for t, ri, fi in zip(plan['tile'], r, f)]
     region = [t + ri + 2 * fi for t, ri, fi in zip(plan['tile'], r, f)]
+    assert plan['route'] == 'staged'
     assert plan['smem'] == (nv * np.prod(halo) + 2 * np.prod(region)) \
         * itemsize
     assert plan['smem'] <= nlmeans_cuda.SMEM_MAX
@@ -227,8 +228,10 @@ def test_tile_plan_fits_two_blocks_per_sm_at_the_path_shapes(shape, r, f):
 
 
 def test_tile_plan_raises_when_nothing_fits():
+    # even the global-halo route's two scratch planes overflow the block
     with pytest.raises(ValueError, match='no tile fits'):
-        nlmeans_cuda._tile_plan((64, 64, 64, 400), (4, 4, 4), (3, 3, 3), 8)
+        nlmeans_cuda._tile_plan((256, 256, 256, 1), (1, 1, 1),
+                                (40, 40, 40), 8)
 
 
 @pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),

@@ -8,6 +8,10 @@ The chunks and the copy mapping below mirror ``load_chunk`` in
 ``nd_tpu_torch/csrc/omnibus_scan.cu`` (chunk c holds steps c*T .. c*T +
 L - 1, L = min(T, k - c*T); item i = q * L + s of a chunk goes to thread
 i % threads, walked with the kernel's incremental arithmetic).
+
+The round kernel's plan (``change_cuda._round_plan`` and its sweep's
+``round_plan_candidates``) is checked the same way: resident exactly up
+to ``RESIDENT_K`` steps, within the shared memory, one thread a pixel.
 """
 
 import functools
@@ -96,3 +100,36 @@ def test_every_sweep_plan_fits_and_covers(k):
         for L in {n for _, n in _chunks(k, plan['T'])}:
             assert set(_copies(plan['threads'], plan['threads'],
                                L).values()) == {1}
+
+
+# ---- the round kernel's plan (ops.change_cuda._round_plan) ------------------
+
+from nd_tpu_torch.ops import change_cuda  # noqa: E402
+
+
+@pytest.mark.parametrize('npix', NPIX)
+def test_round_plan_is_resident_up_to_its_threshold(npix):
+    limit = change_cuda.SMEM_MAX - change_cuda.STATIC_SMEM
+    for k in range(1, change_cuda.MAX_K + 1):
+        plan = change_cuda._round_plan(k, npix)
+        assert plan['resident'] == (k <= change_cuda.RESIDENT_K), k
+        assert plan['smem'] == change_cuda.round_smem(
+            plan['threads'], plan['T'], plan['nbuf']) <= limit
+        assert plan['T'] * plan['nbuf'] >= k or not plan['resident']
+        assert plan['blocks'] * plan['threads'] >= npix
+        assert plan['blocks'] * plan['threads'] - npix < plan['threads']
+        assert plan in change_cuda.round_plan_candidates(k, npix)
+
+
+@pytest.mark.parametrize('k', [1, 2, 12, 28, 29, 48, 56, 100, 256])
+def test_every_round_sweep_plan_fits(k):
+    plans = change_cuda.round_plan_candidates(k, 1 << 20)
+    limit = change_cuda.SMEM_MAX - change_cuda.STATIC_SMEM
+    keys = [(p['threads'], p['T'], p['nbuf']) for p in plans]
+    assert len(set(keys)) == len(keys)
+    for p in plans:
+        assert p['smem'] <= limit and 1 <= p['T'] <= k
+        assert p['resident'] == (p['T'] * p['nbuf'] >= k)
+        assert p['threads'] % 32 == 0
+    assert any(p['resident'] for p in plans) or k > 200
+    assert any(not p['resident'] for p in plans) == (k > 3)
