@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive nd_tpu_torch's SAR change paths once on one CUDA device.
+"""Drive nd_tpu_torch's SAR change paths and its georeferencing path
+once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -97,6 +98,36 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      (its halo tile of every variable fits no block: the global-halo
      route), counted, within rtol 1e-5, atol 1e-6 of the plain version,
      timed;
+
+and the georeferencing path (``generate_test_dataset`` cubes, float32;
+each phase held against the same port call on the CPU, timed as the
+median of 7 CUDA-event single calls after 2 warm-ups with the plan
+caches warm, the whole call and its sampling op alone, beside a bound):
+
+ W1. ``Reprojection(crs='epsg:3395')`` of 512 x 512 x 4 (bench.py's
+     warp cell): the separable matmul route, with TF32 switched on by
+     the caller (the products must not use it; the switch must be back
+     after the call); rtol 1e-5, atol 1e-6; bound: bench.py's 12 B a
+     pixel against the two products' float32 operations;
+ W2. ``Reprojection(crs='epsg:3035')`` (ETRS89-LAEA) of the 1024 x 1024
+     x 12 cube with its four C2 variables (201 MB), bilinear and cubic:
+     the gather route; rtol 1e-5, atol 1e-6; bound: the cube read once,
+     the output and the coordinate grid once; yardstick ``F.grid_sample``
+     (bilinear, align_corners=True; other edge and NaN rules);
+ W3. ``Resample`` of W2's cube to twice its pixel, 'average' (matmuls)
+     and 'med' (sorted footprint windows); rtol 1e-6 (atol 1e-6 for the
+     average of values near 0, 0 for the median);
+ W4. ``Coregistration(reference=0, upsampling=10)`` of 512 x 512 x 8
+     (bench.py's coregister cell): shifts equal to the CPU's, the cube
+     within rtol 1e-5, atol 1e-6; bench.py's registration check (known
+     band-limited sub-pixel shifts recovered within 0.2 px); bound:
+     bench.py's FFT traffic model;
+ W5. W2's bilinear result through ``.filter.nlmeans(r=2, f=1, sigma=2,
+     h=3).nd.change_omnibus(ml=3)``: 0 change-map mismatches against the
+     plain float64 'mixed' scan of the same filtered cube, plainly
+     multilooked; the launch counters of NLMeans, sepconv, the round
+     kernel and the rescan rose in that chain (reset just before it);
+
  17. the exact calls' host share: one ``torch.profiler`` window around
      each exact call (phase 4, path A's, path B's): wall ms, device-busy
      ms and share, device events; and that device time over the call's
@@ -192,7 +223,7 @@ def check(ok, *what):
 
 
 def phase(n, text):
-    print('phase %d: %s' % (n, text), flush=True)
+    print('phase %s: %s' % (n, text), flush=True)
 
 
 def bound(nbytes, ops):
@@ -317,6 +348,284 @@ def mixed_bound(rows, planes, margins=0):
                + planes.numel() * 4 + margins * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = (f64 / F64_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+# ---- W1-W5: the georeferencing path -----------------------------------------
+
+W1_CUBE = {'y': 512, 'x': 512, 'time': 4}       # bench.py's warp cell
+W2_CUBE = {'y': 1024, 'x': 1024, 'time': 12}     # the bench cube's size
+W4_CUBE = {'y': 512, 'x': 512, 'time': 8}        # bench.py's coregister cell
+REG_SIZE = 512                                   # its registration check
+W_NAMES = ('C11', 'C12__re', 'C12__im', 'C22')
+
+
+def on_device(ds, device):
+    """A copy of a port Dataset with every tensor on ``device``."""
+    import torch
+    out = ds.copy(deep=False)
+    for table in (out._variables, out._coords):
+        for k, var in table.items():
+            if isinstance(var.data, torch.Tensor):
+                table[k] = type(var)(var.dims, var.data.to(device),
+                                     var.attrs)
+    return out
+
+
+def allclose(got, ref, rtol, atol):
+    """(ok, max abs diff over the finite pairs): NaN where NaN, +-inf
+    where +-inf, the rest within atol + rtol * |ref|."""
+    import torch
+    got = got.detach().cpu().double()
+    ref = ref.detach().cpu().double()
+    fin = torch.isfinite(ref)
+    same_nonfinite = bool(((got == ref) | (got.isnan() & ref.isnan()))
+                          [~fin].all())
+    diff = (got - ref).abs()[fin]
+    excess = diff - (atol + rtol * ref.abs()[fin])
+    top = float(diff.max()) if diff.numel() else 0.0
+    return (same_nonfinite and bool((excess <= 0).all())
+            and bool(torch.isfinite(got)[fin].all())), top
+
+
+def hold_datasets(got, ref, rtol, atol, what):
+    """Every variable of the card's result against the CPU's."""
+    worst = 0.0
+    for v in ref.data_vars:
+        ok, top = allclose(got[v].data, ref[v].data, rtol, atol)
+        check(ok and got[v].dims == ref[v].dims, what, v, top)
+        worst = max(worst, top)
+    return worst
+
+
+def fft_model(k, ny, nx, nvars):
+    """bench.py's FFT traffic model of a registration (per pixel of one
+    time step: the forward rfft2 of f32 into a c64 half-spectrum, its
+    axis-0 pass, the cross-power spectrum, the inverse's two passes and
+    the argmax), plus the translation of ``nvars`` variables (4 B read
+    and 4 B written a pixel, 16 operations a pixel); FLOPs: three 2-D
+    transforms at 5 N log2 N, about 10 for the cross-power."""
+    hs = (nx // 2 + 1) / nx
+    c = 8.0 * hs
+    fft_bytes = (4 + c) + 2 * c + 3 * c + 2 * c + (c + 4) + 4
+    fft_ops = 3 * 5 * np.log2(ny * nx) + 10
+    pix = k * ny * nx
+    return bound(pix * (fft_bytes + 8 * nvars),
+                 pix * (fft_ops + 16 * nvars))
+
+
+def run_warp_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                    box_taps):
+    """W1-W5: the reprojection and coregistration path at the reference
+    benchmark's sizes, each phase held against the same port function
+    on the CPU, then the reprojected cube through the change chain.
+    Returns the kernel launches of W5's chain."""
+    import torch
+    import torch.nn.functional as F
+    from nd_tpu_torch import warp
+    from nd_tpu_torch.ops import conv_cuda
+    from nd_tpu_torch.ops.change import change_detection_plain
+    from nd_tpu_torch.ops.fft import phase_cross_correlation_batch
+    from nd_tpu_torch.ops.interp import (footprint_resample,
+                                         map_coordinates, matmul_resample)
+    from nd_tpu_torch.testing import generate_test_dataset
+
+    cpu = torch.device('cpu')
+    dkey = str(torch.empty(0, device=dev).device)    # the caches' key
+
+    def report(tag, text, call_ms, op_ms, bnd, yard_ms=None):
+        line = '%s; call %.3f ms (median of 7 after 2 warm-ups, caches ' \
+            'warm), sampling alone %.3f ms | bound %.3f ms (%s), %.1f%% ' \
+            'of it' % (text, call_ms, op_ms, bnd[0], bnd[1],
+                       100.0 * bnd[0] / op_ms)
+        line += ' | no PyTorch yardstick' if yard_ms is None \
+            else ' | yardstick %.3f ms' % yard_ms
+        phase(tag, line + ' | ' + card)
+
+    def gen(dims):
+        card_ds = generate_test_dataset(dims=dims, device=dev).astype(
+            'float32')
+        return card_ds, on_device(card_ds, cpu)
+
+    def grid_key(ds, out):
+        src_t = tuple(warp.get_transform(ds))[:6]
+        return (tuple(out.attrs['transform'])[:6],
+                (out.sizes['y'], out.sizes['x']), src_t,
+                warp.get_crs(ds).to_proj4(), warp.get_crs(out).to_proj4())
+
+    def stacked(ds):
+        """The (V*k, y, x) stack the warp samples for this cube."""
+        return torch.stack([ds[v].transpose('time', 'y', 'x').data
+                            for v in W_NAMES]).reshape(
+            -1, ds.sizes['y'], ds.sizes['x']).contiguous()
+
+    # ---- W1: separable warp, EPSG:4326 -> EPSG:3395, the matmul route -----
+    # the caller switches TF32 on: the warp's products must not use it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    w1, w1_cpu = gen(W1_CUBE)
+    proj = ndt.Reprojection(crs='epsg:3395')
+    out1 = proj.apply(w1)
+    ref1 = proj.apply(w1_cpu)
+    check(torch.backends.cuda.matmul.allow_tf32, 'TF32 setting restored')
+    diff = hold_datasets(out1, ref1, 1e-5, 1e-6, 'W1 matmul warp')
+    key1 = grid_key(w1, out1)
+    plan = warp._cached_plan(*key1, (W1_CUBE['y'], W1_CUBE['x']),
+                             'bilinear', '<f4', dkey)
+    check(plan is not None, 'W1 takes the matmul route')
+    x1 = stacked(w1)
+    call_ms = cuda_ms(lambda: proj.apply(w1))
+    op_ms = cuda_ms(lambda: matmul_resample(x1, *plan[:6], float('nan'),
+                                            expected=plan[6]))
+    B, H, W = x1.shape
+    Hd, Wd = plan[0].shape[0], plan[2].shape[0]
+    flops = 2 * 2 * B * (H * W * Wd + Hd * H * Wd)    # two products, each
+    bnd = bound(12 * B * H * W, flops)                # bench's 12 B/pixel
+    report('W1', 'Reprojection(crs=epsg:3395) of %d x %d x %d x 4 float32 '
+           '(TF32 on in the caller): %dx%d output, max abs diff %.3g vs '
+           'CPU (rtol 1e-5, atol 1e-6)' % (H, W, W1_CUBE['time'], Hd, Wd,
+                                          diff), call_ms, op_ms, bnd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del w1, w1_cpu, out1, ref1, x1
+
+    # ---- W2: curvilinear gather, EPSG:4326 -> EPSG:3035 -------------------
+    w2, w2_cpu = gen(W2_CUBE)
+    out2 = {}
+    for method in ('bilinear', 'cubic'):
+        rp = ndt.Reprojection(crs='epsg:3035', resampling=method)
+        out = rp.apply(w2)
+        ref = rp.apply(w2_cpu)
+        diff = hold_datasets(out, ref, 1e-5, 1e-6, 'W2 gather ' + method)
+        nan_share = float(out['C11'].data.isnan().float().mean())
+        out2[method] = out
+        del ref
+        key2 = grid_key(w2, out)
+        rows, cols = warp._cached_grid(*key2, '<f4', dkey)
+        x2 = stacked(w2)
+        call_ms = cuda_ms(lambda: rp.apply(w2))
+        op_ms = cuda_ms(lambda: map_coordinates(x2, rows, cols, method))
+        taps = 4 if method == 'bilinear' else 16
+        n_out = x2.shape[0] * rows.numel()
+        bnd = bound(4 * x2.numel() + 4 * n_out + 8 * rows.numel(),
+                    n_out * taps * 4)
+        yard_ms = None
+        if method == 'bilinear':
+            # a yardstick only: grid_sample's edge and NaN semantics
+            # differ from the gather's
+            H, W = x2.shape[-2:]
+            grid = torch.stack([cols / (W - 1) * 2 - 1,
+                                rows / (H - 1) * 2 - 1], -1)[None]
+            xin = x2[None]
+            yard_ms = cuda_ms(lambda: F.grid_sample(
+                xin, grid, mode='bilinear', padding_mode='zeros',
+                align_corners=True))
+        report('W2', 'Reprojection(crs=epsg:3035, resampling=%s) of %d x %d '
+               'x %d x 4 float32 (%.0f MB): %s output, %.1f%% NaN (off the '
+               'source), max abs diff %.3g vs CPU (rtol 1e-5, atol 1e-6)'
+               % (method, W2_CUBE['y'], W2_CUBE['x'], W2_CUBE['time'],
+                  x2.numel() * 4 / 1e6, tuple(rows.shape), 100 * nan_share,
+                  diff), call_ms, op_ms, bnd, yard_ms)
+        del x2
+
+    # ---- W3: footprint statistics, twice the source pixel -------------------
+    res = tuple(2 * r for r in warp.get_resolution(w2))
+    for method, rtol, atol in (('average', 1e-6, 1e-6), ('med', 1e-6, 0)):
+        rs = ndt.Resample(res=res, resampling=method)
+        out = rs.apply(w2)
+        ref = rs.apply(w2_cpu)
+        diff = hold_datasets(out, ref, rtol, atol, 'W3 ' + method)
+        key3 = grid_key(w2, out)
+        x3 = stacked(w2)
+        src = tuple(x3.shape[-2:])
+        if method == 'average':
+            plan = warp._cached_plan(*key3, src, 'average', '<f4', dkey)
+            check(plan is not None, 'W3 average plan')
+            op = lambda: matmul_resample(x3, *plan[:6], float('nan'),  # noqa
+                                         expected=plan[6], skipna=True)
+            B, H, W = x3.shape
+            Hd, Wd = plan[0].shape[0], plan[2].shape[0]
+            ops = 2 * 2 * B * (H * W * Wd + Hd * H * Wd)
+        else:
+            plan = warp._cached_footprint_plan(*key3, src, dkey)
+            op = lambda: footprint_resample(x3, *plan, 'med',  # noqa
+                                            float('nan'))
+            Hd, Wd = plan[0].shape[0], plan[3].shape[0]
+            span = plan[0].shape[1] * plan[3].shape[1]
+            ops = x3.shape[0] * Hd * Wd * span * int(np.ceil(np.log2(
+                max(span, 2))))
+        call_ms = cuda_ms(lambda: rs.apply(w2))
+        op_ms = cuda_ms(op)
+        bnd = bound(4 * x3.numel() + 4 * x3.shape[0] * Hd * Wd, ops)
+        report('W3', 'Resample(res=2 x source, resampling=%s) of the W2 cube: '
+               '%dx%d output, max abs diff %.3g vs CPU (rtol %g, atol %g)'
+               % (method, Hd, Wd, diff, rtol, atol), call_ms, op_ms, bnd)
+        del out, ref, x3
+
+    # ---- W4: coregistration (bench.py's coregister cell) --------------------
+    w4, w4_cpu = gen(W4_CUBE)
+    coreg = ndt.Coregistration(reference=0, upsampling=10)
+    m4 = w4['C11'].transpose('time', 'y', 'x').data
+    s_card = phase_cross_correlation_batch(m4, m4[0], 10)
+    s_cpu = phase_cross_correlation_batch(m4.cpu(), m4[0].cpu(), 10)
+    check(torch.equal(s_card.cpu(), s_cpu), 'W4 shifts', s_card, s_cpu)
+    out4 = coreg.apply(w4)
+    ref4 = coreg.apply(w4_cpu)
+    diff = hold_datasets(out4, ref4, 1e-5, 1e-6, 'W4 coregistration')
+    # registration check (bench.py's): band-limited known sub-pixel shifts
+    rng = np.random.RandomState(9)
+    n = REG_SIZE
+    spec = np.fft.fft2(rng.rand(n, n))
+    cut = n * 40 // 512
+    spec[cut:1 - cut, :] = 0
+    spec[:, cut:1 - cut] = 0              # band-limited: alias-free shifts
+    true = np.array([[1.3, -2.7], [-0.4, 0.8], [3.25, 1.75], [0.0, 0.0]])
+    fy = np.fft.fftfreq(n)[:, None]
+    fx = np.fft.fftfreq(n)[None, :]
+    srcs = np.stack([np.real(np.fft.ifft2(
+        spec * np.exp(-2j * np.pi * (fy * dy + fx * dx))))
+        for dy, dx in true]).astype(np.float32)
+    reg = np.real(np.fft.ifft2(spec)).astype(np.float32)
+    est = phase_cross_correlation_batch(torch.from_numpy(srcs).to(dev),
+                                        torch.from_numpy(reg).to(dev), 10)
+    reg_err = float(np.abs(est.cpu().numpy() - true).max())
+    check(reg_err <= 0.2, 'W4 registration error', reg_err)
+    call_ms = cuda_ms(lambda: coreg.apply(w4))
+    op_ms = cuda_ms(lambda: phase_cross_correlation_batch(m4, m4[0], 10))
+    k4, ny4, nx4 = m4.shape
+    bnd = fft_model(k4, ny4, nx4, len(W_NAMES))
+    report('W4', 'Coregistration(reference=0, upsampling=10) of %d x %d x '
+           '%d x 4 float32: shifts equal to the CPU\'s, cube max abs diff '
+           '%.3g (rtol 1e-5, atol 1e-6); known shifts recovered within '
+           '%.3f px (<= 0.2); "sampling alone" is the phase correlation'
+           % (ny4, nx4, k4, diff, reg_err), call_ms, op_ms, bnd)
+    del w4, w4_cpu, out4, ref4
+
+    # ---- W5: W2's reprojected cube through the change chain, counted --------
+    src5 = out2['bilinear']
+    del out2, w2_cpu
+    reset_counts()
+    flt = src5.filter.nlmeans(r=2, f=1, sigma=2, h=3)
+    change = flt.nd.change_omnibus(ml=3)
+    torch.cuda.synchronize()
+    counts_w5 = read_counts()
+    check(all(counts_w5[n] > 0 for n in ('sepconv', 'nlmeans', 'omnibus',
+                                         'omnibus_mixed')),
+          'W5: a kernel of the chain was not launched', counts_w5)
+    st = torch.stack([flt[v].transpose('y', 'x', 'time').data
+                      for v in W_NAMES])                      # (4, y, x, t)
+    looked = conv_cuda.sepconv2_plain(st, box_taps[0], box_taps[1])
+    ref5 = change_detection_plain(looked.permute(1, 2, 3, 0).contiguous(),
+                                  0.01, n=9)
+    mism = int((change.transpose('y', 'x', 'time').data != ref5).sum())
+    check(mism == 0, 'W5 change-map mismatches', mism)
+    check(change.data.device.type == 'cuda', 'W5 on the card')
+    chain_ms = cuda_ms(lambda: src5.filter.nlmeans(
+        r=2, f=1, sigma=2, h=3).nd.change_omnibus(ml=3))
+    phase('W5', 'reprojected cube %s -> .filter.nlmeans(r=2, f=1, sigma=2, '
+          'h=3).nd.change_omnibus(ml=3): %d mismatches vs the plain f64 '
+          'mixed scan of the same filtered cube; %d changes; chain %.3f ms '
+          '(median of 7 after 2 warm-ups); launches %s | %s'
+          % (tuple(change.shape), mism, int(change.data.sum()), chain_ms,
+             json.dumps(counts_w5), card))
+    return counts_w5
 
 
 def main():
@@ -1229,6 +1538,10 @@ def main():
          lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0),
          nlmeans_bound(slab, rw, fw), None, True)])
 
+    # ---- W1-W5. the georeferencing path, its chain counted ------------------
+    counts_w5 = run_warp_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                read_counts, box_taps)
+
     # ---- 17. the exact calls' host share --------------------------------------------
     from nd_tpu_torch.breakdown import profiled
     for label, vals in (('phase 4 exact (k=%d)' % K, cube),
@@ -1248,7 +1561,7 @@ def main():
 
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
-                                          counts_wide))
+                                          counts_wide, counts_w5))
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -1,7 +1,9 @@
-"""nd_tpu_torch — the SAR change path of nd_tpu on PyTorch, with CUDA
-kernels written for Hopper (sm_90a): spatial and spatio-temporal NLMeans,
-boxcar and Gaussian filters, and exact omnibus change detection for short
-and long series.
+"""nd_tpu_torch — nd_tpu on PyTorch, with CUDA kernels written for
+Hopper (sm_90a): spatial and spatio-temporal NLMeans, boxcar and
+Gaussian filters, exact omnibus change detection for short and long
+series, and the georeferencing layer in front of them (CRS, reprojection,
+resampling and coregistration, with the ``ds.nd.*`` / ``ds.filter.*``
+accessors).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
@@ -12,13 +14,20 @@ the kernel's plain PyTorch version.
 from .algorithm import Algorithm, parallelize, wrap_algorithm
 from .change import OmnibusTest, omnibus
 from .core import DataArray, Dataset, Variable, from_jax_dataset
+from .crs import CRS, Affine, transform_coords
 from .filters import (BoxcarFilter, ConvolutionFilter, GaussianFilter,
                       NLMeansFilter, boxcar, convolution, gaussian, nlmeans)
-from .io import disassemble_complex
+from .io import assemble_complex, disassemble_complex
 from .models import SARChangePipeline, multilook
+from .warp import (Coregistration, Reprojection, Resample, coregister,
+                   reproject, resample)
+from . import accessors  # noqa: E402,F401  (attaches .nd / .filter)
 
 __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
-           'DataArray', 'Dataset', 'from_jax_dataset', 'BoxcarFilter',
-           'ConvolutionFilter', 'GaussianFilter', 'NLMeansFilter', 'boxcar',
-           'convolution', 'gaussian', 'nlmeans', 'OmnibusTest', 'omnibus',
-           'disassemble_complex', 'SARChangePipeline', 'multilook']
+           'DataArray', 'Dataset', 'from_jax_dataset', 'CRS', 'Affine',
+           'transform_coords', 'BoxcarFilter', 'ConvolutionFilter',
+           'GaussianFilter', 'NLMeansFilter', 'boxcar', 'convolution',
+           'gaussian', 'nlmeans', 'OmnibusTest', 'omnibus',
+           'assemble_complex', 'disassemble_complex', 'SARChangePipeline',
+           'multilook', 'Reprojection', 'Resample', 'Coregistration',
+           'reproject', 'resample', 'coregister']

@@ -1,9 +1,12 @@
 """Labelled arrays with torch payloads: ``DataArray`` and ``Dataset``.
 
 Counterpart of ``nd_tpu/core/dataarray.py``, cut to what the SAR change
-path uses: dims, sizes, ``data_vars``, item access by name and by list,
-item assignment, ``to_array``, ``transpose``, ``copy``, ``_replace``,
-attrs and coords, and ``.values`` to numpy. ``from_jax_dataset``
+and warp paths use: dims, sizes, ``data_vars``, item access by name and
+by list, item assignment, ``to_array``, ``transpose``, ``copy``,
+``astype``, ``_replace``, attrs, coords (index coordinates and
+non-dimension ones such as warp's 2-D ``lat``/``lon``), and ``.values``
+to numpy. The ``.nd`` and ``.filter`` namespaces are attached by
+``nd_tpu_torch.accessors``. ``from_jax_dataset``
 converts any object with the JAX package's Dataset surface. The rest of
 the data model is still to be ported (ROADMAP item 11).
 """
@@ -180,6 +183,9 @@ class DataArray:
             {k: v.copy(deep) for k, v in self._coords.items()},
             dict(self.attrs), self.name)
 
+    def astype(self, dtype):
+        return self._replace(self.variable.astype(dtype).data)
+
     def transpose(self, *dims):
         if not dims:
             dims = self.dims[::-1]
@@ -318,6 +324,12 @@ class Dataset:
         ds = Dataset(attrs=dict(self.attrs))
         ds._coords = {k: v.copy(deep) for k, v in self._coords.items()}
         ds._variables = {k: v.copy(deep) for k, v in self._variables.items()}
+        return ds
+
+    def astype(self, dtype):
+        ds = self.copy(deep=False)
+        ds._variables = {k: v.astype(dtype)
+                         for k, v in self._variables.items()}
         return ds
 
     def transpose(self, *dims):

@@ -14,9 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['Variable', 'as_array', 'as_tensor']
+__all__ = ['Variable', 'as_array', 'as_tensor', 'torch_dtype']
 
 DEFAULT_DEVICE = 'cuda'
+
+
+def torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
 
 
 def as_tensor(data, device=None):
@@ -103,6 +110,10 @@ class Variable:
     def values(self):
         """Host numpy copy of the data."""
         return to_numpy(self.data)
+
+    def astype(self, dtype):
+        return Variable(self.dims, self.data.to(torch_dtype(dtype)),
+                        self.attrs)
 
     def copy(self, deep=True):
         data = self.data

@@ -1,0 +1,122 @@
+"""Seeded test cubes and assertion helpers.
+
+Counterpart of the generators and assertions of ``nd_tpu/testing.py``:
+the same ``np.random.RandomState`` draws in the same order, so one seed
+gives the same cube (values, coordinates and geo metadata) in both
+packages. The numeric arrays land on ``device`` (default ``cuda``, as
+everywhere in the port). The polygon helpers wait for the vector module
+(ROADMAP item 12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core import DataArray, Dataset
+from .crs import CRS, Affine
+
+__all__ = ['generate_test_dataset', 'generate_test_dataarray',
+           'assert_equal_data', 'assert_equal_crs']
+
+
+def _geo_attrs(extent, nx, ny, crs):
+    crs = CRS.from_user_input(crs)
+    lon_min, lat_min, lon_max, lat_max = extent
+    resx = (lon_max - lon_min) / (nx - 1)
+    resy = (lat_max - lat_min) / (ny - 1)
+    transform = Affine(resx, 0, lon_min, 0, -resy, lat_max)
+    return {
+        'crs': crs.to_proj4(),
+        'transform': tuple(transform)[:6],
+        'res': (abs(resx), abs(resy)),
+        'bounds': (lon_min, lat_min, lon_max, lat_max),
+    }
+
+
+def generate_test_dataset(dims={'y': 20, 'x': 20, 'time': 10},
+                          var=['C11', 'C12__im', 'C12__re', 'C22'],
+                          mean=0, sigma=1,
+                          extent=(-10.0, 50.0, 0.0, 60.0),
+                          random_seed=42, crs='epsg:4326', device=None):
+    """Generate a seeded random datacube with full geo metadata.
+
+    y/x coordinates span ``extent`` (lon_min, lat_min, lon_max, lat_max),
+    time is daily from 2017-01-01, variables are float64 gaussian draws
+    with the given mean/sigma (per-variable if lists), on ``device``.
+    """
+    rng = np.random.RandomState(random_seed)
+    coords = {}
+    ny = dims.get('y', 1)
+    nx = dims.get('x', 1)
+    lon_min, lat_min, lon_max, lat_max = extent
+    for d, size in dims.items():
+        if d == 'y':
+            coords['y'] = np.linspace(lat_max, lat_min, size)
+        elif d == 'x':
+            coords['x'] = np.linspace(lon_min, lon_max, size)
+        elif d == 'time':
+            coords['time'] = np.arange(
+                np.datetime64('2017-01-01'),
+                np.datetime64('2017-01-01') + np.timedelta64(size, 'D'),
+                np.timedelta64(1, 'D')).astype('datetime64[ns]')
+        else:
+            coords[d] = np.arange(size)
+
+    if not isinstance(mean, (list, tuple, np.ndarray)):
+        mean = [mean] * len(var)
+    if not isinstance(sigma, (list, tuple, np.ndarray)):
+        sigma = [sigma] * len(var)
+    if len(mean) != len(var) or len(sigma) != len(var):
+        raise ValueError(
+            'mean/sigma lists must match var (%d entries), got %d/%d'
+            % (len(var), len(mean), len(sigma)))
+
+    shape = tuple(dims.values())
+    dim_names = tuple(dims.keys())
+    # geo metadata only applies to spatial cubes
+    attrs = _geo_attrs(extent, nx, ny, crs) \
+        if 'x' in dims and 'y' in dims and nx > 1 and ny > 1 else {}
+    ds = Dataset(coords=coords, attrs=attrs, device=device)
+    for v, m, s in zip(var, mean, sigma):
+        ds._assign(v, (dim_names,
+                       (rng.normal(m, s, shape)).astype(np.float64)),
+                   device)
+    return ds
+
+
+def generate_test_dataarray(dims={'y': 20, 'x': 20, 'time': 10},
+                            name='variable', mean=0, sigma=1,
+                            extent=(-10.0, 50.0, 0.0, 60.0),
+                            random_seed=42, crs='epsg:4326', device=None):
+    """Generate a seeded random DataArray (one variable of
+    :func:`generate_test_dataset`, with the dataset's attrs)."""
+    ds = generate_test_dataset(dims=dims, var=[name], mean=[mean],
+                               sigma=[sigma], extent=extent,
+                               random_seed=random_seed, crs=crs,
+                               device=device)
+    da = ds[name]
+    da.attrs.update(ds.attrs)
+    return da
+
+
+def assert_equal_data(ds1, ds2, rtol=1e-7, atol=0):
+    """Assert that two Datasets/DataArrays contain the same data."""
+    if isinstance(ds1, DataArray):
+        np.testing.assert_allclose(
+            np.asarray(ds1.values),
+            np.asarray(ds2.transpose(*ds1.dims).values
+                       if isinstance(ds2, DataArray) else ds2),
+            rtol=rtol, atol=atol)
+        return
+    assert set(ds1.data_vars) == set(ds2.data_vars)
+    for v in ds1.data_vars:
+        np.testing.assert_allclose(
+            np.asarray(ds1[v].values),
+            np.asarray(ds2[v].transpose(*ds1[v].dims).values),
+            rtol=rtol, atol=atol, err_msg='variable %s differs' % v)
+
+
+def assert_equal_crs(crs1, crs2):
+    c1 = CRS.from_user_input(crs1)
+    c2 = CRS.from_user_input(crs2)
+    assert c1 == c2, '%r != %r' % (c1, c2)

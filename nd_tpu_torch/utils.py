@@ -1,5 +1,6 @@
 """Helpers: ``as_tensor`` (where non-tensor input lands: ``cuda`` unless
-the caller names a device), variable selection, complex detection and
+the caller names a device), dims and shapes, variable selection, complex
+detection and
 the docstring and argument tooling that
 :func:`nd_tpu_torch.algorithm.wrap_algorithm` uses.
 
@@ -18,8 +19,24 @@ from .core import DataArray, Dataset
 from .core.dataarray import expand_variables_da
 from .core.variable import as_tensor
 
-__all__ = ['as_tensor', 'get_vars_for_dims', 'expand_variables', 'is_complex',
+__all__ = ['as_tensor', 'get_dims', 'get_shape', 'get_vars_for_dims',
+           'expand_variables', 'is_complex',
            'parse_docstring', 'assemble_docstring', 'extract_arguments']
+
+
+def get_shape(ds):
+    """Shape of a Dataset/DataArray in coordinate order."""
+    if isinstance(ds, DataArray):
+        return ds.shape
+    sizes = ds.sizes
+    return tuple(sizes[d] for d in sizes)
+
+
+def get_dims(ds):
+    """The dimensions of ``ds`` in (insertion) order."""
+    if isinstance(ds, DataArray):
+        return ds.dims
+    return tuple(ds.sizes)
 
 
 def get_vars_for_dims(ds, dims, invert=False):

@@ -19,7 +19,11 @@ and margins exactly equal to its plain version; exact and pipeline
 change maps exactly equal, against the plain float64 'mixed' scan
 (``change_detection_plain``); the rescan kernels' packed flags exactly
 equal to their plain versions for 'mixed' and 'float64' statistics, a
-mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1.
+mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1;
+the georeferencing layer against the same port functions on the CPU:
+gathers and matmuls rtol 1e-5, atol 1e-6 (the matmul also within 1e-5
+of the float64 product with TF32 switched on by the caller), nearest
+exact, the footprint median rtol 1e-6, coregistration shifts equal.
 """
 
 import ctypes
@@ -30,12 +34,14 @@ import pytest
 import torch
 
 import nd_tpu_torch as ndt
-from nd_tpu_torch import _build
+from nd_tpu_torch import _build, warp as twarp
 from nd_tpu_torch.ops import change as tchange
 from nd_tpu_torch.core import Dataset, from_jax_dataset
 from nd_tpu_torch.ops import change_cuda, change_mixed_cuda, \
     change_scan_cuda, conv_cuda, nlmeans_cuda, stream_cuda
+from nd_tpu_torch.ops import fft as tfft, interp as tinterp
 from nd_tpu_torch.ops.conv import gaussian_kernel1d
+from nd_tpu_torch.testing import generate_test_dataset
 from torch_cubes import cuda, long_stack_cube, sar_cube  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -819,3 +825,149 @@ def test_low_precision_filters_on_the_card(cuda, dtype):
                                                       0.25])] * 3)))):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+# ---- the georeferencing layer: gathers, matmuls, footprints, caches ---------
+#
+# The card against the same port functions on the CPU. Gathers and matmuls
+# in float32: rtol 1e-5, atol 1e-6; nearest and the order statistics
+# exact; the footprint median rtol 1e-6; coregistration shifts equal.
+
+
+
+def _edge_coords(H, W):
+    """Coordinates at and past every edge: exact borders, a hair inside
+    and outside, far outside, +-inf and NaN."""
+    vals = [0.0, -1e-7, 1e-7, -0.5, -1.0, -3.0, -1e30, np.inf, -np.inf,
+            np.nan]
+    rows = vals + [H - 1, H - 1 + 1e-7, H - 0.5, H, H + 5, 1e30]
+    cols = vals + [W - 1, W - 1 + 1e-7, W - 0.5, W, W + 5, 1e30]
+    r, c = np.meshgrid(np.asarray(rows, np.float32),
+                       np.asarray(cols, np.float32), indexing='ij')
+    return torch.from_numpy(r), torch.from_numpy(c)
+
+
+@pytest.mark.parametrize('method', ['nearest', 'bilinear', 'cubic',
+                                    'cubic_spline', 'lanczos'])
+def test_gather_at_and_past_every_edge(cuda, method):
+    v = _data((3, 37, 53), seed=120).float()
+    v[1, 0, 0] = np.nan
+    rows, cols = _edge_coords(37, 53)
+    ref = tinterp.map_coordinates(v, rows, cols, method=method)
+    got = tinterp.map_coordinates(v.to(cuda), rows.to(cuda), cols.to(cuda),
+                                  method=method)
+    torch.cuda.synchronize()                 # a device assert shows here
+    tol = dict(rtol=0, atol=0) if method == 'nearest' \
+        else dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.cpu(), ref, equal_nan=True, **tol)
+    assert torch.isnan(ref).any() and torch.isfinite(ref).any()
+
+
+def test_integer_gather_past_the_edges(cuda):
+    v = torch.from_numpy(np.random.RandomState(121).randint(
+        -9, 9, (2, 11, 13)).astype(np.int32))
+    rows, cols = _edge_coords(11, 13)
+    ref = tinterp.map_coordinates(v, rows, cols, method='nearest', cval=0)
+    got = tinterp.map_coordinates(v.to(cuda), rows.to(cuda), cols.to(cuda),
+                                  method='nearest', cval=0)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_matmul_resample_ignores_the_callers_tf32(cuda):
+    """With TF32 switched on by the caller the separable product must
+    still agree with the float64 product to 1e-5: the products run at
+    full float32 precision (a TF32 product misses by about 1e-3)."""
+    H = W = 512
+    rr = np.linspace(0.25, H - 1.5, 400)
+    cc = np.linspace(0.4, W - 1.2, 450)
+    wy, wym, vy = tinterp.axis_weights(rr, H, 'bilinear')
+    wx, wxm, vx = tinterp.axis_weights(cc, W, 'bilinear')
+    plan = [torch.from_numpy(a) for a in (wy, wym, wx, wxm, vy, vx)]
+    v = torch.from_numpy(np.random.RandomState(122).normal(
+        5, 3, (4, H, W)).astype(np.float32))
+    want = torch.matmul(plan[0].double(), torch.matmul(
+        v.double(), plan[2].double().T))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = tinterp.matmul_resample(v.to(cuda),
+                                      *[p.to(cuda) for p in plan],
+                                      np.nan, expected=4.0)
+        torch.cuda.synchronize()
+        assert torch.backends.cuda.matmul.allow_tf32      # restored
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = ((got.cpu().double() - want).abs() / want.abs().clamp(min=1))
+    assert float(err.max()) <= 1e-5
+
+
+def test_footprint_median_past_two_to_the_24(cuda):
+    """``torch.nanquantile`` refuses more than 2^24 elements; the
+    footprint median sorts instead, on windows of 24M elements here."""
+    H, W, step = 1024, 1024, 2.5
+    ry = np.arange(0.6, H, step)
+    cx = np.arange(0.6, W, step)
+    plan = tinterp.footprint_axis(ry, H, step) \
+        + tinterp.footprint_axis(cx, W, step)
+    v = torch.from_numpy(np.random.RandomState(123).normal(
+        0, 1, (16, H, W)).astype(np.float32))
+    v[:, :40, :40] = np.nan
+    span = plan[0].shape[1] * plan[3].shape[1]
+    assert 16 * len(ry) * len(cx) * span > 2 ** 24
+    ref = tinterp.footprint_resample(v, *[torch.from_numpy(a)
+                                          for a in plan], 'med', np.nan)
+    got = tinterp.footprint_resample(v.to(cuda),
+                                     *[torch.from_numpy(a).to(cuda)
+                                       for a in plan], 'med', np.nan)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=0,
+                               equal_nan=True)
+
+
+def test_plan_caches_from_cpu_and_cuda_in_turn(cuda):
+    """One geometry, warped on the CPU, the card and the CPU again: each
+    result lies on its input's device (the caches are keyed by device),
+    and the two devices agree."""
+    for cache in (twarp._cached_plan, twarp._cached_grid,
+                  twarp._cached_footprint_plan):
+        cache.cache_clear()
+    dims = {'y': 64, 'x': 80, 'time': 3}
+    cpu_ds = generate_test_dataset(dims=dims, device='cpu').astype(
+        'float32')
+    card_ds = generate_test_dataset(dims=dims, device=cuda).astype(
+        'float32')
+    for algo, tol in ((ndt.Reprojection(crs='epsg:3395'), 1e-5),
+                      (ndt.Reprojection(crs='epsg:3035', resampling='cubic'),
+                       1e-5),
+                      (ndt.Resample(res=0.3, resampling='med'), 1e-6)):
+        outs = [algo.apply(ds) for ds in (cpu_ds, card_ds, cpu_ds)]
+        for out, dev in zip(outs, ('cpu', 'cuda', 'cpu')):
+            assert all(out[v].data.device.type == dev
+                       for v in out.data_vars)
+            assert out.coords['lat'].data.device.type == dev
+        for v in outs[0].data_vars:
+            torch.testing.assert_close(outs[1][v].data.cpu(),
+                                       outs[0][v].data, rtol=tol,
+                                       atol=1e-6, equal_nan=True)
+            assert torch.equal(outs[2][v].data.isnan(),
+                               outs[0][v].data.isnan())
+    assert twarp._cached_plan.cache_info().hits >= 1
+    assert twarp._cached_grid.cache_info().hits >= 1
+
+
+def test_coregistration_on_the_card_matches_cpu(cuda):
+    dims = {'y': 96, 'x': 128, 'time': 5}
+    cpu_ds = generate_test_dataset(dims=dims, device='cpu').astype(
+        'float32')
+    card_ds = generate_test_dataset(dims=dims, device=cuda).astype(
+        'float32')
+    master = cpu_ds['C11'].transpose('time', 'y', 'x').data
+    ref = tfft.phase_cross_correlation_batch(master, master[0], 10)
+    got = tfft.phase_cross_correlation_batch(master.to(cuda),
+                                             master[0].to(cuda), 10)
+    assert torch.equal(got.cpu(), ref)
+    want = ndt.Coregistration(reference=0).apply(cpu_ds)
+    out = ndt.Coregistration(reference=0).apply(card_ds)
+    for v in want.data_vars:
+        assert out[v].data.device.type == 'cuda'
+        torch.testing.assert_close(out[v].data.cpu(), want[v].data,
+                                   rtol=1e-5, atol=1e-6)

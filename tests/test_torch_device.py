@@ -12,7 +12,9 @@ from nd_tpu_torch.core import DataArray, Dataset, Variable, from_jax_dataset
 from nd_tpu_torch.ops import change as tchange
 from nd_tpu_torch.ops import change_cuda, change_scan_cuda
 from nd_tpu_torch.ops import conv as tconv
+from nd_tpu_torch.ops import fft as tfft
 from nd_tpu_torch.ops import nlmeans as tnlmeans
+from nd_tpu_torch.testing import generate_test_dataset
 from nd_tpu_torch.utils import as_tensor
 from torch_cubes import long_stack_cube, sar_cube
 
@@ -59,6 +61,16 @@ ENTRY_POINTS = {
     'change_detection_scan': lambda **kw: list(
         change_scan_cuda.change_detection_scan(
             long_stack_cube(3, 4, 56, seed=56), 0.99, n=9, **kw)),
+    'generate_test_dataset': lambda **kw: (lambda ds: [
+        ds['C11'].data, ds['x'].data])(generate_test_dataset(
+            dims={'y': 5, 'x': 6, 'time': 2}, **kw)),
+    'phase_cross_correlation_batch': lambda **kw: [
+        tfft.phase_cross_correlation_batch(_small()[..., 0, 0][None],
+                                           _small()[..., 0, 0], 4, **kw)],
+    'translate_batch': lambda **kw: [tfft.translate_batch(
+        _small()[..., 0].transpose(2, 0, 1), np.zeros((3, 2)), **kw)],
+    'translate': lambda **kw: [tfft.translate(_small()[..., 0, 0],
+                                              (0.5, 1.0), **kw)],
 }
 
 

@@ -23,7 +23,10 @@ COUNTED = (conv_cuda, nlmeans_cuda, change_cuda)
 def test_import_loads_no_jax():
     code = ('import sys, nd_tpu_torch, nd_tpu_torch.ops.change_cuda, '
             'nd_tpu_torch.ops.change_scan_cuda, '
-            'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda; '
+            'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda, '
+            'nd_tpu_torch.warp, nd_tpu_torch.accessors, nd_tpu_torch.crs, '
+            'nd_tpu_torch.ops.interp, nd_tpu_torch.ops.fft, '
+            'nd_tpu_torch.testing; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')
