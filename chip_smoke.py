@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive nd_tpu_torch's SAR change paths and its georeferencing path
-once on one CUDA device.
+"""Drive nd_tpu_torch's SAR change paths, its georeferencing path and
+its training path once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -132,7 +132,34 @@ caches warm, the whole call and its sampling op alone, beside a bound):
      each exact call (phase 4, path A's, path B's): wall ms, device-busy
      ms and share, device events; and that device time over the call's
      CUDA-event time without the profiler (the profiler's own host work
-     inflates its wall).
+     inflates its wall);
+
+and the training path on the bench cube (each result held against the
+same port calls on the CPU):
+
+ T1. ``SARChangePipeline(ml=3, n=1, alpha=0.9, n_classes=2,
+     lr=0.05)``, ``init_params(seed=0)``, five ``train_step`` calls on
+     the cube; labels: phase 4's change map, any over time, int32, an
+     8-pixel outer ring -1 (masked). Losses finite and within rtol 1e-5
+     of the CPU's, parameters rtol 1e-4 / atol 1e-6, the first step's
+     features rtol 1e-5 / atol 1e-5; one sepconv launch a step and no
+     other kernel (counts reset just before, read just after); the
+     step's time split into multilook, ``change_features`` and the head
+     (loss, gradient, SGD update), ``change_features`` beside its byte
+     bound; peak device memory; one step under ``torch.profiler``;
+ T2. ``TorchClassifier(hidden=(16,), epochs=150, lr=0.05)`` on a Dataset
+     of T1's 7 features as (y, x) variables, labels + 1 (the ring
+     becomes 0, unlabelled): at 10 epochs each parameter tensor within
+     1e-4 of its largest magnitude (plus 1e-6) of the CPU's from the
+     same initial draw, at 150
+     epochs predictions equal to the CPU's on at least 99.9% of pixels;
+     accuracy; fit and predict times, the fit beside its bound (X read
+     twice an epoch, or its operations); no kernel launched; a 10-epoch
+     fit under ``torch.profiler``;
+ T3. ``save_params``/``load_params`` of T1's parameters and T2's
+     ``(w, b)`` list round-trip bit for bit onto the card; a
+     ``Checkpointer(max_to_keep=2)`` over three saves keeps steps 1 and
+     2, ``latest_step()`` is 2 and ``restore`` is equal.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -628,6 +655,245 @@ def run_warp_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return counts_w5
 
 
+# ---- T1-T3: the training path -----------------------------------------------
+
+T_STEPS = 5                 # train_step calls of T1
+T_RING = 8                  # masked outer ring of T1's labels (pixels)
+T2_EPOCHS = 150             # examples/forest_classification.py's settings
+T2_CHECK_EPOCHS = 10
+FEATURE_NAMES = ('c11_mean', 'c11_std', 'c22_mean', 'c22_std', 'ratio',
+                 'coherence', 'p_change')
+
+
+def features_bound(looked):
+    """(ms, what sets it) of ``change_features`` on a (y, x, t, 4) cube:
+    the cube read once and the (y, x, 7) features written once; about 50
+    operations per pixel and date (determinant, log, ratio, coherence,
+    sums) and 230 per pixel (two incomplete gamma functions and the
+    statistic), counted from the formula."""
+    ny, nx, k, _ = looked.shape
+    nbytes = looked.numel() * looked.element_size() + ny * nx * 7 * 4
+    return bound(nbytes, ny * nx * (50 * k + 230))
+
+
+def classifier_bound(n, n_features, hidden, n_classes, epochs):
+    """(ms, what sets it) of ``TorchClassifier.fit``: X (n, features)
+    float32 read twice an epoch (the forward and the weight gradient),
+    and each epoch's f32 operations (2 per multiply-add of the two
+    products forward, twice that backward, plus the bias, ReLU,
+    log-softmax and loss terms)."""
+    sizes = (n_features,) + tuple(hidden) + (n_classes,)
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    per_sample = 6 * macs + 4 * sum(sizes[1:]) + 12 * n_classes
+    return bound(2 * n * n_features * 4 * epochs, n * per_sample * epochs)
+
+
+def say_profile(tag, label, fn, card):
+    """One call under torch.profiler: wall, device-busy share, device
+    events and the kernels that took the most device time."""
+    from nd_tpu_torch.breakdown import profiled
+    wall, busy, events, top = profiled(fn)
+    phase(tag, '%s under torch.profiler: wall %.3f ms, device busy %.3f ms '
+          '(%.1f%%), %d device events; top %s | %s'
+          % (label, wall, busy, 100.0 * busy / wall, events,
+             ', '.join('%s %.3f ms' % kv for kv in top), card))
+
+
+def run_training_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                        cube, labels):
+    """T1-T3: the flagship model trained on the bench cube, a classifier
+    fitted on its features, checkpoints of both; every result held
+    against the same port calls on the CPU. Returns T1's launches."""
+    import tempfile
+
+    import torch
+    from nd_tpu_torch.classify import TorchClassifier
+    from nd_tpu_torch.core import DataArray, Dataset
+    from nd_tpu_torch.models.checkpoint import (Checkpointer, load_params,
+                                                save_params)
+
+    cpu = torch.device('cpu')
+    model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9, n_classes=2,
+                                  lr=0.05)
+    cube_cpu, labels_cpu = cube.cpu(), labels.cpu()
+
+    # ---- T1: five train_steps at full width, counted ------------------------
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    params = model.init_params(seed=0)
+    params_cpu = model.init_params(seed=0, device=cpu)
+    losses, per_step = [], []
+    reset_counts()
+    for _ in range(T_STEPS):
+        before = read_counts()
+        params, loss = model.train_step(params, cube, labels)
+        losses.append(loss)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()
+                         if v != before[k]})
+    torch.cuda.synchronize()
+    counts_t1 = read_counts()
+    check(all(s == {'sepconv': 1} for s in per_step),
+          'T1: one sepconv launch a step and no other kernel', per_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), 'T1 losses finite', losses)
+    losses_cpu = []
+    for _ in range(T_STEPS):
+        params_cpu, loss = model.train_step(params_cpu, cube_cpu, labels_cpu)
+        losses_cpu.append(loss)
+    losses_cpu = torch.stack(losses_cpu)
+    ok, loss_diff = allclose(losses, losses_cpu, 1e-5, 0.0)
+    check(ok, 'T1 losses against the CPU', losses, losses_cpu)
+    param_diff = 0.0
+    for k in ('w', 'b'):
+        ok, top = allclose(params[k], params_cpu[k], 1e-4, 1e-6)
+        check(ok and params[k].device.type == 'cuda', 'T1 params', k, top)
+        param_diff = max(param_diff, top)
+    looked = ndt.multilook(cube, model.ml)
+    feats = model.features(looked)
+    feats_cpu = model.features(ndt.multilook(cube_cpu, model.ml))
+    ok, feat_diff = allclose(feats, feats_cpu, 1e-5, 1e-5)
+    check(ok and feats.shape == (cube.shape[0], cube.shape[1], 7),
+          'T1 first-step features against the CPU', feat_diff)
+    p0 = model.init_params(seed=0)
+    step_ms = cuda_ms(lambda: model.train_step(p0, cube, labels))
+    ml_ms = cuda_ms(lambda: ndt.multilook(cube, model.ml))
+    feat_ms = cuda_ms(lambda: model.features(looked))
+    head_ms = cuda_ms(lambda: model.head_step(p0, feats, labels))
+    fb = features_bound(looked)
+    phase('T1', 'SARChangePipeline(ml=3, n=1, alpha=0.9, n_classes=2, '
+          'lr=0.05) on %s float32, %d train_steps from init_params(seed=0), '
+          'labels: phase 4\'s change map any over time, %d-pixel ring '
+          'masked (%d labelled pixels, %d of class 1): losses %s; against '
+          'the CPU: losses max abs diff %.3g (rtol 1e-5), params %.3g '
+          '(rtol 1e-4, atol 1e-6), first-step features %.3g (rtol 1e-5, '
+          'atol 1e-5); launches %s; peak device memory %.2f GiB, %.2f GiB '
+          'above the %.2f GiB the script held before T1'
+          % (tuple(cube.shape), T_STEPS, T_RING, int((labels >= 0).sum()),
+             int((labels == 1).sum()),
+             ', '.join('%.6f' % v for v in losses.tolist()), loss_diff,
+             param_diff, feat_diff, json.dumps(counts_t1), peak,
+             peak - held, held))
+    phase('T1', 'train_step %.3f ms = multilook %.3f ms + change_features '
+          '%.3f ms + head (loss, gradient, SGD update) %.3f ms (each the '
+          'median of 7 after 2 warm-ups); change_features bound %.3f ms '
+          '(%s), %.1f%% of it | %s'
+          % (step_ms, ml_ms, feat_ms, head_ms, fb[0], fb[1],
+             100.0 * fb[0] / feat_ms, card))
+    say_profile('T1', 'one train_step', lambda: model.train_step(p0, cube,
+                                                                 labels),
+                card)
+    del looked, feats_cpu, cube_cpu
+
+    # ---- T2: TorchClassifier on T1's features --------------------------------
+    ny, nx = labels.shape
+    coords = {'y': np.arange(ny, dtype=np.float64),
+              'x': np.arange(nx, dtype=np.float64)}
+    fds = Dataset({name: (('y', 'x'), feats[..., i].contiguous())
+                   for i, name in enumerate(FEATURE_NAMES)}, coords=coords,
+                  device=dev)
+    classes = DataArray(labels + 1, dims=('y', 'x'), coords=coords,
+                        device=dev)                 # the ring becomes 0
+    fds_cpu = on_device(fds, cpu)
+    classes_cpu = DataArray(classes.data.cpu(), dims=('y', 'x'),
+                            coords=coords, device=cpu)
+    reset_counts()
+    short = TorchClassifier(hidden=(16,), epochs=T2_CHECK_EPOCHS, lr=0.05)
+    short.fit(fds, classes)
+    short_cpu = TorchClassifier(hidden=(16,), epochs=T2_CHECK_EPOCHS,
+                                lr=0.05).fit(fds_cpu, classes_cpu)
+    # Each parameter tensor within 1e-4 of its largest magnitude (plus
+    # 1e-6): Adam normalises each gradient, so float32 sums over 1M
+    # samples taken in another order move single weights near 0 by more
+    # than an elementwise 1e-4 (on the CPU, the same fit with the grid
+    # transposed moved a weight of -0.055 by 1.7e-5).
+    short_diff, short_rel = 0.0, 0.0
+    for pair, pair_cpu in zip(short.params, short_cpu.params):
+        for a, b in zip(pair, pair_cpu):
+            top = float((a.cpu() - b).abs().max())
+            scale = float(b.abs().max())
+            check(top <= 1e-4 * scale + 1e-6 and a.device.type == 'cuda',
+                  'T2 params at %d epochs' % T2_CHECK_EPOCHS, top, scale)
+            short_diff = max(short_diff, top)
+            short_rel = max(short_rel, top / scale)
+    clf = TorchClassifier(hidden=(16,), epochs=T2_EPOCHS, lr=0.05)
+    clf.fit(fds, classes)
+    pred = clf.predict(fds)
+    torch.cuda.synchronize()
+    counts_t2 = read_counts()
+    check(not any(counts_t2.values()), 'T2 launched a kernel', counts_t2)
+    check(pred.data.device.type == 'cuda' and pred.dims == ('y', 'x'),
+          'T2 predictions', pred.data.device, pred.dims)
+    pred_cpu = TorchClassifier(hidden=(16,), epochs=T2_EPOCHS,
+                               lr=0.05).fit(fds_cpu,
+                                            classes_cpu).predict(fds_cpu)
+    agree = float((pred.data.cpu() == pred_cpu.data).double().mean())
+    check(agree >= 0.999, 'T2 predictions against the CPU', agree)
+    lab = classes.data > 0
+    n_samples = int(lab.sum())
+    accuracy = float((pred.data[lab] == classes.data[lab]).double().mean())
+    fit_ms = cuda_ms(lambda: TorchClassifier(hidden=(16,), epochs=T2_EPOCHS,
+                                             lr=0.05).fit(fds, classes),
+                     reps=3, warmup=1)
+    predict_ms = cuda_ms(lambda: clf.predict(fds))
+    cb = classifier_bound(n_samples, 7, (16,), 2, T2_EPOCHS)
+    phase('T2', 'TorchClassifier(hidden=(16,), epochs=%d, lr=0.05) on a '
+          'Dataset of T1\'s 7 features (%d x %d, %d labelled samples, '
+          'labels + 1): at %d epochs params max abs diff %.3g to the CPU, '
+          '%.3g of the tensor\'s largest magnitude (<= 1e-4, plus 1e-6); at '
+          '%d epochs predictions equal to the CPU\'s on %.5f%% of pixels '
+          '(>= 99.9%%); accuracy %.4f (%.4f predicting the majority class); '
+          'no kernel launched'
+          % (T2_EPOCHS, ny, nx, n_samples, T2_CHECK_EPOCHS, short_diff,
+             short_rel, T2_EPOCHS, 100.0 * agree, accuracy,
+             1.0 - float((classes.data == 2).sum()) / n_samples))
+    phase('T2', 'fit %.3f ms (median of 3 after 1 warm-up; %.4f ms an '
+          'epoch), predict %.3f ms (median of 7 after 2) | fit bound %.3f ms '
+          '(%s), %.1f%% of it | %s'
+          % (fit_ms, fit_ms / T2_EPOCHS, predict_ms, cb[0], cb[1],
+             100.0 * cb[0] / fit_ms, card))
+
+    say_profile('T2', 'a %d-epoch fit' % T2_CHECK_EPOCHS,
+                lambda: TorchClassifier(hidden=(16,), epochs=T2_CHECK_EPOCHS,
+                                        lr=0.05).fit(fds, classes), card)
+
+    # ---- T3: checkpoints ----------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'params.npz')
+        save_params(params, path)
+        back = load_params(path, like=model.init_params(seed=1))
+        check(all(back[k].device.type == 'cuda'
+                  and torch.equal(back[k], params[k]) for k in params),
+              'T3 pipeline params round trip')
+        save_params(clf.params, path)
+        back = load_params(path, like=clf.params)
+        check(all(a.device.type == 'cuda' and torch.equal(a, b)
+                  for pair, pair_back in zip(clf.params, back)
+                  for a, b in zip(pair, pair_back)),
+              'T3 classifier params round trip')
+        ck = Checkpointer(os.path.join(tmp, 'ck'), max_to_keep=2)
+        for step in range(3):
+            ck.save(step, {'head': {k: v + step for k, v in params.items()},
+                           'classifier': clf.params})
+        latest = ck.latest_step()
+        kept = sorted(os.listdir(os.path.join(tmp, 'ck')))
+        state = ck.restore(like={'head': params, 'classifier': clf.params})
+        ck.close()
+        check(latest == 2 and kept == ['step_1.npz', 'step_2.npz'],
+              'T3 Checkpointer retention', latest, kept)
+        check(all(torch.equal(state['head'][k], params[k] + 2)
+                  for k in params)
+              and all(torch.equal(a, b) for pair, pair_back
+                      in zip(clf.params, state['classifier'])
+                      for a, b in zip(pair, pair_back)),
+              'T3 Checkpointer restore')
+    phase('T3', 'save_params/load_params of T1\'s params and T2\'s (w, b) '
+          'list: bit for bit onto the card; Checkpointer(max_to_keep=2) '
+          'over 3 saves: latest_step() = %d, kept %s, restore equal'
+          % (latest, ', '.join(kept)))
+    return counts_t1
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -889,6 +1155,13 @@ def main():
     phase(4, 'exact omnibus: %d mismatches vs plain f64 mixed scan; %d '
           'suspects rescanned; %d changes' % (mism, suspects,
                                               int(exact.sum())))
+    # T1's labels: changed at any date, the outer ring masked (-1). (Phase
+    # 5's map, at alpha 0.9 on the multilooked cube, flags no pixel here.)
+    t_labels = exact.any(-1).to(torch.int32)
+    t_labels[:T_RING] = -1
+    t_labels[-T_RING:] = -1
+    t_labels[:, :T_RING] = -1
+    t_labels[:, -T_RING:] = -1
 
     model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9).to(dev)
     fwd = model(cube)
@@ -1542,6 +1815,7 @@ def main():
     counts_w5 = run_warp_phases(ndt, dev, card, cuda_ms, reset_counts,
                                 read_counts, box_taps)
 
+
     # ---- 17. the exact calls' host share --------------------------------------------
     from nd_tpu_torch.breakdown import profiled
     for label, vals in (('phase 4 exact (k=%d)' % K, cube),
@@ -1559,9 +1833,15 @@ def main():
                  100.0 * busy / event_ms,
                  ', '.join('%s %.3f ms' % kv for kv in top), card))
 
+    # ---- T1-T3. the training path, T1 counted (after phase 17: their
+    # profiler windows left later windows without some kernels' events)
+    counts_t1 = run_training_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                    read_counts, cube, t_labels)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
-                                          counts_wide, counts_w5))
+                                          counts_wide, counts_w5,
+                                          counts_t1))
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -3,7 +3,9 @@ Hopper (sm_90a): spatial and spatio-temporal NLMeans, boxcar and
 Gaussian filters, exact omnibus change detection for short and long
 series, and the georeferencing layer in front of them (CRS, reprojection,
 resampling and coregistration, with the ``ds.nd.*`` / ``ds.filter.*``
-accessors).
+accessors), the flagship model's training step, the classifiers
+(scikit-learn bridge and ``TorchClassifier``) and checkpoints
+(``nd_tpu_torch.models.checkpoint``).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
@@ -13,12 +15,13 @@ the kernel's plain PyTorch version.
 
 from .algorithm import Algorithm, parallelize, wrap_algorithm
 from .change import OmnibusTest, omnibus
+from .classify import Classifier, TorchClassifier, class_mean
 from .core import DataArray, Dataset, Variable, from_jax_dataset
 from .crs import CRS, Affine, transform_coords
 from .filters import (BoxcarFilter, ConvolutionFilter, GaussianFilter,
                       NLMeansFilter, boxcar, convolution, gaussian, nlmeans)
 from .io import assemble_complex, disassemble_complex
-from .models import SARChangePipeline, multilook
+from .models import SARChangePipeline, change_features, multilook
 from .warp import (Coregistration, Reprojection, Resample, coregister,
                    reproject, resample)
 from . import accessors  # noqa: E402,F401  (attaches .nd / .filter)
@@ -27,7 +30,8 @@ __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
            'DataArray', 'Dataset', 'from_jax_dataset', 'CRS', 'Affine',
            'transform_coords', 'BoxcarFilter', 'ConvolutionFilter',
            'GaussianFilter', 'NLMeansFilter', 'boxcar', 'convolution',
-           'gaussian', 'nlmeans', 'OmnibusTest', 'omnibus',
-           'assemble_complex', 'disassemble_complex', 'SARChangePipeline',
-           'multilook', 'Reprojection', 'Resample', 'Coregistration',
+           'gaussian', 'nlmeans', 'OmnibusTest', 'omnibus', 'Classifier',
+           'TorchClassifier', 'class_mean', 'assemble_complex',
+           'disassemble_complex', 'SARChangePipeline', 'multilook',
+           'change_features', 'Reprojection', 'Resample', 'Coregistration',
            'reproject', 'resample', 'coregister']

@@ -125,7 +125,9 @@ class NDAccessor:
         _not_ported('nd.tile (tiling)', 17)
 
     def classify(self, clf, labels=None, **kwargs):
-        _not_ported('nd.classify (classify)', 12)
+        from .classify import Classifier
+        c = Classifier(clf, **kwargs)
+        return c.fit_predict(self._obj, labels)
 
     def to_rgb(self, *args, **kwargs):
         _not_ported('nd.to_rgb (visualize)', 15)

@@ -58,6 +58,28 @@ def as_array(data, device=None):
     return arr
 
 
+def _expand_dims_to(data, dims, target_dims):
+    """Reshape+permute ``data`` with ``dims`` to cover ``target_dims``
+    (size-1 axes where ``dims`` lacks one)."""
+    missing = [d for d in target_dims if d not in dims]
+    if missing:
+        data = data.reshape(tuple(data.shape) + (1,) * len(missing))
+        dims = tuple(dims) + tuple(missing)
+    order = [dims.index(d) for d in target_dims]
+    if order != list(range(len(order))):
+        data = data.permute(*order) if isinstance(data, torch.Tensor) \
+            else np.transpose(data, order)
+    return data
+
+
+def _operand(value, like):
+    """A numpy array as a tensor on ``like``'s device (scalars and
+    tensors pass through)."""
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value, device=like.device)
+    return value
+
+
 def to_numpy(data):
     if isinstance(data, torch.Tensor):
         return data.detach().cpu().numpy()
@@ -134,18 +156,85 @@ class Variable:
             else np.transpose(self.data, order)
         return Variable(dims, data, self.attrs)
 
+    def squeeze(self, dim=None):
+        if dim is not None and dim not in self.dims:
+            raise KeyError('cannot squeeze unknown dim %r (dims %r)'
+                           % (dim, self.dims))
+        dims = []
+        key = []
+        for d, s in zip(self.dims, self.shape):
+            if (dim is None and s == 1) or d == dim:
+                if s != 1:
+                    raise ValueError('cannot squeeze dim %r of size %d'
+                                     % (d, s))
+                key.append(0)
+            else:
+                key.append(slice(None))
+                dims.append(d)
+        return Variable(tuple(dims), self.data[tuple(key)], self.attrs)
+
+    def expand_dims(self, dim, axis=0):
+        # a negative axis appends as in numpy (-1 is the end), where
+        # list.insert(-1, ...) would insert before the last entry
+        if axis < 0:
+            axis = self.ndim + 1 + axis
+        data = self.data.unsqueeze(axis) \
+            if isinstance(self.data, torch.Tensor) \
+            else np.expand_dims(self.data, axis)
+        dims = list(self.dims)
+        dims.insert(axis, dim)
+        return Variable(tuple(dims), data, self.attrs)
+
     def broadcast_to(self, target_dims, target_shape):
-        missing = [d for d in target_dims if d not in self.dims]
-        data = self.data.reshape(tuple(self.data.shape) + (1,) * len(missing))
-        dims = self.dims + tuple(missing)
-        order = [dims.index(d) for d in target_dims]
-        if isinstance(data, torch.Tensor):
-            return Variable(tuple(target_dims),
-                            data.permute(*order).expand(*target_shape),
-                            self.attrs)
-        return Variable(tuple(target_dims),
-                        np.broadcast_to(np.transpose(data, order),
-                                        tuple(target_shape)), self.attrs)
+        data = _expand_dims_to(self.data, self.dims, target_dims)
+        data = data.expand(*target_shape) \
+            if isinstance(data, torch.Tensor) \
+            else np.broadcast_to(data, tuple(target_shape))
+        return Variable(tuple(target_dims), data, self.attrs)
+
+    # -- arithmetic ---------------------------------------------------------
+    def _binary_op(self, other, op, reflexive=False):
+        """``op`` elementwise; against a Variable aligned by dimension
+        name (the union of dims, self's first; size-1 axes broadcast)."""
+        if isinstance(other, Variable):
+            out_dims = list(self.dims)
+            for d in other.dims:
+                if d not in out_dims:
+                    out_dims.append(d)
+            sizes = dict(zip(self.dims, self.shape))
+            for d, s in zip(other.dims, other.shape):
+                if sizes.get(d, s) not in (s, 1) and s != 1:
+                    raise ValueError('conflicting size for dim %r' % d)
+            a = _expand_dims_to(self.data, self.dims, out_dims)
+            b = _expand_dims_to(other.data, other.dims, out_dims)
+            data = op(b, a) if reflexive else op(a, b)
+            return Variable(tuple(out_dims), data)
+        other = _operand(other, self.data)
+        data = op(other, self.data) if reflexive else op(self.data, other)
+        return Variable(self.dims, data)
+
+    # -- reductions ----------------------------------------------------------
+    def reduce(self, func, dim=None, **kwargs):
+        """``func(data, dim=axes, **kwargs)`` over the named dims (all
+        of them for ``None``); ``axes`` is None, an int or a tuple."""
+        if dim is None:
+            axes = None
+            dims = ()
+        else:
+            if isinstance(dim, str):
+                dim = (dim,)
+            axes = tuple(self.dims.index(d) for d in dim)
+            dims = tuple(d for d in self.dims if d not in dim)
+            if len(axes) == 1:
+                axes = axes[0]
+        data = func(self.data, dim=axes, **kwargs)
+        # keepdims-style reducers preserve rank; otherwise trust `dims`
+        if data.ndim == self.ndim:
+            dims = self.dims
+        elif data.ndim != len(dims):
+            raise ValueError('reduction produced rank %d, expected %d'
+                             % (data.ndim, len(dims)))
+        return Variable(dims, data)
 
     def __repr__(self):
         return '<nd_tpu_torch.Variable %r %s %s>' % (

@@ -36,8 +36,10 @@ import numpy as np
 import torch
 
 from ..core.variable import as_tensor
+from .stats import chi2_cdf
 
-__all__ = ['omnibus_rho', 'omnibus_thresholds', 'decision_tables',
+__all__ = ['omnibus_probabilities', 'omnibus_rho', 'omnibus_thresholds',
+           'decision_tables',
            'change_detection', 'change_detection_plain',
            'change_detection_exact', 'pack_flags']
 
@@ -49,6 +51,49 @@ def omnibus_rho(j, n):
     j = np.asarray(j, np.float64)
     return 1 - (2 * _P ** 2 - 1) / (6 * (j - 1) * _P) \
         * (j / n - 1 / (n * j))
+
+
+def _window_probability(csum, logdet, negcnt, j, n, dtype):
+    """Omnibus probability for windows of length ``j`` given interval
+    sums. All arguments broadcast; ``j`` is a float or a tensor. The
+    coefficients of a scalar ``j`` are 0-d CPU tensors of ``dtype``, so
+    they round as the JAX package's 0-d arrays do and ride into the
+    device's kernels as scalars."""
+    c11, c12r, c12i, c22 = csum
+    det_of_sum = c11 * c22 - c12r ** 2 - c12i ** 2
+    k = torch.as_tensor(j, dtype=dtype)
+    log_prod = torch.where(negcnt % 2 == 0, logdet, float('nan'))
+    logQ = n * (_P * k * torch.log(k) + log_prod
+                - k * torch.log(det_of_sum))
+    rho = 1 - (2 * _P ** 2 - 1) / (6 * (k - 1) * _P) \
+        * (k / n - 1 / (n * k))
+    z = -2 * rho * logQ
+    f = (k - 1) * _P ** 2
+    omega2 = (_P ** 2 * (_P ** 2 - 1) / (24 * rho ** 2)
+              * (k / n ** 2 - 1 / (n * k) ** 2)
+              - _P ** 2 * (k - 1) / 4 * (1 - 1 / rho) ** 2)
+    P1 = chi2_cdf(z, f)
+    P2 = chi2_cdf(z, f + 4)
+    return P1 + omega2 * (P2 - P1)
+
+
+def omnibus_probabilities(values, n=1, device=None):
+    """Omnibus probability of the full series per pixel.
+
+    values: (..., time, 4) -> probability (...,), in ``values``' dtype
+    and on its device (numpy input lands on ``device``, by default
+    ``cuda``). A negative product of determinants, or a negative
+    determinant of the sum, gives NaN, as in the JAX package.
+    """
+    values = as_tensor(values, device)
+    k = values.shape[-2]
+    dets = (values[..., 0] * values[..., 3]
+            - values[..., 1] ** 2 - values[..., 2] ** 2)
+    csum = tuple(values[..., c].sum(dim=-1) for c in range(4))
+    logdet = torch.log(dets.abs()).sum(dim=-1)
+    negcnt = (dets < 0).to(torch.int32).sum(dim=-1)
+    return _window_probability(csum, logdet, negcnt, float(k), float(n),
+                               values.dtype)
 
 
 def omnibus_thresholds(k, n, alpha):

@@ -4,19 +4,21 @@ Counterpart of the generators and assertions of ``nd_tpu/testing.py``:
 the same ``np.random.RandomState`` draws in the same order, so one seed
 gives the same cube (values, coordinates and geo metadata) in both
 packages. The numeric arrays land on ``device`` (default ``cuda``, as
-everywhere in the port). The polygon helpers wait for the vector module
-(ROADMAP item 12).
+everywhere in the port). ``create_mock_classes`` builds the two-class
+cube of the classifier tests. The polygon helpers wait for the vector
+module (ROADMAP item 12).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core import DataArray, Dataset
 from .crs import CRS, Affine
 
 __all__ = ['generate_test_dataset', 'generate_test_dataarray',
-           'assert_equal_data', 'assert_equal_crs']
+           'create_mock_classes', 'assert_equal_data', 'assert_equal_crs']
 
 
 def _geo_attrs(extent, nx, ny, crs):
@@ -97,6 +99,28 @@ def generate_test_dataarray(dims={'y': 20, 'x': 20, 'time': 10},
     da = ds[name]
     da.attrs.update(ds.attrs)
     return da
+
+
+def create_mock_classes(dims={'y': 50, 'x': 50, 'time': 10},
+                        device=None):
+    """Two-class separable mock data for classification tests: the
+    cube of :func:`generate_test_dataset` with 10 added to the top half
+    of the rows, and its (y, x) labels (2 there, 1 elsewhere), both on
+    ``device``."""
+    ds = generate_test_dataset(dims=dims, device=device)
+    ny = dims['y']
+    data0 = ds[next(iter(ds.data_vars))].data
+    labels_arr = torch.ones((dims['y'], dims['x']), dtype=torch.float64,
+                            device=data0.device)
+    labels_arr[:ny // 2, :] = 2
+    labels = DataArray(labels_arr, dims=('y', 'x'),
+                       coords={'y': ds._coords['y'], 'x': ds._coords['x']})
+    upper = labels_arr == 2
+    for v in ds.data_vars:
+        data = ds[v].data.clone()
+        data[upper] += 10
+        ds[v] = (ds[v].dims, data)
+    return ds, labels
 
 
 def assert_equal_data(ds1, ds2, rtol=1e-7, atol=0):

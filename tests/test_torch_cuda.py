@@ -23,7 +23,14 @@ mismatch rate <= 1e-5 for 'float32'; the streaming probe exactly x + 1;
 the georeferencing layer against the same port functions on the CPU:
 gathers and matmuls rtol 1e-5, atol 1e-6 (the matmul also within 1e-5
 of the float64 product with TF32 switched on by the caller), nearest
-exact, the footprint median rtol 1e-6, coregistration shifts equal.
+exact, the footprint median rtol 1e-6, coregistration shifts equal;
+the training path against the CPU: change probabilities atol 2e-5
+(float32: z rounds in float32 with the card's log and fused
+multiply-adds; 5.7e-6 measured) and 1e-9 (float64: the card's
+incomplete gamma function differs from the CPU's by about 4e-10),
+chi-square CDFs atol 5e-6 and 1e-9, features rtol 1e-5 /
+atol 1e-5, losses rtol 1e-5, head and classifier parameters rtol 1e-4 /
+atol 1e-6, predictions equal, checkpoints bit for bit.
 """
 
 import ctypes
@@ -971,3 +978,157 @@ def test_coregistration_on_the_card_matches_cpu(cuda):
         assert out[v].data.device.type == 'cuda'
         torch.testing.assert_close(out[v].data.cpu(), want[v].data,
                                    rtol=1e-5, atol=1e-6)
+
+
+# -- the training path, the classifiers and checkpoints -------------------------
+
+def _train_cube(ny=48, nx=40, k=6, seed=61):
+    cube = sar_cube(ny, nx, k, seed=seed, special=False)
+    labels = ((np.arange(ny)[:, None] // 4 + np.arange(nx)[None, :] // 5)
+              % 2).astype(np.int32)
+    labels[:2] = -1
+    return cube, labels
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_change_statistics_on_the_card_match_the_cpu(cuda, dtype):
+    from nd_tpu_torch.ops.change import omnibus_probabilities
+    from nd_tpu_torch.ops.stats import chi2_cdf
+    cube = torch.from_numpy(sar_cube(33, 47, 12, seed=62,
+                                     special=True)).to(dtype)
+    f32 = dtype == torch.float32
+    got = omnibus_probabilities(cube.to(cuda), n=9)
+    ref = omnibus_probabilities(cube, n=9)
+    assert got.device.type == 'cuda' and got.dtype == dtype
+    torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                               atol=2e-5 if f32 else 1e-9, equal_nan=True)
+    x = torch.linspace(-2, 120, 4001, dtype=dtype)
+    x[7] = float('nan')
+    for df in (4, 44, 48, 100):
+        torch.testing.assert_close(chi2_cdf(x.to(cuda), df).cpu(),
+                                   chi2_cdf(x, df), rtol=0,
+                                   atol=5e-6 if f32 else 1e-9,
+                                   equal_nan=True)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Five steps from the same initial parameters: losses rtol 1e-5,
+    parameters rtol 1e-4 / atol 1e-6, first-step features rtol 1e-5 /
+    atol 1e-5; one sepconv launch per step and no other kernel."""
+    cube, labels = _train_cube()
+    model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9, lr=0.05)
+    p_card = model.init_params(seed=0)
+    p_cpu = model.init_params(seed=0, device='cpu')
+    assert p_card['w'].device.type == 'cuda'
+    assert torch.equal(p_card['w'].cpu(), p_cpu['w'])
+    feats = model.features(ndt.multilook(torch.from_numpy(cube).to(cuda), 3))
+    torch.testing.assert_close(
+        feats.cpu(), model.features(ndt.multilook(torch.from_numpy(cube),
+                                                  3)), rtol=1e-5, atol=1e-5)
+    counts = {m: m.launches for m in (conv_cuda, nlmeans_cuda, change_cuda,
+                                      change_mixed_cuda, change_scan_cuda)}
+    for _ in range(5):
+        p_card, l_card = model.train_step(p_card, cube, labels)
+        p_cpu, l_cpu = model.train_step(p_cpu, torch.from_numpy(cube),
+                                        torch.from_numpy(labels))
+        assert l_card.device.type == 'cuda' and bool(torch.isfinite(l_card))
+        torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=0)
+    assert conv_cuda.launches == counts[conv_cuda] + 5
+    assert all(m.launches == n for m, n in counts.items() if m is not conv_cuda)
+    for k in ('w', 'b'):
+        assert p_card[k].device.type == 'cuda'
+        torch.testing.assert_close(p_card[k].cpu(), p_cpu[k], rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_masked_labels_never_reach_one_hot(cuda, monkeypatch):
+    import torch.nn.functional as F
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('F.one_hot was called')
+    monkeypatch.setattr(F, 'one_hot', refuse)
+    monkeypatch.setattr(torch.nn.functional, 'one_hot', refuse)
+    cube, labels = _train_cube(24, 24)
+    labels[:, :5] = -1
+    model = ndt.SARChangePipeline(n_classes=3)
+    params, loss = model.train_step(model.init_params(), cube, labels)
+    assert bool(torch.isfinite(loss))
+    assert float(model.loss(params, ndt.multilook(
+        torch.from_numpy(cube).to(cuda), 3),
+        np.full(labels.shape, -1, np.int32))) == 0.0
+    from nd_tpu_torch.testing import create_mock_classes
+    ds, lab = create_mock_classes(dims={'y': 20, 'x': 20, 'time': 3})
+    pred = ndt.TorchClassifier(epochs=3).fit_predict(ds, lab)
+    assert pred.data.device.type == 'cuda'
+
+
+def test_torch_classifier_on_the_card_matches_the_cpu(cuda):
+    from nd_tpu_torch.testing import create_mock_classes
+    dims = {'y': 40, 'x': 36, 'time': 4}
+    results = []
+    for dev in (cuda, 'cpu'):
+        ds, labels = create_mock_classes(dims=dims, device=dev)
+        c = ndt.TorchClassifier(hidden=(16,), epochs=10, lr=0.05)
+        c.fit(ds, labels)
+        pred = c.predict(ds)
+        proba = c.predict(ds, func='predict_proba')
+        assert pred.data.device.type == torch.device(dev).type
+        assert all(a.device.type == torch.device(dev).type
+                   for pair in c.params for a in pair)
+        results.append((c.params, pred.values, proba.values))
+    (p_card, pred_card, pr_card), (p_cpu, pred_cpu, pr_cpu) = results
+    for (wc, bc), (wh, bh) in zip(p_card, p_cpu):
+        torch.testing.assert_close(wc.cpu(), wh, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(bc.cpu(), bh, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(pred_card, pred_cpu)
+    np.testing.assert_allclose(pr_card, pr_cpu, rtol=1e-4, atol=1e-6)
+
+
+def test_data_model_results_stay_on_the_card(cuda):
+    from nd_tpu_torch.classify import _build_X, class_mean
+    from nd_tpu_torch.testing import create_mock_classes
+    ds, labels = create_mock_classes(dims={'y': 10, 'x': 12, 'time': 3})
+    da = ds['C11']
+    cond = ds['C22'].mean('time') > 0
+    outs = [da + 1, 2 - da, da / ds['C22'], da ** 2, da % 3, da > cond,
+            (da > 0) & (da < 5), -da, abs(da), ~(da > 0), da.where(cond),
+            da.where(cond, ds['C22']), da.isnull(), da.notnull(),
+            da.mean(), da.std('time'), da.var(('y', 'x')), da.min('x'),
+            da.max(), da.sum('time'), da.count(), da.expand_dims('band'),
+            da.mean('time').expand_dims('time').squeeze()]
+    outs += [ds[v] for d in (ds + 1, ds * da, ds.where(cond), ds.isnull(),
+                             ds.mean('time'), ds.std(), ds.count(),
+                             ds.expand_dims('band').squeeze(),
+                             class_mean(ds, labels))
+             for v in d.data_vars]
+    assert all(o.data.device.type == 'cuda' for o in outs)
+    assert _build_X(ds).device.type == 'cuda'
+    assert labels.data.device.type == 'cuda'
+
+
+def test_checkpoints_round_trip_onto_the_card(cuda, tmp_path):
+    from nd_tpu_torch.models.checkpoint import (Checkpointer, load_params,
+                                                save_params)
+    model = ndt.SARChangePipeline(n_classes=3)
+    params = model.init_params(seed=2)
+    path = str(tmp_path / 'p.npz')
+    save_params(params, path)
+    got = load_params(path, like=model.init_params(seed=9))
+    assert all(got[k].device.type == 'cuda' and torch.equal(got[k],
+                                                            params[k])
+               for k in params)
+    pairs = [(torch.randn(4, 3, device=cuda), torch.zeros(3, device=cuda))]
+    save_params(pairs, path)
+    flat = load_params(path)
+    assert [t.device.type for t in flat] == ['cuda', 'cuda']
+    assert torch.equal(flat[0], pairs[0][0])
+    ck = Checkpointer(str(tmp_path / 'ck'), max_to_keep=2)
+    for step in range(3):
+        ck.save(step, {'w': params['w'] + step, 'b': params['b']})
+    assert ck.latest_step() == 2
+    back = ck.restore(like=params)
+    assert back['w'].device.type == 'cuda'
+    assert torch.equal(back['w'], params['w'] + 2)
+    assert sorted(os.listdir(str(tmp_path / 'ck'))) == ['step_1.npz',
+                                                        'step_2.npz']
+    ck.close()

@@ -3,6 +3,9 @@ default, as the JAX package puts it on its accelerator, and on the CPU
 only when the caller passes ``device='cpu'``. Without a card the default
 raises PyTorch's own error; nothing falls back to the CPU."""
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +17,9 @@ from nd_tpu_torch.ops import change_cuda, change_scan_cuda
 from nd_tpu_torch.ops import conv as tconv
 from nd_tpu_torch.ops import fft as tfft
 from nd_tpu_torch.ops import nlmeans as tnlmeans
-from nd_tpu_torch.testing import generate_test_dataset
+from nd_tpu_torch.models import change_features, load_params
+from nd_tpu_torch.ops.stats import chi2_cdf
+from nd_tpu_torch.testing import create_mock_classes, generate_test_dataset
 from nd_tpu_torch.utils import as_tensor
 from torch_cubes import long_stack_cube, sar_cube
 
@@ -71,7 +76,29 @@ ENTRY_POINTS = {
         _small()[..., 0].transpose(2, 0, 1), np.zeros((3, 2)), **kw)],
     'translate': lambda **kw: [tfft.translate(_small()[..., 0, 0],
                                               (0.5, 1.0), **kw)],
+    'chi2_cdf': lambda **kw: [chi2_cdf(np.array([0.5, 3.0]), 4, **kw)],
+    'omnibus_probabilities': lambda **kw: [tchange.omnibus_probabilities(
+        sar_cube(4, 5, 6, seed=58, special=False), n=9, **kw)],
+    'change_features': lambda **kw: [change_features(
+        sar_cube(4, 5, 6, seed=59, special=False), n=9, **kw)],
+    'init_params': lambda **kw: list(
+        ndt.SARChangePipeline().init_params(**kw).values()),
+    'params_from_jax': lambda **kw: list(
+        ndt.SARChangePipeline().params_from_jax(
+            {'w': np.zeros((7, 2), np.float32),
+             'b': np.zeros(2, np.float32)}, **kw).values()),
+    'load_params': lambda **kw: _saved_and_loaded(**kw),
+    'create_mock_classes': lambda **kw: (lambda ds, labels: [
+        ds['C11'].data, labels.data])(*create_mock_classes(
+            dims={'y': 4, 'x': 5, 'time': 2}, **kw)),
 }
+
+
+def _saved_and_loaded(**kw):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'p.npz')
+        np.savez(path, arr_0=np.ones(3), arr_1=np.zeros((2, 2)))
+        return load_params(path, **kw)
 
 
 @pytest.mark.parametrize('name', sorted(ENTRY_POINTS))
