@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive nd_tpu_torch's SAR change paths, its georeferencing path and
-its training path once on one CUDA device.
+"""Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
+training path and its dated-stack path once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -161,6 +161,39 @@ same port calls on the CPU):
      ``Checkpointer(max_to_keep=2)`` over three saves keeps steps 1 and
      2, ``latest_step()`` is 2 and ``restore`` is equal.
 
+and the dated stack (the long stack with a time coordinate of 56 dates
+at a 6-day revisit from 2023-01-03 and 2% of its samples set to NaN by
+the seed):
+
+ S1. the stencil kernel (non-separable kernels) against its plain
+     version, max abs diff 0 in every mode (reflect, nearest, mirror,
+     wrap, constant with cval 0 and 1.5): a 5 x 5 disk (21 taps) over
+     (y, x) of the bench cube, the 27-point Laplacian over (y, x, time)
+     of the long stack's C11, the disk in float64 on 256 x 256 x 12 x 4,
+     a random 3 x 4 x 2 kernel on a ragged 37 x 53 x 7, a 181 x 181
+     kernel (the direct route); a four-axis kernel against the CPU; the
+     disk and the Laplacian timed beside their bound and cuDNN's
+     depthwise conv2d/conv3d of the padded tensor (TF32 off), which the
+     port never calls;
+ S2. ``njobs=4`` against ``njobs=1``, bit for bit, and 4 x a single
+     chunk's launches: the disk ConvolutionFilter on the bench cube
+     (split along time, halo 0), the Laplacian over (y, x, time) of C11
+     (split along y, halo 1), NLMeansFilter(r=2, f=1) on the bench cube;
+ S3. ``interpolate_na(dim='time')`` -> ``resample(time='1MS').mean()`` ->
+     the disk ConvolutionFilter -> ``OmnibusTest(ml=3, alpha=0.99)`` with
+     ``import pandas`` blocked, counted: 0 change-map mismatches against
+     the plain float64 'mixed' scan of the same composites, the
+     composites within rtol 1e-6, atol 1e-6 of the CPU's on 64 rows;
+ S4. ``quantile(0.9)``, ``median``, ``rolling(time=3, center=True)
+     .median()``, ``coarsen(time=4).mean()``, ``groupby('time.month')
+     .mean()``, ``weighted(w).mean('time')`` of the dated C11 (58.7 M
+     elements), each within rtol 1e-6, atol 1e-6 of the CPU's on 64 rows,
+     timed;
+ S5. ``ds.nd.apply(fn, signature='(time,var)->(time)')`` on the
+     composites (the span C11 + C22 over its temporal mean): the vmap
+     route ran, and its result equals the same expression on the same
+     stacked tensor bit for bit.
+
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
 max abs error, ms, plain ms, bound ms and what sets it, library ms or
@@ -217,6 +250,10 @@ KERNELS = {
                      'conv_cuda', 'launches_long'),
     'nlmeans_wide': ('nd_tpu_torch/csrc/nlmeans.cu', 'nd_tpu/ops/nlmeans.py:46',
                      'nlmeans_cuda', 'launches_wide'),
+    # the reference runs non-separable kernels through XLA's convolution
+    # (no Pallas kernel); the port's own stencil
+    'stencil': ('nd_tpu_torch/csrc/stencil.cu', 'nd_tpu/ops/conv.py:123',
+                'stencil_cuda', 'launches'),
 }
 
 
@@ -894,6 +931,371 @@ def run_training_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return counts_t1
 
 
+# ---- S1-S5: the dated stack ---------------------------------------------------
+
+S_NAN = 0.02                # no-data share of the dated stack (seeded)
+S_SLAB = 64                 # rows held against the CPU in S3 and S4
+S_MODES = (('reflect', 0.0), ('nearest', 0.0), ('mirror', 0.0),
+           ('wrap', 0.0), ('constant', 0.0), ('constant', 1.5))
+DISK = np.array([[1.0 if i * i + j * j <= 5 else 0.0 for j in range(-2, 3)]
+                 for i in range(-2, 3)]) / 21.0      # 21 taps, rank > 1
+LAPLACE27 = -np.ones((3, 3, 3))                      # the 27-point Laplacian
+LAPLACE27[1, 1, 1] = 26.0
+
+
+def stencil_bound(x, taps):
+    """Each element read once and written once; per output one product
+    per tap and an add per tap after the first (zero taps included)."""
+    return bound(2 * x.numel() * x.element_size(),
+                 x.numel() * (2 * taps - 1))
+
+
+def run_series_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                      cube, stack, box_taps, row_ms, err):
+    """S1-S5: the stencil kernel against its plain version (every mode)
+    with its time, bound and cuDNN yardstick; ``njobs=4`` against
+    ``njobs=1`` on the card, counted; the time-series chain on a dated
+    one-year stack with 2% no-data (gap filling, monthly composites, the
+    disk filter, the change test), with pandas blocked; the grouped
+    reductions at full width; ``ds.nd.apply`` on the composites. Returns
+    the launches of S2's and S3's runs."""
+    import torch
+    import torch.nn.functional as F
+    from nd_tpu_torch import utils
+    from nd_tpu_torch.core import DataArray, Dataset
+    from nd_tpu_torch.ops import conv_cuda, nlmeans_cuda, stencil_cuda
+    from nd_tpu_torch.ops.change import change_detection_plain
+    from nd_tpu_torch.ops.conv import convolve, pad_reflect
+
+    names = ('C11', 'C12__re', 'C12__im', 'C22')
+    cpu = torch.device('cpu')
+
+    def timed(label, key, kern, plain, bnd, lib):
+        """plain, kernel, kernel, plain (median of 7 after 2 warm-ups
+        each); the yardstick after them."""
+        p1 = cuda_ms(plain)
+        k1 = cuda_ms(kern)
+        k2 = cuda_ms(kern)
+        p2 = cuda_ms(plain)
+        k_ms, p_ms = min(k1, k2), min(p1, p2)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        phase('S1', '%-34s kernel %.3f ms | plain %.3f ms | x%.2f | bound '
+              '%.3f ms (%s), %.1f%% of it | cuDNN (TF32 off) %s | %s'
+              % (label, k_ms, p_ms, p_ms / k_ms, bnd[0], bnd[1],
+                 100.0 * bnd[0] / k_ms,
+                 'not timed' if lib_ms is None else '%.3f ms' % lib_ms,
+                 card))
+        if key:
+            row_ms[key] = {'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': bnd[0],
+                           'bound_by': bnd[1], 'library_ms': lib_ms}
+
+    # ---- S1: the stencil kernel against its plain version ------------------
+    t_s = time.perf_counter()
+    rng = np.random.RandomState(SEED + 11)
+    bench = cube.reshape(1, NY, NX, 1, K * 4)               # (y, x) of 4 vars
+    c11 = stack[..., 0].contiguous()                        # (y, x, t)
+    long5 = c11.reshape(1, NY, NX, KL, 1)
+    f64 = torch.from_numpy(make_cube(256, 256, K, seed=SEED + 12)).to(
+        dev).double()
+    f64 = f64.reshape(1, f64.shape[0], f64.shape[1], 1, -1)
+    ragged = torch.from_numpy(rng.rand(1, 37, 53, 7, 1).astype(
+        np.float32)).to(dev)
+    disk3 = np.flip(DISK)[:, :, None]                       # flipped, k2 = 1
+
+    def stacked(c, k):
+        """The view ConvolutionFilter launches for a Dataset of the four
+        variables over (y, x): (variable, y, x, 1, time)."""
+        return c[:, :, :k].permute(3, 0, 1, 2).contiguous().reshape(
+            4, NY, NX, 1, k)
+
+    comp11 = stacked(stack, 11)              # S3's launch: 11 composites
+    cases = [('disk (y,x) stacked 4x1024x1024x11 (S3)', comp11, disk3),
+             ('disk (y,x) stacked 4x1024x1024x12 (S2)', stacked(cube, K),
+              disk3),
+             ('disk (y,x) stacked 4x1024x1024x3 (S2 chunk)',
+              stacked(cube, K // 4), disk3),
+             ('disk (y,x) bench 1024x1024x12x4', bench, disk3),
+             ('Laplace27 (y,x,t) C11 1024x1024x56', long5,
+              np.flip(LAPLACE27)),
+             ('disk float64 256x256x12x4', f64, disk3),
+             ('random 3x4x2 ragged 37x53x7', ragged, rng.rand(3, 4, 2)),
+             ('181x181 direct route 4x96x96x4', torch.from_numpy(
+                 rng.rand(4, 96, 96, 1, 4).astype(np.float32)).to(dev),
+              rng.rand(181, 181, 1))]
+    worst = 0.0
+    for label, x, k in cases:
+        tiled = stencil_cuda.stencil_tiled(*x.shape[1:], *k.shape,
+                                           x.element_size())
+        check(tiled == (k.shape[0] < 100), 'stencil route', label, tiled)
+        for mode, cval in S_MODES:
+            got = stencil_cuda.stencil(x, k, mode, cval)
+            ref = stencil_cuda.stencil_plain(x, k, mode, cval)
+            torch.cuda.synchronize()
+            diff = float((got - ref).abs().max())
+            check(diff == 0 and bool(torch.isfinite(got).all()),
+                  'stencil', label, mode, cval, diff)
+            worst = max(worst, diff)
+        phase('S1', 'stencil %s (%s, %s): max abs diff 0 in modes %s'
+              % (label, 'tiled' if tiled else 'direct', x.dtype,
+                 ', '.join('%s(%g)' % m for m in S_MODES)))
+        del got, ref
+    # a kernel over four axes: sums of three-axis stencils, on the card
+    # against the same sums on the CPU
+    x4 = torch.from_numpy(rng.rand(64, 64, K, 4).astype(np.float32))
+    k4 = rng.rand(3, 2, 3, 2)
+    diff = float((convolve(x4.to(dev), k4, mode='wrap').cpu()
+                  - convolve(x4, k4, mode='wrap')).abs().max())
+    check(diff == 0, 'four-axis stencil', diff)
+    worst = max(worst, diff)
+    err['stencil'] = worst
+    phase('S1', 'four-axis kernel (3,2,3,2) on 64x64x12x4: max abs diff 0 '
+          'to the CPU')
+
+    def cudnn_2d(x5, k):
+        """cuDNN's depthwise conv2d of the already padded (outer, n0, n1,
+        1, inner) view as NHWC: the VALID part only."""
+        pads = [(0, 0)] + [((n - 1) // 2, n // 2) for n in k.shape[:2]] \
+            + [(0, 0)]
+        xin = pad_reflect(x5[:, :, :, 0], pads).permute(0, 3, 1, 2)
+        c = xin.shape[1]
+        w = torch.tensor(np.ascontiguousarray(k[:, :, 0]), dtype=x5.dtype,
+                         device=dev).expand(c, 1, *k.shape[:2]).contiguous()
+        return (lambda: F.conv2d(xin, w, groups=c),
+                lambda out: out.permute(0, 2, 3, 1)[:, :, :, None])
+
+    def cudnn_3d(x5, k):
+        pads = [((n - 1) // 2, n // 2) for n in k.shape]
+        xin = pad_reflect(x5[0, ..., 0], pads)[None, None]
+        w = torch.tensor(np.ascontiguousarray(k), dtype=x5.dtype,
+                         device=dev)[None, None]
+        return (lambda: F.conv3d(xin, w), lambda out: out[0, 0][None, ...,
+                                                                  None])
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, key, x, k, yard in (
+                ('stencil disk stacked composites', 'stencil', comp11,
+                 disk3, cudnn_2d),
+                ('stencil disk bench cube (y,x,48)', None, bench, disk3,
+                 cudnn_2d),
+                ('stencil Laplace27 long-stack C11', None, long5,
+                 np.flip(LAPLACE27), cudnn_3d)):
+            call, layout = yard(x, k)
+            got = stencil_cuda.stencil(x, k)
+            diff = float((layout(call()) - got).abs().max())
+            check(diff <= 1e-5 * float(x.abs().max())
+                  * float(np.abs(k).sum()), 'cuDNN yardstick', label, diff)
+            timed(label, key, lambda: stencil_cuda.stencil(x, k),
+                  lambda: stencil_cuda.stencil_plain(x, k),
+                  stencil_bound(x, int(np.prod(k.shape))), call)
+            del got
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del f64, ragged, cases, comp11
+    phase('S1', 'ran %.1f s' % (time.perf_counter() - t_s))
+
+    # ---- S2: njobs on the card, counted ---------------------------------
+    t_s = time.perf_counter()
+    ds_bench = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                        for i, v in enumerate(names)})
+    ds_c11 = Dataset({'C11': (('y', 'x', 'time'), c11)})
+    counts_s2 = []
+    for label, algo, ds in (
+            ('ConvolutionFilter disk (y,x) bench cube',
+             ndt.ConvolutionFilter(dims=('y', 'x'), kernel=DISK), ds_bench),
+            ('ConvolutionFilter Laplace27 (y,x,t) C11',
+             ndt.ConvolutionFilter(dims=('y', 'x', 'time'),
+                                   kernel=LAPLACE27), ds_c11),
+            ('NLMeansFilter r=2 f=1 bench cube',
+             ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3),
+             ds_bench)):
+        dim = algo._parallel_dimension(ds)
+        halo = algo._buffer(dim)
+        one = algo.apply(ds)
+        chunk = next(iter(utils.xr_split(ds, dim, 4, halo)))
+        reset_counts()
+        algo.apply(chunk)
+        torch.cuda.synchronize()
+        per_chunk = read_counts()
+        reset_counts()
+        four = algo.apply(ds, njobs=4)
+        torch.cuda.synchronize()
+        got_counts = read_counts()
+        counts_s2.append(got_counts)
+        check(all(got_counts[n] == 4 * per_chunk[n] for n in got_counts)
+              and sum(per_chunk.values()) > 0, 'njobs launches', label,
+              per_chunk, got_counts)
+        for v in one.data_vars:
+            check(torch.equal(one[v].data, four[v].data)
+                  and one[v].dims == four[v].dims, 'njobs=4', label, v)
+        phase('S2', '%s: njobs=4 (split along %s, halo %d) equals njobs=1 '
+              'bit for bit; launches %s (4 x a chunk\'s %s) | %s'
+              % (label, dim, halo,
+                 json.dumps({n: c for n, c in got_counts.items() if c}),
+                 json.dumps({n: c for n, c in per_chunk.items() if c}),
+                 card))
+        del one, four
+    del ds_bench, ds_c11
+    phase('S2', 'ran %.1f s' % (time.perf_counter() - t_s))
+
+    # ---- S3: the time-series chain at full width, counted -----------------
+    t_s = time.perf_counter()
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(KL) * np.timedelta64(6, 'D')
+    gaps = torch.from_numpy(np.random.RandomState(SEED + 13).rand(
+        NY, NX, KL) < S_NAN).to(dev)
+    dated = stack.clone()
+    dated[gaps] = float('nan')
+    del gaps
+    ds_dated = Dataset({v: (('y', 'x', 'time'), dated[..., i])
+                        for i, v in enumerate(names)},
+                       coords={'time': times})
+    disk_f = ndt.ConvolutionFilter(dims=('y', 'x'), kernel=DISK)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.99)
+    saved = sys.modules.get('pandas', False)
+    sys.modules['pandas'] = None            # the chain must not need it
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        filled = ds_dated.interpolate_na(dim='time')
+        comp = filled.resample(time='1MS').mean()
+        flt = disk_f.apply(comp)
+        change = omn.apply(flt)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        counts_s3 = read_counts()
+    finally:
+        if saved is False:
+            del sys.modules['pandas']
+        else:
+            sys.modules['pandas'] = saved
+    check(counts_s3['stencil'] > 0 and counts_s3['sepconv'] > 0
+          and counts_s3['omnibus'] > 0, 'S3 kernels', counts_s3)
+    ks = comp.sizes['time']
+    check(ks == 11 and comp['time'].values[0] == np.datetime64('2023-01-01')
+          and change.dims == ('y', 'x', 'time')
+          and tuple(change.data.shape) == (NY, NX, ks)
+          and change.data.device.type == 'cuda', 'S3 shapes', ks,
+          change.dims)
+    comp_all = torch.stack([comp[v].data for v in names], -1)
+    check(bool(torch.isfinite(comp_all).all()), 'S3 composites finite')
+    # the chain's stencil launch against its plain version on the same
+    # stacked composites
+    st = torch.stack([flt[v].data for v in names])          # (4, y, x, t)
+    check(all(flt[v].dims == comp[v].dims == ('y', 'x', 'time')
+              for v in names), 'S3 filter dims')
+    flt_ref = stencil_cuda.stencil_plain(
+        torch.stack([comp[v].data for v in names]).reshape(4, NY, NX, 1, ks),
+        disk3, 'reflect', 0.0)
+    flt_diff = float((st.reshape(flt_ref.shape) - flt_ref).abs().max())
+    check(flt_diff == 0, 'S3 filter vs stencil_plain', flt_diff)
+    err['stencil'] = max(err['stencil'], flt_diff)
+    del flt_ref
+    looked = conv_cuda.sepconv2_plain(st, box_taps[0], box_taps[1])
+    ref_change = change_detection_plain(
+        looked.permute(1, 2, 3, 0).contiguous(), 0.99, n=9)
+    mism = int((change.data != ref_change).sum())
+    check(mism == 0, 'S3 change-map mismatches', mism)
+    del st, looked, ref_change
+    # the composites held against the CPU on a slab
+    slab = Dataset({v: (('y', 'x', 'time'), dated[:S_SLAB, ..., i].cpu())
+                    for i, v in enumerate(names)}, coords={'time': times})
+    comp_cpu = slab.interpolate_na(dim='time').resample(time='1MS').mean()
+    worst = 0.0
+    for v in names:
+        ok, top = allclose(comp[v].data[:S_SLAB], comp_cpu[v].data, 1e-6,
+                           1e-6)
+        check(ok, 'S3 composites vs CPU', v, top)
+        worst = max(worst, top)
+    phase('S3', 'dated stack %s (%d dates from %s at a 6-day revisit, %.0f%% '
+          'no-data): interpolate_na -> resample(1MS).mean -> disk filter -> '
+          'OmnibusTest(ml=3, alpha=0.99), pandas blocked: %.3f s; %d '
+          'monthly composites; %d change-map mismatches vs the plain float64 '
+          "'mixed' scan; %d changes; filter vs stencil_plain on the stacked "
+          'composites: max abs diff %g; composites vs CPU on %d rows: max '
+          'abs diff %.3g (rtol 1e-6, atol 1e-6); launches %s | %s'
+          % (tuple(dated.shape), KL, times[0], 100 * S_NAN, chain_s, ks,
+             mism, int(change.data.sum()), flt_diff, S_SLAB, worst,
+             json.dumps({n: c for n, c in counts_s3.items() if c}), card))
+    steps = [('interpolate_na', lambda: ds_dated.interpolate_na(dim='time')),
+             ('resample(1MS).mean', lambda: filled.resample(
+                 time='1MS').mean()),
+             ('ConvolutionFilter disk', lambda: disk_f.apply(comp)),
+             ('OmnibusTest', lambda: omn.apply(flt))]
+    phase('S3', 'steps (CUDA events, median of 3 after 1 warm-up): %s | %s'
+          % (', '.join('%s %.3f ms' % (n, cuda_ms(fn, 3, 1))
+                       for n, fn in steps), card))
+    del filled, flt, change, comp_all, slab, comp_cpu
+    phase('S3', 'ran %.1f s' % (time.perf_counter() - t_s))
+
+    # ---- S4: grouped reductions at full width --------------------------------
+    t_s = time.perf_counter()
+    c11_dated = ds_dated['C11']
+    check(c11_dated.size > 2 ** 24, 'S4 input size', c11_dated.size)
+    w = DataArray(np.linspace(1.0, 2.0, KL).astype(np.float32),
+                  dims=('time',), device=dev)
+    c11_slab = DataArray(c11_dated.data[:S_SLAB].cpu(),
+                         dims=('y', 'x', 'time'), coords={'time': times},
+                         name='C11')
+    w_cpu = DataArray(w.data.cpu(), dims=('time',))
+    calls = [('quantile(0.9, time)', lambda d, w: d.quantile(0.9,
+                                                              dim='time')),
+             ('median(time)', lambda d, w: d.median('time')),
+             ('rolling(time=3, center).median',
+              lambda d, w: d.rolling(time=3, center=True).median()),
+             ('coarsen(time=4).mean', lambda d, w: d.coarsen(time=4).mean()),
+             ('groupby(time.month).mean',
+              lambda d, w: d.groupby('time.month').mean()),
+             ('weighted(w).mean(time)',
+              lambda d, w: d.weighted(w).mean('time'))]
+    for label, fn in calls:
+        got = fn(c11_dated, w)
+        ref = fn(c11_slab, w_cpu)
+        check(got.dims == ref.dims and got.data.device.type == 'cuda',
+              'S4 dims', label, got.dims, ref.dims)
+        ok, top = allclose(got.isel(y=slice(0, S_SLAB)).data, ref.data,
+                           1e-6, 1e-6)
+        check(ok, 'S4 vs CPU', label, top)
+        ms = cuda_ms(lambda: fn(c11_dated, w), 3, 1)
+        phase('S4', '%-32s %s -> %s: %.3f ms (median of 3 after 1); vs CPU '
+              'on %d rows max abs diff %.3g (rtol 1e-6, atol 1e-6) | %s'
+              % (label, tuple(c11_dated.shape), tuple(got.shape), ms,
+                 S_SLAB, top, card))
+        del got, ref
+    phase('S4', 'quantile and median ran on the %d-element variable (past '
+          "torch.quantile's 2**24 limit); ran %.1f s"
+          % (c11_dated.size, time.perf_counter() - t_s))
+    del c11_dated, c11_slab, ds_dated, dated
+
+    # ---- S5: ds.nd.apply on the composites ------------------------------------
+    def span_ratio(x):
+        s = x[:, 0] + x[:, 3]
+        return s / s.mean(0)
+
+    before = dict(utils.routes)
+    got = comp.nd.apply(span_ratio, signature='(time,var)->(time)')
+    torch.cuda.synchronize()
+    check(utils.routes['vmap'] == before['vmap'] + 1
+          and utils.routes['host'] == before['host'], 'S5 route',
+          before, utils.routes)
+    stacked = comp.to_array('var').stack(z=('y', 'x')).transpose(
+        'z', 'time', 'var').data
+    s = stacked[:, :, 0] + stacked[:, :, 3]
+    direct = (s / s.mean(1, keepdim=True)).reshape(NY, NX, -1)
+    got = got.transpose('y', 'x', 'time')
+    diff = float((got.data - direct).abs().max())
+    check(diff == 0 and got.data.device.type == 'cuda', 'S5 apply', diff)
+    ms = cuda_ms(lambda: comp.nd.apply(span_ratio,
+                                       signature='(time,var)->(time)'), 3, 1)
+    phase('S5', "ds.nd.apply(span ratio, '(time,var)->(time)') on %s "
+          'composites: the vmap route ran (routes %s), equal bit for bit to '
+          'the direct expression; %.3f ms | %s'
+          % (tuple(comp['C11'].shape) + (len(names),),
+             json.dumps(utils.routes), ms, card))
+    return tuple(counts_s2) + (counts_s3,)
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -914,7 +1316,7 @@ def main():
     from nd_tpu_torch.core import Dataset
     from nd_tpu_torch.ops import (change_cuda, change_mixed_cuda,
                                   change_scan_cuda, conv_cuda, nlmeans_cuda,
-                                  stream_cuda)
+                                  stencil_cuda, stream_cuda)
     from nd_tpu_torch.ops.change import (change_detection_exact,
                                          change_detection_plain,
                                          decision_tables, pack_flags)
@@ -925,7 +1327,7 @@ def main():
                'change_cuda': change_cuda,
                'change_scan_cuda': change_scan_cuda,
                'change_mixed_cuda': change_mixed_cuda,
-               'stream_cuda': stream_cuda}
+               'stream_cuda': stream_cuda, 'stencil_cuda': stencil_cuda}
 
     def reset_counts():
         for mod in modules.values():
@@ -1838,10 +2240,16 @@ def main():
     counts_t1 = run_training_phases(ndt, dev, card, cuda_ms, reset_counts,
                                     read_counts, cube, t_labels)
 
+    # ---- S1-S5. the dated stack: stencil, njobs, the time-series chain,
+    # grouped reductions, apply
+    counts_s = run_series_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                 read_counts, cube, stack, box_taps, row_ms,
+                                 err)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5,
-                                          counts_t1))
+                                          counts_t1) + counts_s)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -16,6 +16,11 @@ was calibrated on such separately rounded arithmetic.
 
 ``ND_TPU_TORCH_NVCC`` names the compiler; otherwise ``nvcc`` on
 ``PATH``, then ``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``.
+
+Threads: ``njobs`` chunks call the wrappers from a thread pool. The
+build holds ``_lock`` from the check for the library to its load, so it
+runs once per process; the wrappers' launch counters and their
+check-then-set caches take ``state_lock`` (:func:`bump`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['library', 'function', 'check', 'build_info', 'NVCC_FLAGS']
+__all__ = ['library', 'function', 'check', 'build_info', 'bump',
+           'state_lock', 'NVCC_FLAGS']
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / 'csrc'
@@ -42,6 +48,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _lock = threading.Lock()
 _lib = None
 _info = {}
+# the wrappers' launch counters and check-then-set caches, shared by the
+# threads of an njobs pool
+state_lock = threading.Lock()
+
+
+def bump(counters, name):
+    """``counters[name] += 1`` under ``state_lock``: a wrapper passes its
+    module's ``globals()`` and its counter's name."""
+    with state_lock:
+        counters[name] += 1
 
 
 def _nvcc():
@@ -147,10 +163,14 @@ def function(name, signature):
     q long long, d double, f float); returns int (a cudaError_t)."""
     fn = _bound.get(name)
     if fn is None:
-        fn = getattr(library(), name)
-        fn.argtypes = [_CTYPES[c] for c in signature]
-        fn.restype = ctypes.c_int
-        _bound[name] = fn
+        lib = library()
+        with state_lock:
+            fn = _bound.get(name)
+            if fn is None:
+                fn = getattr(lib, name)
+                fn.argtypes = [_CTYPES[c] for c in signature]
+                fn.restype = ctypes.c_int
+                _bound[name] = fn
     return fn
 
 

@@ -116,7 +116,8 @@ class NDAccessor:
         return omnibus(self._obj, *args, **kwargs)
 
     def apply(self, fn, signature=None, njobs=1):
-        _not_ported('nd.apply (utils.apply)', 11)
+        from .utils import apply
+        return apply(self._obj, fn, signature=signature, njobs=njobs)
 
     def to_netcdf(self, path, *args, **kwargs):
         _not_ported('nd.to_netcdf (the I/O)', 13)
@@ -182,7 +183,7 @@ def _accessor_property(cls):
 def _patch_accessor_docs():
     """Copy signatures/docstrings from the functional API onto the
     accessor methods."""
-    from . import change, filters, io, warp
+    from . import change, filters, io, utils, warp
 
     pairs = [
         (NDAccessor, 'reproject', warp.reproject),
@@ -191,6 +192,7 @@ def _patch_accessor_docs():
         (NDAccessor, 'change_omnibus', change.omnibus),
         (NDAccessor, 'as_complex', io.assemble_complex),
         (NDAccessor, 'as_real', io.disassemble_complex),
+        (NDAccessor, 'apply', utils.apply),
         (FilterAccessor, 'nlmeans', filters.nlmeans),
         (FilterAccessor, 'boxcar', filters.boxcar),
         (FilterAccessor, 'convolve', filters.convolution),

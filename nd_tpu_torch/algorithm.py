@@ -1,8 +1,11 @@
 """Algorithm framework: the abstract base class of every datacube
 operation, the ``njobs`` decorator and the functional-wrapper factory.
 
-Counterpart of ``nd_tpu/algorithm.py``. Host-level chunking
-(``njobs != 1``) is not ported yet.
+Counterpart of ``nd_tpu/algorithm.py``. ``njobs != 1`` splits the
+Dataset along ``_parallel_dimension`` with the ``_buffer`` halo and maps
+the chunks over a thread pool (:func:`nd_tpu_torch.utils.parallel`):
+tensors on the card stay there, and every kernel wrapper is safe to call
+from several threads.
 """
 
 from __future__ import annotations
@@ -36,16 +39,21 @@ class Algorithm(ABC):
 def parallelize(func):
     """Decorator: give an ``apply`` method an ``njobs`` kwarg.
 
-    ``njobs == 1`` executes directly; other values raise until host
-    chunking is ported (ROADMAP item 11).
+    ``njobs == 1`` executes directly. Otherwise the dataset is split
+    along ``self._parallel_dimension(ds)`` into ``njobs`` chunks (-1: the
+    CPU count) with a ``self._buffer(dim)`` halo, mapped over threads,
+    trimmed and concatenated: the result equals the unsplit call.
     """
 
     def wrapper(self, ds, *args, njobs=1, **kwargs):
-        if njobs != 1:
-            raise NotImplementedError(
-                'njobs=%r: host-level chunking is not ported yet (ROADMAP '
-                'item 11); use njobs=1' % (njobs,))
-        return partial(func, self)(ds, *args, **kwargs)
+        method = partial(func, self)
+        if njobs == -1:
+            njobs = utils.ncpus()
+        if njobs == 1:
+            return method(ds, *args, **kwargs)
+        dim = self._parallel_dimension(ds)
+        return utils.parallel(method, dim=dim, chunks=njobs,
+                              buffer=self._buffer(dim))(ds, *args, **kwargs)
 
     sig_func = inspect.signature(func)
     sig_wrapper = inspect.signature(wrapper)
@@ -64,8 +72,9 @@ def parallelize(func):
         doc['Parameters'] = []
     doc['Parameters'].append(
         ['njobs : int, optional',
-         '    Number of chunks to process in parallel; only 1 (the',
-         '    default) is supported so far.'])
+         '    Number of chunks to process in parallel. -1 uses the',
+         '    number of available cores. njobs=1 disables chunking',
+         '    (default: 1).'])
     doc.setdefault('indent', 0)
     wrapper.__signature__ = sig
     wrapper.__doc__ = utils.assemble_docstring(doc, sig=sig)

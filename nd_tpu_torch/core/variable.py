@@ -35,7 +35,8 @@ def as_tensor(data, device=None):
         return data
     device = torch.device(DEFAULT_DEVICE if device is None else device)
     if device.type == 'cpu' and isinstance(data, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(data))   # no copy
+        # no copy (np.ascontiguousarray would make a 0-d array 1-d)
+        return torch.from_numpy(np.require(data, requirements='C'))
     return torch.as_tensor(np.asarray(data), device=device)
 
 
@@ -125,6 +126,10 @@ class Variable:
         return self.data.dtype
 
     @property
+    def size(self):
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
     def sizes(self):
         return dict(zip(self.dims, self.shape))
 
@@ -155,6 +160,62 @@ class Variable:
             if isinstance(self.data, torch.Tensor) \
             else np.transpose(self.data, order)
         return Variable(dims, data, self.attrs)
+
+    def isel(self, indexers):
+        """Integer, slice and array indexing by dimension name (one array
+        indexer at most; boolean arrays select their true positions).
+        Slices with a negative step and array indexers gather by index on
+        the data's device, after the basic indexing, so that an array
+        indexer never moves its axis."""
+        key = []
+        new_dims = []
+        adv = {}
+        for d, n in zip(self.dims, self.shape):
+            if d not in indexers:
+                key.append(slice(None))
+                new_dims.append(d)
+                continue
+            idx = indexers[d]
+            if isinstance(idx, slice) and (idx.step or 1) > 0:
+                key.append(idx)
+                new_dims.append(d)
+            elif isinstance(idx, slice):
+                key.append(slice(None))
+                new_dims.append(d)
+                adv[d] = np.ascontiguousarray(np.arange(n)[idx])
+            elif np.isscalar(idx) or np.ndim(to_numpy(idx)) == 0:
+                i = int(to_numpy(idx))
+                if not -n <= i < n:
+                    raise IndexError('index %d is out of bounds for dim %r '
+                                     'of size %d' % (i, d, n))
+                key.append(i)
+            else:
+                idx = to_numpy(idx)
+                if idx.dtype == bool:
+                    idx = np.nonzero(idx)[0]
+                idx = idx.astype(np.int64)
+                if idx.size and (idx.min() < -n or idx.max() >= n):
+                    raise IndexError('index out of bounds for dim %r of '
+                                     'size %d' % (d, n))
+                key.append(slice(None))
+                new_dims.append(d)
+                adv[d] = np.where(idx < 0, idx + n, idx)
+        if len(adv) > 1:
+            raise NotImplementedError(
+                'fancy indexing over multiple dims is not supported')
+        data = self.data[tuple(key)]
+        for d, idx in adv.items():
+            axis = new_dims.index(d)
+            if isinstance(data, torch.Tensor):
+                data = data.index_select(
+                    axis, torch.as_tensor(idx, device=data.device))
+            else:
+                data = np.take(data, idx, axis=axis)
+        return Variable(tuple(new_dims), data, self.attrs)
+
+    def rename_dims(self, mapping):
+        return Variable(tuple(mapping.get(d, d) for d in self.dims),
+                        self.data, self.attrs)
 
     def squeeze(self, dim=None):
         if dim is not None and dim not in self.dims:
@@ -187,7 +248,7 @@ class Variable:
 
     def broadcast_to(self, target_dims, target_shape):
         data = _expand_dims_to(self.data, self.dims, target_dims)
-        data = data.expand(*target_shape) \
+        data = data.expand(tuple(target_shape)) \
             if isinstance(data, torch.Tensor) \
             else np.broadcast_to(data, tuple(target_shape))
         return Variable(tuple(target_dims), data, self.attrs)
@@ -235,6 +296,19 @@ class Variable:
             raise ValueError('reduction produced rank %d, expected %d'
                              % (data.ndim, len(dims)))
         return Variable(dims, data)
+
+    # scalar conversion (works on any size-1 array)
+    def __bool__(self):
+        return bool(self.values)
+
+    def __float__(self):
+        return float(self.values)
+
+    def __int__(self):
+        return int(self.values)
+
+    def __complex__(self):
+        return complex(self.values)
 
     def __repr__(self):
         return '<nd_tpu_torch.Variable %r %s %s>' % (

@@ -1,8 +1,9 @@
-// Staging a block's series through shared memory, shared by the omnibus
-// kernels that own P consecutive pixels per block (omnibus_scan.cu,
-// omnibus.cu): coalesced 16-byte cp.async copies of T-step chunks into
-// rows of an odd stride, so that a warp's float4 reads of one step
-// across 32 pixels are free of bank conflicts.
+// Staging a block's input through shared memory. The omnibus kernels that
+// own P consecutive pixels per block (omnibus_scan.cu, omnibus.cu) copy
+// T-step chunks with coalesced 16-byte cp.async copies into rows of an
+// odd stride, so that a warp's float4 reads of one step across 32 pixels
+// are free of bank conflicts; the stencil (stencil.cu) copies its halo box
+// one element at a time (cp_async_elem).
 
 #pragma once
 
@@ -13,6 +14,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src)
                : "memory");
+}
+
+// One 4- or 8-byte element, global -> shared, through L1 (cp.async.ca).
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Wait until at most n of this thread's cp.async groups are pending; an n

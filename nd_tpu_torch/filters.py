@@ -1,11 +1,14 @@
 """Noise-reduction filters over arbitrary dimension subsets.
 
 Counterpart of ``nd_tpu/filters.py``: the ``Filter`` base,
-``ConvolutionFilter`` (separable kernels), ``BoxcarFilter``,
-``GaussianFilter`` and ``NLMeansFilter`` with the functional wrappers
-``convolution``, ``boxcar``, ``gaussian`` and ``nlmeans``. Tensors stay
-on the device the caller put them on; the ``ds.filter`` accessor is
-still to be ported.
+``ConvolutionFilter`` (any kernel: separable ones through the
+``sepconv`` kernel, the others through the ``stencil`` kernel),
+``BoxcarFilter``, ``GaussianFilter`` and ``NLMeansFilter`` with the
+functional wrappers ``convolution``, ``boxcar``, ``gaussian`` and
+``nlmeans``, and ``_expand_kernel``. Tensors stay on the device the
+caller put them on. ``apply(ds, njobs=n)`` splits along
+``_parallel_dimension`` with the ``_buffer`` halo (see
+``algorithm.parallelize``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,21 @@ from .utils import expand_variables, get_vars_for_dims, is_complex
 
 __all__ = ['Filter', 'ConvolutionFilter', 'convolution', 'BoxcarFilter',
            'boxcar', 'GaussianFilter', 'gaussian', 'NLMeansFilter',
-           'nlmeans']
+           'nlmeans', '_expand_kernel']
+
+
+def _expand_kernel(kernel, kernel_dims, new_dims):
+    """Reshape a kernel spanning ``kernel_dims`` to cover ``new_dims``
+    (length-1 axes on the others). Raises ValueError if ``kernel_dims``
+    does not match the kernel rank or is not a subset of ``new_dims``."""
+    if not set(new_dims).issuperset(set(kernel_dims)):
+        raise ValueError('`new_dims` must be a superset of `kernel_dims`.')
+    if kernel.ndim != len(kernel_dims):
+        raise ValueError('The length of `kernel_dims` must match the '
+                         'dimension of `kernel`.')
+    shape = np.ones(len(new_dims), dtype=int)
+    shape[[new_dims.index(d) for d in kernel_dims]] = kernel.shape
+    return kernel.reshape(shape)
 
 
 class Filter(Algorithm):
@@ -152,7 +169,7 @@ class Filter(Algorithm):
 
 
 class ConvolutionFilter(Filter):
-    """Separable kernel convolution of a Dataset.
+    """Kernel convolution of a Dataset.
 
     Parameters
     ----------
@@ -160,7 +177,8 @@ class ConvolutionFilter(Filter):
         The dataset dimensions corresponding to the kernel axes
         (default: ('y', 'x')). Length must match the kernel rank.
     kernel : ndarray
-        The convolution kernel (separable; others are not ported yet).
+        The convolution kernel: a rank-1 (separable) kernel runs as 1-d
+        passes, any other through the stencil kernel.
     kwargs : dict, optional
         Extra keyword arguments (``mode``, ``cval``) with
         scipy.ndimage.convolve semantics.

@@ -365,8 +365,7 @@ def _launch(values, k, n, alpha, rounds, with_margin, plan):
                  plan['threads'], plan['T'], plan['nbuf'],
                  c_dev.data_ptr(), s_dev.data_ptr(),
                  float(n), rounds, stream)
-    global launches
-    launches += 1
+    _build.bump(globals(), 'launches')
     _build.check('nd_omnibus_f32', err)
     return packed, margin
 

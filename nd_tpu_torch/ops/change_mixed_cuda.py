@@ -157,8 +157,7 @@ def _launch(rows, planes, alpha, n, stat_dtype, margin=None, margin_eps=0.0):
                  planes.data_ptr(), nrows, k, *types, table.data_ptr(),
                  int(use_folded), float(n), blocks,
                  None if work is None else work.data_ptr(), stream)
-    global launches
-    launches += 1
+    _build.bump(globals(), 'launches')
     _build.check('nd_omnibus_mixed', err)
     return None if queue is None else queue[nrows:]
 

@@ -430,14 +430,15 @@ def _table_arrays(tabs):
     """The tables as float64 arrays for the C entry point, made once per
     :func:`scan_tables` result (hashing its tuples costs more host time
     than building them costs once)."""
-    hit = _arrays.get(id(tabs))
-    if hit is None or hit[0] is not tabs:
-        if len(_arrays) >= 64:
-            _arrays.clear()
-        hit = (tabs, tuple(np.asarray(tabs[name], np.float64) for name in
-                           ('f2_coefs', 'f2_small', 's_small', 'cg_tab',
-                            'sg_tab')))
-        _arrays[id(tabs)] = hit
+    with _build.state_lock:
+        hit = _arrays.get(id(tabs))
+        if hit is None or hit[0] is not tabs:
+            if len(_arrays) >= 64:
+                _arrays.clear()
+            hit = (tabs, tuple(np.asarray(tabs[name], np.float64)
+                               for name in ('f2_coefs', 'f2_small',
+                                            's_small', 'cg_tab', 'sg_tab')))
+            _arrays[id(tabs)] = hit
     return hit[1]
 
 
@@ -465,7 +466,6 @@ def _launch(values, tabs, nf, plan=None):
                  cg.ctypes.data, sg.ctypes.data, tabs['f2_rel_err'],
                  1.0 + tabs['f2_rel_err'], tabs['za'], tabs['zb'], nf,
                  stream)
-    global launches
-    launches += 1
+    _build.bump(globals(), 'launches')
     _build.check('nd_omnibus_scan_f32', err)
     return packed, margin

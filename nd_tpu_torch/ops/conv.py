@@ -1,4 +1,4 @@
-"""Separable n-dimensional convolution with scipy.ndimage edge handling.
+"""N-dimensional convolution with scipy.ndimage edge handling.
 
 Counterpart of ``nd_tpu/ops/conv.py``:
 
@@ -16,8 +16,15 @@ three-axis kernel in one pass (time first, as the reference's fused TPU
 route does); otherwise the passes run in axis order, two adjacent axes
 per launch where both have at most ``conv_cuda.INLINE_TAPS`` taps (the
 kernel's tap vectors passed by value), one axis per launch otherwise
-(taps of any length: a halo along one axis always fits a tile). Non-separable kernels are not
-ported yet.
+(taps of any length: a halo along one axis always fits a tile).
+
+Non-separable kernels run through the ``stencil`` kernel
+(``ops/stencil_cuda.py``): the filtered axes, sorted with the kernel's
+axes permuted to match, form a contiguous ``(outer, n0, n1, n2, inner)``
+view where they are adjacent (no copy); non-adjacent axes are moved
+together first (one copy in, one out). A kernel over four or more axes
+is the sum, over its leading axis, of three-axis stencils of the array
+padded along that axis (the same sum on the card and on the CPU).
 
 Dtypes: float16 and bfloat16 input is filtered in float32 and returned
 in its own dtype (the reference filters float16 in float16, so the two
@@ -207,8 +214,50 @@ def _fused_three_axis(arr, pairs, mode, cval):
     return out.reshape(shape)
 
 
+def _stencil3(arr, kflip, axes, mode, cval):
+    """The ``stencil`` kernel over one to three axes of ``arr`` with the
+    FLIPPED kernel ``kflip`` (one dim per axis, in ``axes``' order)."""
+    from .stencil_cuda import stencil
+    order = np.argsort(axes)
+    src = tuple(int(axes[i]) for i in order)
+    kflip = np.transpose(kflip, order)
+    front = tuple(range(len(src)))
+    moved = src != tuple(range(src[0], src[0] + len(src)))
+    if moved:     # the filtered axes gathered at the front
+        arr = arr.movedim(src, front)
+    first = 0 if moved else src[0]
+    shape = arr.shape
+    dims = shape[first:first + len(src)] + (1,) * (3 - len(src))
+    view = (int(np.prod(shape[:first], dtype=np.int64)),) + tuple(dims) \
+        + (int(np.prod(shape[first + len(src):], dtype=np.int64)),)
+    out = stencil(arr.contiguous().reshape(view),
+                  kflip.reshape(kflip.shape + (1,) * (3 - len(src))),
+                  mode, cval).reshape(shape)
+    return out.movedim(front, src).contiguous() if moved else out
+
+
+def _stencil_nd(arr, kflip, axes, mode, cval):
+    """A non-separable kernel: the ``stencil`` kernel over up to three
+    axes; over more, the sum over the leading kernel axis of the stencils
+    of ``arr`` padded along that axis (boundary by ``mode``) and shifted,
+    in the order of that axis."""
+    if len(axes) <= 3:
+        return _stencil3(arr, kflip, axes, mode, cval)
+    ax, k = axes[0], kflip.shape[0]
+    pads = [(0, 0)] * arr.ndim
+    pads[ax] = ((k - 1) // 2, k // 2)
+    padded = pad_reflect(arr, pads, mode, cval)
+    n = arr.shape[ax]
+    out = None
+    for a in range(k):
+        part = _stencil_nd(padded.narrow(ax, a, n), kflip[a], axes[1:],
+                           mode, cval)
+        out = part if out is None else out + part
+    return out
+
+
 def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
-    """Convolve ``arr`` with a separable ``kernel`` along ``axes``.
+    """Convolve ``arr`` with ``kernel`` along ``axes``.
 
     Matches ``scipy.ndimage.convolve`` semantics (kernel flip, origin at
     ``size // 2``, default 'reflect' boundary). The result stays on
@@ -251,9 +300,8 @@ def convolve(arr, kernel, axes=None, mode='reflect', cval=0.0, device=None):
     kflip = np.flip(kernel, axis=tuple(range(kernel.ndim)))
     factors = _separable_factors(kflip)
     if factors is None:
-        raise NotImplementedError(
-            'non-separable convolution kernels are not ported yet '
-            '(ROADMAP item 8)')
+        return _stencil_nd(arr, np.asarray(kflip, np.float64), axes, mode,
+                           cval)
 
     passes = list(zip(axes, factors))
     if arr.dtype == torch.float32:

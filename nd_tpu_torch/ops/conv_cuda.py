@@ -61,9 +61,8 @@ def reset_launches():
 
 
 def _count_long(*vectors):
-    global launches_long
     if max(len(w) for w in vectors) > INLINE_TAPS:
-        launches_long += 1
+        _build.bump(globals(), 'launches_long')
 
 
 def _taps(taps):
@@ -162,8 +161,7 @@ def sepconv2(x, taps0, taps1, mode='reflect', cval=0.0):
                  w1.ctypes.data, len(w1), int(u1), int(s1),
                  _long_ptr(w0, x), _long_ptr(w1, x),
                  MODES[mode], float(cval), stream)
-    global launches
-    launches += 1
+    _build.bump(globals(), 'launches')
     _count_long(w0, w1)
     _build.check(name, err)
     return out
@@ -217,8 +215,7 @@ def sepconv3(x, taps0, taps1, taps2, mode='reflect', cval=0.0):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), n0, n1, n2, inner, *args,
                  MODES[mode], float(cval), stream)
-    global launches3
-    launches3 += 1
+    _build.bump(globals(), 'launches3')
     _count_long(*(w for w, _, _ in taps))
     _build.check(name, err)
     return out

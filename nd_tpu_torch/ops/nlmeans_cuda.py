@@ -160,8 +160,7 @@ def _launch(arr, r, f, sigma, h, n_eff):
                  int(plan['route'] == 'global'), float(sigma), float(h),
                  float(n_eff), stream)
     if plan['route'] == 'global':
-        global launches_wide
-        launches_wide += 1
+        _build.bump(globals(), 'launches_wide')
     _build.check(name, err)
     return out
 
@@ -193,8 +192,7 @@ def nlmeans_spatial(arr, r, f, sigma, h, n_eff=-1.0):
                          'not %s' % arr.device)
     if arr.dtype in LOW_PRECISION:
         return _in_float32(nlmeans_spatial, arr, r, f, sigma, h, n_eff)
-    global launches
-    launches += 1
+    _build.bump(globals(), 'launches')
     return _launch(arr, (r[0], r[1], 0), (f[0], f[1], 0), sigma, h, n_eff)
 
 
@@ -226,6 +224,5 @@ def nlmeans_3d(arr, r, f, sigma, h, n_eff=-1.0):
                          % arr.device)
     if arr.dtype in LOW_PRECISION:
         return _in_float32(nlmeans_3d, arr, r, f, sigma, h, n_eff)
-    global launches_3d
-    launches_3d += 1
+    _build.bump(globals(), 'launches_3d')
     return _launch(arr, r, f, sigma, h, n_eff)

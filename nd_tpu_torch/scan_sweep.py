@@ -1,7 +1,8 @@
 """The forced-plan sweeps behind ``ops.change_scan_cuda._scan_plan`` and
 ``ops.change_cuda._round_plan``, and the sepconv kernel's tap routes.
 
-    python -m nd_tpu_torch.scan_sweep [scan|round|taps]  # default: all
+    python -m nd_tpu_torch.scan_sweep [scan|round|taps|library|stencil]
+                                          # default: scan, round, taps
 
 scan: runs the long-series scan kernel with every plan of
 ``change_scan_cuda.plan_candidates`` on ``chip_smoke.py``'s long stack
@@ -24,6 +25,25 @@ passed by value (the default) and forced onto the long-tap route
 (``conv_cuda.INLINE_TAPS`` set to 0: device buffers copied into each
 block's shared memory), alternating the two four times; the two outputs
 must be bit-equal.
+
+library: the library yardstick of the long-tap route (``chip_smoke.py``
+phase 15, ``GaussianFilter(dims=('y', 'x', 'time'), sigma=16)``, 129
+taps per axis, on the long stack's C11): cuDNN's conv3d (TF32 off) of
+the tensor padded as the kernel pads it with the full 129 x 129 x 129
+kernel (one call; the port never calls it), and the three one-axis
+conv3d passes; each output within n * 2**-24 * max|x| of the kernel's
+(float32 sums of n terms, weights summing to 1). One call each, CUDA events, the first cold and a
+second where the first took under two minutes. Too slow for
+``chip_smoke.py``'s time limit.
+
+stencil (not in the default set): times the stencil kernel
+(``csrc/stencil.cu``) at ``chip_smoke.py`` S1's shapes, the 5 x 5 disk
+over the stacked views that ``ConvolutionFilter`` launches for the four
+variables (4 x 1024 x 1024 x 11, x 12, x 3) and over the bench cube's
+(1, y, x, 48) view, and the 27-point Laplacian over (y, x, time) of the
+long stack's C11; each output must equal ``stencil_plain``'s. Four
+medians of 5 per shape. Run it from two checkouts in one call to compare
+two builds of the kernel.
 
 Each plan's flags and margins must be bit-equal to the plain version's
 (a failure raises); its time is the median of 5 CUDA-event timings of
@@ -158,6 +178,109 @@ def _taps_sweep(cs, card, dev):
                      statistics.median(times), card), flush=True)
 
 
+def _stencil_sweep(cs, card, dev):
+    import numpy as np
+    from .ops import stencil_cuda
+    cube = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.K)).to(dev)
+    stack = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.KL,
+                                          seed=cs.SEED + 3, step=5.0,
+                                          burst=True)).to(dev)
+    disk = np.flip(cs.DISK)[:, :, None]
+
+    def stacked(c, k):
+        return c[:, :, :k].permute(3, 0, 1, 2).contiguous().reshape(
+            4, cs.NY, cs.NX, 1, k)
+    rows = [('disk stacked (4,y,x,1,11)', stacked(stack, 11), disk),
+            ('disk stacked (4,y,x,1,12)', stacked(cube, cs.K), disk),
+            ('disk stacked (4,y,x,1,3)', stacked(cube, cs.K // 4), disk),
+            ('disk bench (1,y,x,1,48)',
+             cube.reshape(1, cs.NY, cs.NX, 1, cs.K * 4), disk),
+            ('Laplace27 C11 (1,y,x,56,1)',
+             stack[..., 0].contiguous().reshape(1, cs.NY, cs.NX, cs.KL, 1),
+             np.flip(cs.LAPLACE27))]
+    for label, x, k in rows:
+        if not torch.equal(stencil_cuda.stencil(x, k),
+                           stencil_cuda.stencil_plain(x, k)):
+            raise RuntimeError('stencil %s differs from its plain version'
+                               % label)
+        times = [_ms(lambda: stencil_cuda.stencil(x, k)) for _ in range(4)]
+        print('stencil %s k %s: %s ms (median %.4f) | %s'
+              % (label, 'x'.join(map(str, k.shape)),
+                 ' '.join('%.4f' % t for t in times),
+                 statistics.median(times), card), flush=True)
+
+
+def _library_sweep(cs, card, dev):
+    import numpy as np
+    import torch.nn.functional as F
+    from .ops import conv_cuda
+    from .ops.conv import gaussian_kernel1d, pad_reflect
+    stack = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.KL,
+                                          seed=cs.SEED + 3, step=5.0,
+                                          burst=True)).to(dev)
+    c11 = stack[..., 0].contiguous()
+    del stack
+    g = np.flip(gaussian_kernel1d(16.0))                    # 129 taps
+    lo, hi = (len(g) - 1) // 2, len(g) // 2
+    ref = c11.reshape(cs.NY, cs.NX, cs.KL, 1)
+    for ax in range(3):        # the route's three one-axis passes
+        shape = ref.shape
+        view = (1, int(np.prod(shape[:ax])), shape[ax],
+                int(np.prod(shape[ax + 1:])))
+        ref = conv_cuda.sepconv2(ref.contiguous().reshape(view), np.ones(1),
+                                 g).reshape(shape)
+    ref = ref[..., 0]
+    xin = pad_reflect(c11, [(lo, hi)] * 3)[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        def once(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end)
+
+        w1 = torch.tensor(np.ascontiguousarray(g), dtype=torch.float32,
+                          device=dev)
+        passes = [w1.reshape(1, 1, -1, 1, 1), w1.reshape(1, 1, 1, -1, 1),
+                  w1.reshape(1, 1, 1, 1, -1)]
+
+        def separable():
+            out = xin
+            for w in passes:
+                out = F.conv3d(out, w)
+            return out
+
+        full_w = torch.einsum('i,j,k->ijk', w1, w1, w1)[None, None]
+        # float32 sums of n terms (weights summing to 1) may round apart
+        # by up to n * 2**-24 * max|x|: 1e-5 for the 129-term passes, 0.13
+        # max|x| for the 2.1 M-term single call
+        top = float(c11.abs().max())
+        for label, fn, terms in (
+                ('three one-axis conv3d passes', separable, 3 * len(g)),
+                ('one conv3d, 129x129x129 kernel',
+                 lambda: F.conv3d(xin, full_w), len(g) ** 3)):
+            out, ms = once(fn)
+            diff = float((out[0, 0] - ref).abs().max())
+            if diff > max(1e-5, terms * 2.0 ** -24 * top):
+                raise RuntimeError('%s differs from the kernel by %g'
+                                   % (label, diff))
+            times = [ms]
+            if ms < 120e3:
+                times.append(once(fn)[1])
+            print('library %s on %s float32: %s ms (cold first); max abs '
+                  'diff %.3g to the long-tap route | %s'
+                  % (label, tuple(c11.shape),
+                     ' '.join('%.3f' % t for t in times), diff, card),
+                  flush=True)
+            del out
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def main():
     if not torch.cuda.is_available():
         print('scan_sweep: needs a CUDA device', file=sys.stderr)
@@ -174,6 +297,10 @@ def main():
         _round_sweep(cs, card, dev)
     if 'taps' in which:
         _taps_sweep(cs, card, dev)
+    if 'library' in which:
+        _library_sweep(cs, card, dev)
+    if 'stencil' in which:
+        _stencil_sweep(cs, card, dev)
     if 'scan' not in which:
         return 0
     shapes = [(cs.NY, cs.NX, cs.KL, cs.SEED + 3), (cs.BNY, cs.BNX, cs.BK,

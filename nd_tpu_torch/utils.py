@@ -1,27 +1,95 @@
 """Helpers: ``as_tensor`` (where non-tensor input lands: ``cuda`` unless
-the caller names a device), dims and shapes, variable selection, complex
-detection and
-the docstring and argument tooling that
-:func:`nd_tpu_torch.algorithm.wrap_algorithm` uses.
+the caller names a device), dims and shapes, dependency checks, date
+parsing, chunking and halo split/merge (``xr_split``/``xr_merge``), the
+parallel chunk map (``parallel``), gufunc-style ``apply`` over
+``torch.vmap``, variable selection, complex detection and the docstring
+and argument tooling that :func:`nd_tpu_torch.algorithm.wrap_algorithm`
+uses.
 
-Counterpart of the matching parts of ``nd_tpu/utils.py``.
+Counterpart of ``nd_tpu/utils.py``.
 """
 
 from __future__ import annotations
 
+import datetime
+import functools
+import importlib
 import inspect
 import itertools
+import os
+import re
+import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from functools import wraps
 
+import numpy as np
 import torch
 
 from .core import DataArray, Dataset
-from .core.dataarray import expand_variables_da
-from .core.variable import as_tensor
+from .core.dataarray import _STACK_ATTR, concat, expand_variables_da
+from .core.variable import as_tensor, to_numpy
 
 __all__ = ['as_tensor', 'get_dims', 'get_shape', 'get_vars_for_dims',
-           'expand_variables', 'is_complex',
+           'expand_variables', 'is_complex', 'ncpus', 'squeeze',
+           'str2date', 'dict_product', 'chunks', 'array_chunks',
+           'block_split', 'block_merge', 'xr_split', 'xr_merge',
+           'parallel', 'select', 'apply', 'requires', 'check_requirements',
            'parse_docstring', 'assemble_docstring', 'extract_arguments']
+
+
+# -------------------------------------------------------------------
+# Dependency checks: the port owns the chi-square CDF and the warping
+# natively ('gsl', 'gdal'); other names are probed as importable modules.
+# -------------------------------------------------------------------
+check_dependencies = {'gsl': True, 'gdal': True}
+
+
+def check_requirements(dependency=()):
+    def _check(dep):
+        if dep in check_dependencies:
+            return check_dependencies[dep]
+        try:
+            importlib.import_module(dep)
+        except ImportError:
+            return False
+        return True
+
+    if isinstance(dependency, (list, tuple)):
+        return all(_check(d) for d in dependency)
+    return _check(dependency)
+
+
+def requires(dependency=()):
+    """Declare that a class or function needs optional dependencies:
+    calling it (instantiating a class) while one is missing raises
+    ImportError. Decorated classes carry ``_requires`` and ``_skip``."""
+    available = check_requirements(dependency)
+
+    def decorator(obj):
+        is_class = inspect.isclass(obj)
+        target = obj.__init__ if is_class else obj
+
+        @wraps(target)
+        def guarded(*args, **kwargs):
+            if not available:
+                raise ImportError('missing dependencies {!r} (required by '
+                                  '{})'.format(dependency,
+                                               getattr(obj, '__name__', obj)))
+            return target(*args, **kwargs)
+
+        if not is_class:
+            return guarded
+        obj.__init__ = guarded
+        obj._requires = dependency
+        obj._skip = not available
+        return obj
+
+    return decorator
+
+
+def ncpus():
+    return os.cpu_count() or 1
 
 
 def get_shape(ds):
@@ -37,6 +105,213 @@ def get_dims(ds):
     if isinstance(ds, DataArray):
         return ds.dims
     return tuple(ds.sizes)
+
+
+def squeeze(obj):
+    """The item of a length-1 array, else the object."""
+    try:
+        return obj.item()
+    except (ValueError, AttributeError, RuntimeError):
+        return obj
+
+
+def str2date(string, fmt=None, tz=False):
+    """Parse a date string to a datetime (tz-aware UTC with ``tz``).
+    Without ``fmt`` the string is ISO 8601 (dates, times, offsets, 'Z'),
+    read without pandas."""
+    if fmt is not None:
+        date_object = datetime.datetime.strptime(string, fmt)
+    else:
+        try:
+            date_object = datetime.datetime.fromisoformat(string)
+        except ValueError:
+            date_object = np.datetime64(string, 'us').astype(
+                datetime.datetime)
+    if tz:
+        if date_object.tzinfo is None:
+            date_object = date_object.replace(tzinfo=datetime.timezone.utc)
+    elif date_object.tzinfo is not None:
+        date_object = date_object.replace(tzinfo=None)
+    return date_object
+
+
+def dict_product(d):
+    """itertools.product over a dict of lists."""
+    return (dict(zip(d, x)) for x in itertools.product(*d.values()))
+
+
+def chunks(lst, n):
+    """Yield successive n-sized chunks from ``lst``."""
+    for i in range(0, len(lst), n):
+        yield lst[i:i + n]
+
+
+def array_chunks(array, n, axis=0, return_indices=False):
+    """Chunk an array (or tensor) along ``axis``."""
+    if axis >= array.ndim:
+        raise ValueError('axis {:d} is out of range for given array.'
+                         .format(axis))
+    for i in range(0, array.shape[axis], n):
+        indices = [slice(None)] * array.ndim
+        indices[axis] = slice(i, i + n)
+        if return_indices:
+            yield indices, array[tuple(indices)]
+        else:
+            yield array[tuple(indices)]
+
+
+def block_split(array, blocks):
+    """Split an array into sub-arrays (first axis outermost)."""
+    if array.ndim != len(blocks):
+        raise ValueError("Length of 'blocks' must equal array "
+                         "dimensionality.")
+    result = [array]
+    for axis, nblocks in enumerate(blocks):
+        split = (lambda a: list(torch.tensor_split(a, nblocks, dim=axis))) \
+            if isinstance(array, torch.Tensor) \
+            else (lambda a: np.array_split(a, nblocks, axis=axis))
+        result = [item for a in result for item in split(a)]
+    return result
+
+
+def block_merge(array_list, blocks):
+    """Inverse of block_split: the flat list (first axis outermost)
+    joined back into one array."""
+    blocks = tuple(int(b) for b in blocks)
+    if len(array_list) != int(np.prod(blocks)):
+        raise ValueError('block_merge: got %d blocks but grid %r needs %d'
+                         % (len(array_list), blocks, int(np.prod(blocks))))
+    if not isinstance(array_list[0], torch.Tensor):
+        grid = np.empty(blocks, dtype=object)
+        for idx, arr in zip(np.ndindex(*blocks), array_list):
+            grid[idx] = arr
+        return np.block(grid.tolist())
+    parts = list(array_list)
+    for axis in reversed(range(len(blocks))):
+        n = blocks[axis]
+        parts = [torch.cat(parts[i:i + n], dim=axis)
+                 for i in range(0, len(parts), n)]
+    return parts[0]
+
+
+def xr_split(ds, dim, chunks, buffer=0):
+    """Split a Dataset or DataArray into overlapping chunks along ``dim``:
+    balanced cores (sizes differ by at most one), each widened by
+    ``buffer`` on the sides that have a neighbour. The chunk count is
+    clamped so that every core is at least ``buffer + 1`` wide, so that
+    :func:`xr_merge` can trim the halos."""
+    n = ds.sizes[dim]
+    max_chunks = max(1, n // (buffer + 1)) if buffer > 0 \
+        else max(1, min(chunks, n))
+    chunks = max(1, min(chunks, max_chunks))
+    base, extra = divmod(n, chunks)
+    sizes = [base + 1 if i < extra else base for i in range(chunks)]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    for i in range(chunks):
+        low = int(max(starts[i] - buffer, 0))
+        high = int(min(starts[i + 1] + buffer, n))
+        yield ds.isel({dim: slice(low, high)})
+
+
+def xr_merge(ds_list, dim, buffer=0):
+    """Inverse of xr_split: trim ``buffer`` on every side that has a
+    neighbour (none at the ends) and concatenate."""
+    b, last = int(buffer), len(ds_list) - 1
+    if b > 0 and last > 0:
+        parts = [ds.isel({dim: slice(b if i else None,
+                                     -b if i < last else None)})
+                 for i, ds in enumerate(ds_list)]
+    else:
+        parts = list(ds_list)
+    return concat(parts, dim=dim)
+
+
+def _on_card(obj):
+    tables = [obj._coords] + ([obj._variables] if isinstance(obj, Dataset)
+                              else [{'': obj.variable}])
+    return any(isinstance(v.data, torch.Tensor) and v.data.device.type
+               != 'cpu' for t in tables for v in t.values())
+
+
+def _invoke_chunk(fn, args, kwargs, part):
+    """Module-level chunk applier (picklable for process pools)."""
+    return fn(part, *args, **kwargs)
+
+
+def parallel(fn, dim=None, chunks=None, chunksize=None, merge=True,
+             buffer=0, use_threads=True, scheduler=None):
+    """Parallelize a function taking a Dataset as first argument: split
+    along ``dim`` (default 'y') into ``chunks`` (default: the CPU count)
+    with a ``buffer`` halo, map, trim and concatenate.
+
+    ``scheduler``: ``'threads'`` (default) runs the chunks on a thread
+    pool, CUDA payloads included (each kernel wrapper launches on the
+    caller's current stream; the launch counters and caches are locked);
+    ``'processes'`` runs each chunk in a spawned worker process, for CPU
+    payloads only (``fn`` and its arguments picklable, module-level; a
+    script calls it under ``if __name__ == '__main__':``): a CUDA payload
+    raises ValueError, since each worker would start its own CUDA
+    context; ``'serial'`` maps in-line. ``use_threads=False`` is the
+    older spelling of ``'serial'``.
+    """
+    if dim is None:
+        dim = 'y'
+    if chunks is None:
+        chunks = ncpus()
+    if scheduler is None:
+        scheduler = 'threads' if use_threads else 'serial'
+    if scheduler not in ('threads', 'processes', 'serial'):
+        raise ValueError("scheduler must be 'threads', 'processes' or "
+                         "'serial', got %r" % (scheduler,))
+
+    def wrapper(ds, *args, **kwargs):
+        if dim not in ds.sizes:
+            raise ValueError("The dataset has no dimension '{}'."
+                             .format(dim))
+        if scheduler == 'processes' and _on_card(ds):
+            raise ValueError(
+                "scheduler='processes' takes CPU payloads only: each "
+                'spawned worker would start its own CUDA context; use '
+                "scheduler='threads' for tensors on the card")
+        parts = list(xr_split(ds, dim=dim, chunks=chunks, buffer=buffer))
+        call = functools.partial(_invoke_chunk, fn, args, kwargs)
+        if scheduler == 'threads' and len(parts) > 1:
+            with ThreadPoolExecutor(max_workers=len(parts)) as pool:
+                output = list(pool.map(call, parts))
+        elif scheduler == 'processes' and len(parts) > 1:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+            with ProcessPoolExecutor(
+                    max_workers=min(len(parts), ncpus()),
+                    mp_context=mp.get_context('spawn')) as pool:
+                output = list(pool.map(call, parts))
+        else:
+            output = [call(p) for p in parts]
+        if merge:
+            return xr_merge(output, dim=dim, buffer=buffer)
+        return output
+
+    return wrapper
+
+
+def select(objects, fn, unlist=True, first=False):
+    """The subset of ``objects`` (a list or dict) matching ``fn``."""
+    filtered = objects
+    if type(objects) is list:
+        filtered = [obj for obj in filtered if fn(obj)]
+    elif type(objects) is dict:
+        filtered = {k: v for k, v in filtered.items() if fn(v)}
+    if first:
+        if len(filtered) == 0:
+            return None
+        if type(filtered) is list:
+            return filtered[0]
+        if type(filtered) is dict:
+            return filtered[list(filtered.keys())[0]]
+    elif unlist and len(filtered) == 1 and type(filtered) is list:
+        return filtered[0]
+    else:
+        return filtered
 
 
 def get_vars_for_dims(ds, dims, invert=False):
@@ -61,6 +336,98 @@ def is_complex(ds):
     if isinstance(ds, Dataset):
         return any(_complex_data(v.data) for v in ds._variables.values())
     raise ValueError('Not a Dataset or DataArray: {}'.format(repr(ds)))
+
+
+# -------------------------------------------------------------------
+# gufunc-style apply: torch.vmap over the stacked dimension, and the
+# per-element host route (np.vectorize) for functions vmap cannot take.
+# -------------------------------------------------------------------
+
+# which route each apply call took (read by chip_smoke.py); under
+# routes_lock, as njobs threads may call apply
+routes = {'vmap': 0, 'host': 0}
+routes_lock = threading.Lock()
+
+# the messages of vmap's own incompatibility errors: .item() and
+# data-dependent control flow, a batched tensor handed to numpy, a
+# missing batching rule
+_VMAP_INCOMPATIBLE = re.compile(
+    r"vmap: It looks like|doesn't have storage|[Bb]atching rule")
+
+
+def _parse_signature(sig):
+    m = re.fullmatch(r'\((.*)\)->\((.*)\)', sig.replace(' ', ''))
+    if m is None:
+        raise ValueError('Invalid signature')
+    return tuple(group.split(',') if group else [] for group in m.groups())
+
+
+def apply(ds, fn, signature=None, njobs=1):
+    """Apply a function that operates on a subset of dimensions.
+
+    Parameters
+    ----------
+    ds : Dataset or DataArray
+    fn : callable
+        Takes a tensor whose dims follow ``signature`` (a numpy array on
+        the host route).
+    signature : str, optional
+        e.g. ``'(time,var)->(time)'`` (the default). With ``var``, the
+        variables are stacked into a dimension first.
+    njobs : int, optional
+        Kept for API parity; the vmap route is already data-parallel.
+
+    ``fn`` runs under ``torch.vmap`` over the other dims stacked into
+    one; only vmap's own incompatibility errors (``.item()``,
+    data-dependent control flow, numpy on a batched tensor, a missing
+    batching rule) send it to the per-element host route
+    (``np.vectorize``); any other error propagates. ``routes`` counts the
+    calls of each route. The result stays on the input's device.
+    """
+    signature = signature or '(time,var)->(time)'
+    dims_in, dims_out = _parse_signature(signature)
+    if dims_out and not set(dims_out).issubset(dims_in):
+        raise ValueError('Invalid signature: All output dimensions must '
+                         'also be input dimensions.')
+    if isinstance(ds, Dataset) and 'var' in dims_in:
+        ds = ds.to_array(dim='var')
+
+    def _apply_da(da):
+        removed = set(dims_in) - set(dims_out)
+        output_dims = [d for d in da.dims if d not in removed]
+        extra = tuple(d for d in da.dims if d not in dims_in)
+        stacked = da.stack(z=extra).transpose('z', *dims_in)
+        data = stacked.data
+        try:
+            out = torch.vmap(fn)(data)
+            route = 'vmap'
+        except (RuntimeError, TypeError, NotImplementedError) as err:
+            if not _VMAP_INCOMPATIBLE.search(str(err)):
+                raise
+            out = np.vectorize(fn, signature=signature)(to_numpy(data))
+            out = torch.as_tensor(np.asarray(out), device=data.device)
+            route = 'host'
+        with routes_lock:
+            routes[route] += 1
+        res_dims = ('z',) + tuple(dims_out)
+        res = DataArray(out, dims=res_dims)
+        res._coords = {k: v for k, v in stacked._coords.items()
+                       if set(v.dims).issubset(set(res_dims))}
+        res.attrs[_STACK_ATTR] = stacked.attrs[_STACK_ATTR]
+        return res.unstack().transpose(*output_dims)
+
+    if isinstance(ds, DataArray):
+        result = _apply_da(ds)
+    else:
+        result = ds.map(_apply_da)
+        live = set()
+        for v in result._variables.values():
+            live |= set(v.dims)
+        result._coords = {k: v for k, v in result._coords.items()
+                          if set(v.dims).issubset(live)}
+    if isinstance(result, DataArray) and 'var' in result.dims:
+        result = expand_variables(result, dim='var')
+    return result
 
 
 # -------------------------------------------------------------------

@@ -163,12 +163,6 @@ def test_host_helpers_match_jax():
                 jpallas._edge_src(j, 7, mode)
 
 
-def test_non_separable_kernel_raises():
-    a = torch.zeros(5, 5)
-    with pytest.raises(NotImplementedError, match='ROADMAP item 8'):
-        tconv.convolve(a, np.arange(9.0).reshape(3, 3))
-
-
 def test_complex_input():
     a = _data((8, 9), np.float64) + 1j * _data((8, 9), np.float64, seed=1)
     k = np.ones((3, 3)) / 9

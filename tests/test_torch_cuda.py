@@ -30,7 +30,12 @@ multiply-adds; 5.7e-6 measured) and 1e-9 (float64: the card's
 incomplete gamma function differs from the CPU's by about 4e-10),
 chi-square CDFs atol 5e-6 and 1e-9, features rtol 1e-5 /
 atol 1e-5, losses rtol 1e-5, head and classifier parameters rtol 1e-4 /
-atol 1e-6, predictions equal, checkpoints bit for bit.
+atol 1e-6, predictions equal, checkpoints bit for bit; the stencil
+kernel (non-separable convolution) max abs diff 0 to its plain version,
+and the card's non-separable ``convolve`` equal to the CPU's; ``njobs=4``
+equal to ``njobs=1``; the grouped reductions and gap filling on the card
+within rtol 1e-6, atol 1e-6 of the CPU's; ``apply``'s vmap route within
+rtol 1e-12 of the CPU's.
 """
 
 import ctypes
@@ -1132,3 +1137,141 @@ def test_checkpoints_round_trip_onto_the_card(cuda, tmp_path):
     assert sorted(os.listdir(str(tmp_path / 'ck'))) == ['step_1.npz',
                                                         'step_2.npz']
     ck.close()
+
+
+# ---- the stencil kernel, njobs and the data model on the card ---------------
+
+DISK = np.array([[1.0 if i * i + j * j <= 5 else 0.0 for j in range(-2, 3)]
+                 for i in range(-2, 3)]) / 21.0
+
+
+@pytest.mark.parametrize('mode,cval', [('reflect', 0.0), ('mirror', 0.0),
+                                       ('nearest', 0.0), ('wrap', 0.0),
+                                       ('constant', 0.0), ('constant', 1.5)])
+@pytest.mark.parametrize('shape,kshape,dtype', [
+    ((1, 64, 80, 1, 12), (5, 5, 1), torch.float32),
+    ((2, 33, 47, 9, 3), (3, 3, 3), torch.float32),
+    ((1, 37, 53, 7, 1), (4, 3, 2), torch.float64),
+    ((1, 24, 24, 1, 2), (181, 181, 1), torch.float32),      # direct route
+])
+def test_stencil_equals_its_plain_version(cuda, shape, kshape, dtype, mode,
+                                          cval):
+    """Max abs diff 0: the kernel does the plain version's products and
+    adds in its order (-fmad=false)."""
+    from nd_tpu_torch.ops import stencil_cuda
+    x = _data(shape, seed=7).to(dtype).to(cuda)
+    k = np.random.RandomState(8).rand(*kshape) - 0.3
+    before = stencil_cuda.launches
+    got = stencil_cuda.stencil(x, k, mode, cval)
+    assert stencil_cuda.launches == before + 1
+    ref = stencil_cuda.stencil_plain(x, k, mode, cval)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+    assert stencil_cuda.stencil_tiled(*shape[1:], *kshape,
+                                      x.element_size()) == (kshape[0] < 100)
+
+
+def test_non_separable_convolve_on_the_card_equals_the_cpu(cuda):
+    """Every route (two, three, four axes, non-adjacent axes, float16,
+    complex) against the same call on the CPU: bit for bit."""
+    from nd_tpu_torch.ops.conv import convolve
+    x = _data((20, 18, 6, 4), seed=9).float()
+    rng = np.random.RandomState(10)
+    for k, axes in ((DISK, (0, 1)), (rng.rand(3, 3, 3), (0, 1, 2)),
+                    (rng.rand(3, 2), (0, 2)),
+                    (rng.rand(3, 2, 3, 2), (0, 1, 2, 3))):
+        for a in (x, x.half(), x + 1j * x.flip(0)):
+            got = convolve(a.to(cuda), k, axes=axes, mode='mirror')
+            assert torch.equal(got.cpu(), convolve(a, k, axes=axes,
+                                                   mode='mirror'))
+
+
+@pytest.mark.parametrize('name', ['disk', 'laplace_3d', 'nlmeans', 'boxcar'])
+def test_njobs_on_the_card_equals_one_job(cuda, name):
+    from nd_tpu_torch.ops import stencil_cuda
+    ds = generate_test_dataset(dims={'y': 64, 'x': 48, 'time': 8},
+                               device=cuda)
+    lap = -np.ones((3, 3, 3))
+    lap[1, 1, 1] = 26.0
+    algo = {'disk': lambda: ndt.ConvolutionFilter(kernel=DISK),
+            'laplace_3d': lambda: ndt.ConvolutionFilter(
+                dims=('y', 'x', 'time'), kernel=lap),
+            'nlmeans': lambda: ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3),
+            'boxcar': lambda: ndt.BoxcarFilter(w=3)}[name]()
+    one = algo.apply(ds)
+    modules = (stencil_cuda, nlmeans_cuda, conv_cuda)
+    for m in modules:
+        m.reset_launches()
+    four = algo.apply(ds, njobs=4)
+    torch.cuda.synchronize()
+    total = sum(m.launches for m in modules)
+    assert total > 0 and total % 4 == 0
+    for v in one.data_vars:
+        assert four[v].data.device.type == 'cuda'
+        assert torch.equal(one[v].data, four[v].data)
+
+
+def test_launch_counters_count_exactly_under_threads(cuda):
+    """njobs=4 on a 16-slice stack, 8 times over in threads: every launch
+    counted once."""
+    import threading
+    from nd_tpu_torch.ops import stencil_cuda
+    ds = generate_test_dataset(dims={'y': 32, 'x': 32, 'time': 16},
+                               device=cuda)
+    algo = ndt.ConvolutionFilter(kernel=DISK)
+    stencil_cuda.reset_launches()
+    threads = [threading.Thread(target=lambda: algo.apply(ds, njobs=4))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert stencil_cuda.launches == 8 * 4
+
+
+def test_grouped_reductions_on_the_card_match_the_cpu(cuda):
+    """rtol 1e-6, atol 1e-6 (sums in another order); the data stays on
+    the card."""
+    from nd_tpu_torch.core import DataArray
+    rng = np.random.RandomState(12)
+    vals = rng.rand(16, 12, 56).astype(np.float32)
+    vals[rng.rand(*vals.shape) < 0.05] = np.nan
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(56) * np.timedelta64(6, 'D')
+    on = DataArray(vals, dims=('y', 'x', 'time'), coords={'time': times},
+                   device=cuda)
+    off = DataArray(vals, dims=('y', 'x', 'time'), coords={'time': times},
+                    device='cpu')
+    for fn in (lambda d: d.quantile(0.9, dim='time'),
+               lambda d: d.median('time'),
+               lambda d: d.rolling(time=3, center=True).median(),
+               lambda d: d.coarsen(time=4).mean(),
+               lambda d: d.groupby('time.month').mean(),
+               lambda d: d.resample(time='1MS').mean(),
+               lambda d: d.interpolate_na(dim='time'),
+               lambda d: d.ffill('time', limit=2)):
+        got, ref = fn(on), fn(off)
+        assert got.data.device.type == 'cuda' and got.dims == ref.dims
+        np.testing.assert_allclose(got.values, ref.values, rtol=1e-6,
+                                   atol=1e-6, equal_nan=True)
+
+
+def test_apply_takes_the_vmap_route_on_the_card(cuda):
+    from nd_tpu_torch import utils
+    ds = generate_test_dataset(dims={'y': 16, 'x': 12, 'time': 6},
+                               device=cuda)
+    before = dict(utils.routes)
+
+    def span(x):
+        s = x[:, 0] + x[:, 3]
+        return s / s.mean(0)
+
+    got = ds.nd.apply(span, signature='(time,var)->(time)')
+    assert utils.routes['vmap'] == before['vmap'] + 1
+    assert got.data.device.type == 'cuda'
+    ref = utils.apply(ndt.core.Dataset(
+        {v: (ds[v].dims, ds[v].data.cpu()) for v in ds.data_vars}), span,
+        signature='(time,var)->(time)')
+    np.testing.assert_allclose(got.values, ref.values, rtol=1e-12)

@@ -224,8 +224,10 @@ def test_squeeze_and_expand_dims(pair):
         tds['C11'].squeeze('time')
     with pytest.raises(KeyError):
         tone.squeeze('band')
-    with pytest.raises(TypeError, match='ROADMAP item 11'):
-        tone.expand_dims({'band': 2})
+    _same(tone.expand_dims({'band': 2}), jone.expand_dims({'band': 2}),
+          1e-12)
+    _same(tone.expand_dims({'band': [10.0, 20.0, 30.0], 'z': 1}),
+          jone.expand_dims({'band': [10.0, 20.0, 30.0], 'z': 1}), 1e-12)
     _same(tds.expand_dims('band'), jds.expand_dims('band'))
     _same(tds.expand_dims('band').squeeze(), jds.expand_dims('band').squeeze())
     _same(tds.expand_dims('band').squeeze('band'),

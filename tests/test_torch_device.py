@@ -12,6 +12,7 @@ import torch
 
 import nd_tpu_torch as ndt
 from nd_tpu_torch.core import DataArray, Dataset, Variable, from_jax_dataset
+from nd_tpu_torch.core.dataarray import concat, full_like, merge
 from nd_tpu_torch.ops import change as tchange
 from nd_tpu_torch.ops import change_cuda, change_scan_cuda
 from nd_tpu_torch.ops import conv as tconv
@@ -91,6 +92,23 @@ ENTRY_POINTS = {
     'create_mock_classes': lambda **kw: (lambda ds, labels: [
         ds['C11'].data, labels.data])(*create_mock_classes(
             dims={'y': 4, 'x': 5, 'time': 2}, **kw)),
+    # the data model's and utils' new entry points keep the device the
+    # numpy input was put on
+    'concat': lambda **kw: (lambda da: [da.data, da['x'].data])(
+        concat([DataArray(np.ones((2, 3)), dims=('y', 'x'),
+                          coords={'x': np.arange(3.0)}, **kw)] * 2, 'x')),
+    'merge': lambda **kw: (lambda ds: [ds['a'].data, ds['b'].data])(merge([
+        Dataset({'a': (('y',), np.ones(2))}, **kw),
+        Dataset({'b': (('y',), np.zeros(2))}, **kw)])),
+    'full_like': lambda **kw: [full_like(
+        DataArray(np.ones((2, 3)), dims=('y', 'x'), **kw), 2.0).data],
+    'utils.apply': lambda **kw: [ndt.utils.apply(
+        DataArray(np.random.RandomState(60).rand(2, 3, 4),
+                  dims=('y', 'x', 'time'), **kw),
+        lambda s: s - s.mean(), signature='(time)->(time)').data],
+    'parallel': lambda **kw: [ndt.utils.parallel(
+        lambda part: part * 2, dim='y', chunks=2)(
+            Dataset({'a': (('y', 'x'), np.ones((4, 3)))}, **kw))['a'].data],
 }
 
 

@@ -105,10 +105,3 @@ def test_load_params_round_trips_init_params():
     assert {n for n, _ in model.named_parameters()} == {'w', 'b'}
     with pytest.raises(ValueError):
         ndt.SARChangePipeline(n_classes=2).load_params(params)
-
-
-def test_njobs_other_than_one_raises():
-    ds = from_jax_dataset(_jax_dataset(sar_cube(6, 6, 3, special=False)),
-                          device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP item 11'):
-        ndt.BoxcarFilter(w=3).apply(ds, njobs=2)

@@ -57,3 +57,15 @@ def long_stack_cube(ny, nx, k, seed=0, step=5.0):
 # planes (k=40) and a short series; each flags changes
 CASES = [((16, 128, 12), 0.99, 9), ((8, 16, 40), 0.99, 9),
          ((10, 12, 6), 0.9, 9)]
+
+
+def dated_stack(ny, nx, k=56, seed=0, nan_frac=0.02):
+    """``long_stack_cube`` with dates (a 6-day revisit from 2023-01-03)
+    and ``nan_frac`` of its samples set to NaN by the seed (no-data, the
+    same positions in every variable). Returns (cube, times)."""
+    cube = long_stack_cube(ny, nx, k, seed=seed)
+    gaps = np.random.RandomState(seed + 1).rand(ny, nx, k) < nan_frac
+    cube[gaps] = np.nan
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(k) * np.timedelta64(6, 'D')
+    return cube, times
