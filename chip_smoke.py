@@ -168,13 +168,22 @@ the seed):
  S1. the stencil kernel (non-separable kernels) against its plain
      version, max abs diff 0 in every mode (reflect, nearest, mirror,
      wrap, constant with cval 0 and 1.5): a 5 x 5 disk (21 taps) over
-     (y, x) of the bench cube, the 27-point Laplacian over (y, x, time)
-     of the long stack's C11, the disk in float64 on 256 x 256 x 12 x 4,
-     a random 3 x 4 x 2 kernel on a ragged 37 x 53 x 7, a 181 x 181
-     kernel (the direct route); a four-axis kernel against the CPU; the
-     disk and the Laplacian timed beside their bound and cuDNN's
-     depthwise conv2d/conv3d of the padded tensor (TF32 off), which the
-     port never calls;
+     (y, x) of the stacked views S2 and S3 launch and of the bench cube,
+     the 27-point Laplacian over (y, x, time) of the long stack's C11,
+     the disk in float64 on 256 x 256 x 12 x 4, a random 3 x 4 x 2
+     kernel on a ragged 37 x 53 x 7, a 181 x 181 kernel (the direct
+     route), and the kernel's edges: n0 not a multiple of the register
+     run and below k0, n1 = 1, rows of 1, 11 and 48, four outer slices,
+     3 x 3 and 7 x 7 disks, (5, 1, 1), (1, 5, 1), 9 x 9 and 7 x 9
+     kernels (9 x 9 past the unrolled builds), float64 through every
+     build (4 x 9 past the 32 weights passed by value); a NaN under the disk's zero taps (NaN where the plain
+     version has NaN, equal elsewhere); a chunk whose seam cuts the
+     whole call's tiles (its rows equal the whole call's); a four-axis
+     kernel against the CPU; the disk and the Laplacian timed beside
+     their bound and cuDNN's depthwise conv2d/conv3d of the padded
+     tensor (TF32 off), which the port never calls, three ways: single
+     calls, 50 back-to-back calls per event pair and the kernel's
+     device time under torch.profiler;
  S2. ``njobs=4`` against ``njobs=1``, bit for bit, and 4 x a single
      chunk's launches: the disk ConvolutionFilter on the bench cube
      (split along time, halo 0), the Laplacian over (y, x, time) of C11
@@ -937,8 +946,15 @@ S_NAN = 0.02                # no-data share of the dated stack (seeded)
 S_SLAB = 64                 # rows held against the CPU in S3 and S4
 S_MODES = (('reflect', 0.0), ('nearest', 0.0), ('mirror', 0.0),
            ('wrap', 0.0), ('constant', 0.0), ('constant', 1.5))
-DISK = np.array([[1.0 if i * i + j * j <= 5 else 0.0 for j in range(-2, 3)]
-                 for i in range(-2, 3)]) / 21.0      # 21 taps, rank > 1
+def disk(r):
+    """The (2r+1, 2r+1) disk of radius**2 <= r*r + 1, normalised, zero
+    taps included."""
+    ax = np.arange(-r, r + 1)
+    d = (ax[:, None] ** 2 + ax[None, :] ** 2 <= r * r + 1).astype(float)
+    return d / d.sum()
+
+
+DISK = disk(2)                                       # 21 taps, rank > 1
 LAPLACE27 = -np.ones((3, 3, 3))                      # the 27-point Laplacian
 LAPLACE27[1, 1, 1] = 26.0
 
@@ -966,24 +982,32 @@ def run_series_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     from nd_tpu_torch.ops import conv_cuda, nlmeans_cuda, stencil_cuda
     from nd_tpu_torch.ops.change import change_detection_plain
     from nd_tpu_torch.ops.conv import convolve, pad_reflect
+    from nd_tpu_torch.scan_sweep import back_to_back_ms, profiler_ms
 
     names = ('C11', 'C12__re', 'C12__im', 'C22')
     cpu = torch.device('cpu')
 
     def timed(label, key, kern, plain, bnd, lib):
         """plain, kernel, kernel, plain (median of 7 after 2 warm-ups
-        each); the yardstick after them."""
+        each); the yardstick after them; then the kernel's device time a
+        launch over 50 back-to-back calls and under torch.profiler."""
         p1 = cuda_ms(plain)
         k1 = cuda_ms(kern)
         k2 = cuda_ms(kern)
         p2 = cuda_ms(plain)
         k_ms, p_ms = min(k1, k2), min(p1, p2)
         lib_ms = cuda_ms(lib) if lib is not None else None
+        b2b, prof = back_to_back_ms(kern), profiler_ms(kern, 'stencil')
         phase('S1', '%-34s kernel %.3f ms | plain %.3f ms | x%.2f | bound '
               '%.3f ms (%s), %.1f%% of it | cuDNN (TF32 off) %s | %s'
               % (label, k_ms, p_ms, p_ms / k_ms, bnd[0], bnd[1],
                  100.0 * bnd[0] / k_ms,
                  'not timed' if lib_ms is None else '%.3f ms' % lib_ms,
+                 card))
+        phase('S1', '%-34s device time a launch: back-to-back %.4f ms '
+              '(%.1f%% of the bound), torch.profiler %.4f ms; single call '
+              '%.4f ms, so the wrapper\'s host share %.4f ms | %s'
+              % (label, b2b, 100.0 * bnd[0] / b2b, prof, k_ms, k_ms - prof,
                  card))
         if key:
             row_ms[key] = {'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': bnd[0],
@@ -1022,6 +1046,46 @@ def run_series_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
              ('181x181 direct route 4x96x96x4', torch.from_numpy(
                  rng.rand(4, 96, 96, 1, 4).astype(np.float32)).to(dev),
               rng.rand(181, 181, 1))]
+
+    def small(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.rand(*shape)).to(dtype).to(dev)
+    k432 = rng.rand(4, 3, 2) - 0.3
+    k511 = rng.rand(5, 1, 1) - 0.3
+    k99 = rng.rand(9, 9, 1) - 0.3
+    k333 = rng.rand(3, 3, 3) - 0.3
+    for dtype, tag in ((torch.float32, ''), (torch.float64, ' float64')):
+        cases += [('edge n0 19 (not a run multiple)' + tag,
+                   small((1, 19, 40, 1, 12), dtype), disk3),
+                  ('edge n0 3 < k0' + tag, small((1, 3, 40, 1, 12), dtype),
+                   disk3),
+                  ('edge n1 1' + tag, small((1, 40, 1, 1, 12), dtype), disk3),
+                  ('edge row 1' + tag, small((1, 40, 50, 1, 1), dtype),
+                   disk3),
+                  ('edge outer 4 row 11' + tag,
+                   small((4, 30, 40, 1, 11), dtype), disk3),
+                  ('edge row 48' + tag, small((1, 30, 40, 1, 48), dtype),
+                   disk3),
+                  ('edge disk 3x3' + tag, small((4, 30, 40, 1, 11), dtype),
+                   np.flip(disk(1))[:, :, None]),
+                  ('edge disk 7x7' + tag, small((4, 30, 40, 1, 11), dtype),
+                   np.flip(disk(3))[:, :, None]),
+                  ('edge 4x3x2' + tag,
+                   small((4, 30, 40, 11, 1), dtype), k432),
+                  ('edge (5,1,1)' + tag, small((1, 40, 30, 1, 12), dtype),
+                   k511),
+                  ('edge (1,5,1)' + tag, small((1, 40, 30, 1, 12), dtype),
+                   k99[:1, :5]),
+                  ('edge 9x9 weights in shared memory' + tag,
+                   small((1, 24, 20, 1, 6), dtype), k99),
+                  ('edge Laplacian view' + tag,
+                   small((1, 30, 28, 20, 1), dtype), k333)]
+    # the unrolled builds' limits: 7 rows x 9 row taps (63 weights by
+    # value); 4 x 9 in float64 (36, past the 32 by value) the generic build
+    cases += [('edge 7x9 unrolled', small((1, 30, 28, 1, 5)),
+               rng.rand(7, 9, 1) - 0.3),
+              ('edge 4x9 float64 generic',
+               small((1, 30, 28, 1, 5), torch.float64),
+               rng.rand(4, 9, 1) - 0.3)]
     worst = 0.0
     for label, x, k in cases:
         tiled = stencil_cuda.stencil_tiled(*x.shape[1:], *k.shape,
@@ -1039,6 +1103,28 @@ def run_series_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
               % (label, 'tiled' if tiled else 'direct', x.dtype,
                  ', '.join('%s(%g)' % m for m in S_MODES)))
         del got, ref
+    # a NaN under the disk's zero taps propagates (0 * NaN), and a chunk
+    # whose seam cuts the whole call's tiles equals the whole call's rows
+    xn = small((4, 30, 40, 1, 11))
+    xn[1, 7, 9, 0, 3] = float('nan')
+    xn[2, 0, 0, 0, 0] = float('nan')
+    xs = small((4, 50, 40, 1, 11))
+    for mode, cval in S_MODES:
+        got = stencil_cuda.stencil(xn, disk3, mode, cval)
+        ref = stencil_cuda.stencil_plain(xn, disk3, mode, cval)
+        nan = ref.isnan()
+        check(int(nan.sum()) > 21 and torch.equal(got.isnan(), nan)
+              and torch.equal(got[~nan], ref[~nan]), 'stencil NaN', mode,
+              cval)
+        whole = stencil_cuda.stencil(xs, disk3, mode, cval)
+        part = stencil_cuda.stencil(xs[:, 11:31].contiguous(), disk3, mode,
+                                    cval)
+        check(torch.equal(part[:, 2:18], whole[:, 13:29]), 'stencil seam',
+              mode, cval)
+    del xn, xs, got, ref, whole, part
+    phase('S1', 'a NaN under the disk\'s zero taps: NaN where the plain '
+          'version has it, equal elsewhere; a chunk (rows 11..30 of 50) '
+          'whose seam cuts the tiles equals the whole call: every mode')
     # a kernel over four axes: sums of three-axis stencils, on the card
     # against the same sums on the CPU
     x4 = torch.from_numpy(rng.rand(64, 64, K, 4).astype(np.float32))

@@ -3,7 +3,8 @@
 // T-step chunks with coalesced 16-byte cp.async copies into rows of an
 // odd stride, so that a warp's float4 reads of one step across 32 pixels
 // are free of bank conflicts; the stencil (stencil.cu) copies its halo box
-// one element at a time (cp_async_elem).
+// in 16-byte blocks placed at their source's alignment, and the positions
+// the boundary mode maps one element at a time (cp_async_elem).
 
 #pragma once
 

@@ -8,193 +8,80 @@
 //
 // Entry points nd_stencil_{f32,f64}: the input is a contiguous
 // (outer, n0, n1, n2, inner) array and the weights a (k0, k1, k2) array of
-// the ALREADY-FLIPPED kernel in the input's type, on the device; output
-// (o, i0, i1, i2, ii) reads input (o, i0 - lo0 + j0, i1 - lo1 + j1,
-// i2 - lo2 + j2, ii) for every tap (j0, j1, j2), lo = (k - 1) / 2, a
-// position outside the array mapped by the boundary mode. A two-axis
-// filter passes n2 = 1, k2 = 1; ops/conv.py sums three-axis stencils for
-// kernels over four or more axes.
+// the ALREADY-FLIPPED kernel in the input's type, on the device and (the
+// same values) on the host; output (o, i0, i1, i2, ii) reads input
+// (o, i0 - lo0 + j0, i1 - lo1 + j1, i2 - lo2 + j2, ii) for every tap
+// (j0, j1, j2), lo = (k - 1) / 2, a position outside the array mapped by
+// the boundary mode. A two-axis filter passes n2 = 1, k2 = 1; ops/conv.py
+// sums three-axis stencils for kernels over four or more axes.
 //
-// Bound on the H100: device-memory bytes for the path's windows (one read
+// Bound on the H100: device-memory bytes at the path's windows (one read
 // and one write of each element: 8 bytes in f32 against 2 * taps - 1 f32
-// operations, 49 for a 5 x 5 disk, 53 for a 3 x 3 x 3 stencil; the card's
-// balance is about 20 operations a byte). The design keeps the window's
-// re-reads out of device memory:
+// operations, 49 for a 5 x 5 disk, 53 for a 3 x 3 x 3 stencil). With
+// -fmad=false a product and an add are two instructions, so the
+// instruction rate comes second: about half the byte bound for those
+// windows. The design keeps the window's re-reads out of device memory
+// and out of most shared-memory reads:
 //
-//  - one block owns an output tile of T0 x T1 (n0, n1) positions by a
-//    chunk of the contiguous n2 * inner row; the tile's raw input box,
-//    (T0 + k0 - 1) x (T1 + k1 - 1) rows of chunk + (k2 - 1) * inner
-//    elements, is staged in shared memory once (cp.async, stage.cuh), with
-//    the boundary mapped element by element only on edge tiles;
-//  - the weights sit in shared memory beside it (a warp reads one weight
-//    as a broadcast);
-//  - each thread then forms whole outputs from shared memory, neighbouring
-//    threads on neighbouring row elements (no bank conflicts).
-// A kernel whose box fits no tile (more taps than about 28,000 in f32)
-// takes the direct route: every output from device memory (through L1 and
-// L2), weights from device memory.
+//  - a block owns an output tile of T0 = G * R rows along n0 by T1
+//    positions along n1 by a chunk of the contiguous n2 * inner row. Its
+//    raw input box, (T0 + k0 - 1) x (T1 + k1 - 1) segments of
+//    chunk + (k2 - 1) * inner elements, is staged in shared memory as
+//    pieces: a whole box row where the chunk is the row and k2 == 1 (the
+//    row of segments is contiguous in device memory), else each segment.
+//    The box sits at its source's alignment, so a piece's in-range part
+//    moves in 16-byte cp.async blocks, neighbouring threads on
+//    neighbouring blocks; only positions outside the array are mapped by
+//    the boundary mode, element by element;
+//  - blocks are persistent (the SM count times the blocks that fit) and
+//    copy their next tile's box into a second buffer while they compute
+//    the current one;
+//  - each thread owns one (n1 position, row element) of the tile, fixed
+//    for the launch (no division per output), and a run of R outputs
+//    along n0. It walks the R + k0 - 1 box rows of its column once; each
+//    row's k1 * k2 values are read from shared memory once and added to
+//    every output of the run for which that row is tap row j0: R * k0 *
+//    k1 * k2 terms from (R + k0 - 1) * k1 * k2 reads (6.25 a disk output
+//    at R = 16, against 25 values and 25 weights for an output formed
+//    alone). R is 16 or 8 (default_plan, from python -m
+//    nd_tpu_torch.scan_sweep stencil);
+//  - every window of at most 7 rows along n0 and 9 taps a box row
+//    (k1 * k2), and at most 64 f32 (32 f64) taps, has a build with its
+//    tap counts known at compile time (the unrolled builds, one for each
+//    (k0, k1 * k2), in stencil_f{32,64}_r{8,16}.cu so that nvcc builds
+//    them in parallel): the weights travel by value in the launch
+//    parameters and each is an immediate operand of its product; the
+//    tap row of each (box row, output) pair is a constant, so no
+//    per-output test or weight load is left in the run;
+//  - other windows take the generic build: runtime loops over the taps,
+//    the weights in shared memory.
+// A kernel whose two boxes fit no tile (a 2-D window of more than about
+// 58 taps a side over rows of 8 or more f32 elements) takes the direct
+// route: every output from device memory (through L1 and L2), weights
+// from device memory.
 //
 // Numerics: per output one accumulator over the taps in row-major order
-// (j0, then j1, then j2), acc = w[0] * x[0], then acc = acc + w[t] * x[t];
-// zero weights included (a NaN under a zero weight propagates, as in the
-// XLA convolution). Built with -fmad=false, so no multiply-add is
-// contracted: the result equals the plain PyTorch version
-// (ops/stencil_cuda.py stencil_plain), which does the same products and
-// adds in the same order, bit for bit, and the result of an output does
-// not depend on the tile it falls in (njobs chunks equal the whole call).
+// (j0, then j1, then j2): acc = -0 + w[0] * x[0] (which is the product
+// itself, bit for bit), then acc = acc + w[t] * x[t]; zero weights
+// included (a NaN under a zero weight propagates, as in the XLA
+// convolution). A thread's run adds row r's terms to each output in turn,
+// so each output still takes its terms in row-major order. Built with
+// -fmad=false, so no multiply-add is contracted: the result equals the
+// plain PyTorch version (ops/stencil_cuda.py stencil_plain), which does
+// the same products and adds in the same order, bit for bit, and the
+// result of an output does not depend on the tile, run or build it falls
+// in (njobs chunks equal the whole call).
 
 #include <cuda_runtime.h>
 
-#include "stage.cuh"
+#include <cstring>
+#include <mutex>
+
+#include "stencil.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemMax = 232448;       // shared memory a block may use
-constexpr int kTileOutputs = 2048;     // outputs a tile aims for
-
-enum Mode { kReflect = 0, kMirror = 1, kNearest = 2, kConstant = 3, kWrap = 4 };
-
-// In-range source index of position j on an axis of n samples under the
-// scipy.ndimage boundary mode; -1 means the constant fill (sepconv.cu's
-// mapping).
-__device__ __forceinline__ int edge_src(int j, int n, int mode) {
-  if (j >= 0 && j < n) return j;
-  switch (mode) {
-    case kReflect: {  // numpy 'symmetric': -1 -> 0, n -> n-1
-      int p = 2 * n;
-      j %= p;
-      if (j < 0) j += p;
-      return j < n ? j : p - 1 - j;
-    }
-    case kMirror: {  // numpy 'reflect': -1 -> 1, n -> n-2
-      if (n == 1) return 0;
-      int p = 2 * n - 2;
-      j %= p;
-      if (j < 0) j += p;
-      return j < n ? j : p - j;
-    }
-    case kNearest:
-      return j < 0 ? 0 : n - 1;
-    case kWrap:
-      j %= n;
-      return j < 0 ? j + n : j;
-    default:
-      return -1;
-  }
-}
-
-// Geometry of one launch, chosen on the host (plan()).
-struct Geo {
-  int n0, n1, n2, inner, row_len;
-  int k0, k1, k2, lo0, lo1, lo2, taps;
-  int t0, t1, chunk;       // output tile: (n0, n1) positions by row elems
-  int h0, h1, lp;          // staged box: h0 x h1 rows of lp elements
-  int wpad;                // weights' shared-memory slots (16-byte aligned)
-  int nb0, nb1, nbc;       // tiles per axis
-  long long tiles;
-};
-
-// Position p of the staged row (relative to the row start, may lie
-// outside it) as a row element, mapped along n2; -1 for the fill.
-__device__ __forceinline__ int row_src(int p, const Geo& g, int mode) {
-  if (p >= 0 && p < g.row_len) return p;
-  int i2 = p >= 0 ? p / g.inner : -((-p + g.inner - 1) / g.inner);
-  const int ii = p - i2 * g.inner;
-  i2 = edge_src(i2, g.n2, mode);
-  return i2 < 0 ? -1 : i2 * g.inner + ii;
-}
-
-// The tile's raw box into shared memory: cp.async for an interior tile,
-// boundary-mapped loads for an edge tile. Box element (r, c, p) is input
-// (o, r0 + r, c0 + c, row position s0 + p).
-template <typename T>
-__device__ void stage_box(const T* __restrict__ plane, T* box, int r0, int c0,
-                          int s0, const Geo& g, int mode, T cval) {
-  const int n = g.h0 * g.h1 * g.lp;
-  const bool interior = r0 >= 0 && r0 + g.h0 <= g.n0 && c0 >= 0 &&
-                        c0 + g.h1 <= g.n1 && s0 >= 0 &&
-                        s0 + g.lp <= g.row_len;
-  if (interior) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int p = e % g.lp;
-      const int rc = e / g.lp;
-      const int c = rc % g.h1, r = rc / g.h1;
-      cp_async_elem(box + e,
-                    plane + ((long long)(r0 + r) * g.n1 + (c0 + c)) *
-                                g.row_len + (s0 + p));
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int p = row_src(s0 + e % g.lp, g, mode);
-    const int rc = e / g.lp;
-    const int c = edge_src(c0 + rc % g.h1, g.n1, mode);
-    const int r = edge_src(r0 + rc / g.h1, g.n0, mode);
-    box[e] = (p < 0 || c < 0 || r < 0)
-                 ? cval
-                 : plane[((long long)r * g.n1 + c) * g.row_len + p];
-  }
-}
-
-// K0, K1, K2 > 0: the tap counts known at compile time (the tap loops
-// unroll fully); 0: read from g.
-template <typename T, int K0, int K1, int K2>
-__global__ void __launch_bounds__(kThreads)
-    stencil_tiled(const T* __restrict__ in, T* __restrict__ out,
-                  const T* __restrict__ w, Geo g, int mode, T cval) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* const ws = reinterpret_cast<T*>(smem);
-  T* const box = ws + g.wpad;
-  const int k0 = K0 > 0 ? K0 : g.k0;
-  const int k1 = K1 > 0 ? K1 : g.k1;
-  const int k2 = K2 > 0 ? K2 : g.k2;
-  for (int i = threadIdx.x; i < g.taps; i += blockDim.x) ws[i] = w[i];
-  const int rstride = g.h1 * g.lp;        // box: one n0 row
-  const long long plane_len = (long long)g.n0 * g.n1 * g.row_len;
-  for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-    const int bc = (int)(tile % g.nbc);
-    long long rest = tile / g.nbc;
-    const int b1 = (int)(rest % g.nb1);
-    rest /= g.nb1;
-    const int b0 = (int)(rest % g.nb0);
-    const long long o = rest / g.nb0;
-    const int o0 = b0 * g.t0, o1 = b1 * g.t1, col0 = bc * g.chunk;
-    const T* plane = in + o * plane_len;
-    stage_box(plane, box, o0 - g.lo0, o1 - g.lo1, col0 - g.lo2 * g.inner, g,
-              mode, cval);
-    cp_async_commit();
-    wait_pending(0);
-    __syncthreads();
-    T* const dst = out + o * plane_len;
-    const int per_y = g.t1 * g.chunk;
-    for (int e = threadIdx.x; e < g.t0 * per_y; e += blockDim.x) {
-      const int y = e / per_y;
-      const int rem = e - y * per_y;
-      const int x = rem / g.chunk;
-      const int l = rem - x * g.chunk;
-      if (o0 + y >= g.n0 || o1 + x >= g.n1 || col0 + l >= g.row_len) continue;
-      const T* s = box + (y * g.h1 + x) * g.lp + l;
-      const T* wt = ws;
-      T acc = T(0);
-#pragma unroll
-      for (int j0 = 0; j0 < k0; ++j0) {
-#pragma unroll
-        for (int j1 = 0; j1 < k1; ++j1) {
-#pragma unroll
-          for (int j2 = 0; j2 < k2; ++j2) {
-            const T term = s[j0 * rstride + j1 * g.lp + j2 * g.inner] * *wt;
-            acc = (wt == ws) ? term : acc + term;
-            ++wt;
-          }
-        }
-      }
-      dst[((long long)(o0 + y) * g.n1 + (o1 + x)) * g.row_len + col0 + l] =
-          acc;
-    }
-    __syncthreads();
-  }
-}
+using namespace nd_stencil;
 
 // The direct route: one output per thread and step of a grid-stride loop,
 // every tap read from device memory, weights too; the taps' order and the
@@ -214,19 +101,24 @@ __global__ void __launch_bounds__(kThreads)
     const int i0 = (int)(rest % g.n0);
     const long long o = rest / g.n0;
     const T* plane = in + o * plane_len;
-    T acc = T(0);
+    T acc = T(-0.0);
     int t = 0;
     for (int j0 = 0; j0 < g.k0; ++j0) {
       const int r = edge_src(i0 - g.lo0 + j0, g.n0, mode);
       for (int j1 = 0; j1 < g.k1; ++j1) {
         const int c = edge_src(i1 - g.lo1 + j1, g.n1, mode);
         for (int j2 = 0; j2 < g.k2; ++j2, ++t) {
-          const int p = row_src(col + (j2 - g.lo2) * g.inner, g, mode);
+          int p = col + (j2 - g.lo2) * g.inner;
+          if (p < 0 || p >= g.row_len) {
+            int i2 = p >= 0 ? p / g.inner : -((-p + g.inner - 1) / g.inner);
+            const int ii = p - i2 * g.inner;
+            i2 = edge_src(i2, g.n2, mode);
+            p = i2 < 0 ? -1 : i2 * g.inner + ii;
+          }
           const T v = (r < 0 || c < 0 || p < 0)
                           ? cval
                           : plane[((long long)r * g.n1 + c) * g.row_len + p];
-          const T term = v * w[t];
-          acc = t == 0 ? term : acc + term;
+          acc = acc + v * w[t];
         }
       }
     }
@@ -234,79 +126,197 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t smem_bytes(const Geo& g, size_t item) {
-  return ((size_t)g.wpad + (size_t)g.h0 * g.h1 * g.lp) * item;
+long long round_up(long long v, long long m) { return (v + m - 1) / m * m; }
+
+// The least value >= v congruent to like mod m.
+long long congruent(long long v, long long like, long long m) {
+  return v + (((like - v) % m) + m) % m;
 }
 
-// The tile: the row chunk splits the row evenly in pieces of at most 64
-// elements; T0 = T1 = 8, doubled (up to 32, cut to the axis) while a tile
-// has fewer than kTileOutputs outputs (short rows: the stacked variables'
-// time axis); then halved, chunk first, until the box fits the shared
-// memory. tiles == 0: no tile fits, the direct route.
+// Shared-memory wavefronts of a warp's box read over those of a read
+// without bank conflicts: the first warp's lanes (x, l) read word
+// x * seg + l (two words a lane in f64) of a group's rows.
+double conflicts(const Geo& c, int item) {
+  int words[32][64];
+  int count[32] = {0};
+  int most = 0;
+  const int per = item / 4;
+  for (int lane = 0; lane < 32 && lane < c.g0 * c.pos; ++lane) {
+    const int grp = lane / c.pos, at = lane - grp * c.pos;
+    const int x = at / c.chunk, l = at - x * c.chunk;
+    const long long base =
+        ((long long)grp * c.run * c.rstride + (long long)x * c.seg + l) * per;
+    for (int h = 0; h < per; ++h) {
+      const int word = (int)((base + h) % 4096);
+      const int bank = word % 32;
+      bool seen = false;
+      for (int i = 0; i < count[bank]; ++i) seen |= words[bank][i] == word;
+      if (!seen && count[bank] < 64) words[bank][count[bank]++] = word;
+      if (count[bank] > most) most = count[bank];
+    }
+  }
+  return most / (double)per;
+}
+
+// The tile: over the row chunks (the whole row; the row split evenly, or
+// in powers of two, into chunks of at least 8 elements) and the thread
+// groups along n0, the widest n1 extent that keeps g0 * t1 * chunk <=
+// kThreads (balanced over n1), whose two boxes and the weights fit the
+// shared memory; of these, the one with the least estimated instruction
+// count a launch: the tap products and adds, the box reads (a bank conflict
+// counted as four reads more), the staging items (40 instructions each,
+// kBlocks 16-byte blocks or one element) and a tile's fixed work,
+// ragged tiles and idle warps included. tiles == 0: no tile fits, the
+// direct route.
 Geo plan(int outer, int n0, int n1, int n2, int inner, int k0, int k1, int k2,
-         size_t item) {
+         int item, int run) {
   Geo g{};
+  g.outer = outer;
   g.n0 = n0; g.n1 = n1; g.n2 = n2; g.inner = inner;
   g.row_len = n2 * inner;
   g.k0 = k0; g.k1 = k1; g.k2 = k2;
   g.lo0 = (k0 - 1) / 2; g.lo1 = (k1 - 1) / 2; g.lo2 = (k2 - 1) / 2;
   g.taps = k0 * k1 * k2;
-  const int per16 = (int)(16 / item);
-  g.wpad = (g.taps + per16 - 1) / per16 * per16;
-  const int nch = (g.row_len + 63) / 64;
-  g.chunk = (g.row_len + nch - 1) / nch;
-  int side = 8;
-  while (side < 32 && side * side * g.chunk < kTileOutputs) side *= 2;
-  g.t0 = side < n0 ? side : n0;
-  g.t1 = side < n1 ? side : n1;
-  for (;;) {
-    g.h0 = g.t0 + k0 - 1;
-    g.h1 = g.t1 + k1 - 1;
-    g.lp = g.chunk + (k2 - 1) * inner;
-    if (smem_bytes(g, item) <= (size_t)kSmemMax) break;
-    if (g.chunk > 1) {
-      g.chunk = (g.chunk + 1) / 2;
-    } else if (g.t1 > 1 && g.t1 >= g.t0) {
-      g.t1 = (g.t1 + 1) / 2;
-    } else if (g.t0 > 1) {
-      g.t0 = (g.t0 + 1) / 2;
-    } else {
-      g.tiles = 0;
-      return g;
+  g.run = run;
+  const int vec16 = 16 / item;
+  const int k12 = k1 * k2;
+  g.wpad = (int)round_up(g.taps, vec16);   // the generic build's weights
+  const int least = g.row_len < 8 ? g.row_len : 8;
+  int chunks[48];
+  int nc = 0;
+  if (g.row_len <= kThreads) chunks[nc++] = g.row_len;
+  for (int m = 2; m <= 32; ++m) {
+    const int c = (g.row_len + m - 1) / m;
+    if (c <= kThreads && c < g.row_len && c >= least) chunks[nc++] = c;
+  }
+  for (int c = kThreads; c >= least; c /= 2)
+    if (c < g.row_len) chunks[nc++] = c;
+  double best = -1.0;
+  Geo pick = g;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int chunk = chunks[ci];
+    for (int g0 = 1; g0 * chunk <= kThreads; g0 *= 2) {
+      int t1 = kThreads / (g0 * chunk);
+      if (t1 > n1) t1 = n1;
+      const int nb1 = (n1 + t1 - 1) / t1;
+      t1 = (n1 + nb1 - 1) / nb1;
+      Geo c = g;
+      c.g0 = g0;
+      c.chunk = chunk;
+      c.t1 = t1;
+      c.t0 = g0 * run;
+      c.pos = t1 * chunk;
+      c.h0 = c.t0 + k0 - 1;
+      c.h1 = t1 + k1 - 1;
+      c.lp = chunk + (k2 - 1) * inner;
+      c.flat = k2 == 1 && chunk == g.row_len &&
+               (long long)n1 * g.row_len < (1LL << 30);
+      const long long line = (long long)n1 * g.row_len;   // a row of n0
+      c.vec = vec16;
+      c.seg = c.flat ? g.row_len : (int)congruent(c.lp, g.row_len, vec16);
+      const long long rstride = congruent(
+          (long long)c.h1 * c.seg + vec16 - 1, line, vec16);
+      const long long box = round_up((long long)c.h0 * rstride, vec16);
+      if ((c.wpad + 2 * box) * item > kSmemMax) continue;
+      c.rstride = (int)rstride;
+      c.box = (int)box;
+      c.nb0 = (n0 + c.t0 - 1) / c.t0;
+      c.nb1 = nb1;
+      c.nbc = (g.row_len + chunk - 1) / chunk;
+      c.tiles = (long long)outer * c.nb0 * c.nb1 * c.nbc;
+      // an interior tile's pieces: in-range length and positions outside
+      const long long len = c.flat ? (long long)c.h1 * g.row_len : c.lp;
+      const long long inr = c.flat ? len : (c.lp < g.row_len ? c.lp
+                                                             : g.row_len);
+      const long long nv = (inr + 2 * c.vec - 2) / c.vec;
+      const long long items =
+          (long long)c.h0 * (c.flat ? 1 : c.h1) *
+          ((nv + kBlocks - 1) / kBlocks + (len - inr));
+      const double threads = (double)((g0 * c.pos + 31) / 32 * 32);
+      const double reads = (double)(run + k0 - 1) * k12 *
+                           (1.0 + 4.0 * (conflicts(c, item) - 1.0));
+      const double cost =
+          (double)c.tiles *
+          (threads * (2.0 * run * g.taps + reads + 60.0) + 40.0 * items);
+      if (best < 0 || cost < best) {
+        best = cost;
+        pick = c;
+      }
     }
   }
-  g.nb0 = (n0 + g.t0 - 1) / g.t0;
-  g.nb1 = (n1 + g.t1 - 1) / g.t1;
-  g.nbc = (g.row_len + g.chunk - 1) / g.chunk;
-  g.tiles = (long long)outer * g.nb0 * g.nb1 * g.nbc;
+  if (best < 0) pick.tiles = 0;
+  return pick;
+}
+
+// plan() of the last launches' extents (a plan costs tens of
+// microseconds): a small table under a lock, filled round-robin.
+Geo cached_plan(int outer, int n0, int n1, int n2, int inner, int k0, int k1,
+                int k2, int item, int run) {
+  struct Entry {
+    int key[10];
+    Geo g;
+  };
+  static std::mutex lock;
+  static Entry table[32];
+  static int used = 0, next = 0;
+  const int key[10] = {outer, n0, n1, n2, inner, k0, k1, k2, item, run};
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < used; ++i)
+      if (!std::memcmp(table[i].key, key, sizeof(key))) return table[i].g;
+  }
+  const Geo g = plan(outer, n0, n1, n2, inner, k0, k1, k2, item, run);
+  std::lock_guard<std::mutex> hold(lock);
+  std::memcpy(table[next].key, key, sizeof(key));
+  table[next].g = g;
+  next = (next + 1) % 32;
+  if (used < 32) ++used;
   return g;
 }
 
-template <typename T, int K0, int K1, int K2>
-int launch_tiled(const T* in, T* out, const T* w, const Geo& g, int mode,
-                 T cval, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g, sizeof(T));
-  int err = (int)cudaFuncSetAttribute(
-      stencil_tiled<T, K0, K1, K2>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const long long blocks = g.tiles < 0x7fffffffLL ? g.tiles : 0x7fffffffLL;
-  stencil_tiled<T, K0, K1, K2><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      in, out, w, g, mode, cval);
-  return (int)cudaGetLastError();
+template <typename T, int R>
+int launch_run(const T* in, T* out, const T* w, const Taps<T>& taps,
+               const Geo& g, int mode, T cval, bool unroll,
+               cudaStream_t s) {
+  if (unroll && unrolled<T>(g.k0, g.k1, g.k2))
+    return launch_grid<T, R>(g.k0, g.k1 * g.k2, in, out, w, taps, g, mode,
+                             cval, s);
+  return launch_tiled<T, 0, 1, R>(in, out, w, taps, g, mode, cval, s);
+}
+
+bool valid_run(int run) { return run == 8 || run == 16; }
+
+// The run a launch takes when the caller leaves it to the kernel (run 0),
+// from python -m nd_tpu_torch.scan_sweep stencil: 16 outputs a thread for
+// an unrolled window whose box rows are whole contiguous rows (flat) or
+// whose window spans the row (k2 > 1), 8 otherwise (rows cut in chunks
+// for a two-axis window, the generic build).
+template <typename T>
+Geo default_plan(int outer, int n0, int n1, int n2, int inner, int k0, int k1,
+                 int k2, bool unroll) {
+  const int item = (int)sizeof(T);
+  Geo g = cached_plan(outer, n0, n1, n2, inner, k0, k1, k2, item, 16);
+  if (g.tiles && unroll && unrolled<T>(k0, k1, k2) && (g.flat || k2 > 1))
+    return g;
+  return cached_plan(outer, n0, n1, n2, inner, k0, k1, k2, item, 8);
 }
 
 template <typename T>
 int launch(const void* in, void* out, long long outer, int n0, int n1, int n2,
-           long long inner, const void* w, int k0, int k1, int k2, int mode,
-           double cval, void* stream) {
-  if (k0 < 1 || k1 < 1 || k2 < 1 || mode < 0 || mode > kWrap)
+           long long inner, const void* w, const void* wh, int k0, int k1,
+           int k2, int mode, double cval, int run, int unroll, void* stream) {
+  if (k0 < 1 || k1 < 1 || k2 < 1 || mode < 0 || mode > kWrap ||
+      (run && !valid_run(run)))
     return (int)cudaErrorInvalidValue;
   if ((long long)n2 * inner >= (1LL << 31) || outer >= (1LL << 31) ||
       (long long)k0 * k1 * k2 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (outer == 0 || n0 == 0 || n1 == 0 || n2 * inner == 0) return 0;
-  Geo g = plan((int)outer, n0, n1, n2, (int)inner, k0, k1, k2, sizeof(T));
+  Geo g = run ? cached_plan((int)outer, n0, n1, n2, (int)inner, k0, k1, k2,
+                            (int)sizeof(T), run)
+              : default_plan<T>((int)outer, n0, n1, n2, (int)inner, k0, k1,
+                                k2, unroll != 0);
+  g.mis = (int)((reinterpret_cast<uintptr_t>(in) / sizeof(T)) & (g.vec - 1));
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   const T* wt = static_cast<const T*>(w);
@@ -320,38 +330,56 @@ int launch(const void* in, void* out, long long outer, int n0, int n1, int n2,
                                                            total, mode, cv);
     return (int)cudaGetLastError();
   }
-  // the path's two windows, unrolled (python -m nd_tpu_torch.scan_sweep
-  // stencil times them against the generic build): the 5 x 5 disk over
-  // (y, x) and the 3 x 3 x 3 stencil over (y, x, time)
-  if (k0 == 5 && k1 == 5 && k2 == 1)
-    return launch_tiled<T, 5, 5, 1>(src, dst, wt, g, mode, cv, s);
-  if (k0 == 3 && k1 == 3 && k2 == 3)
-    return launch_tiled<T, 3, 3, 3>(src, dst, wt, g, mode, cv, s);
-  return launch_tiled<T, 0, 0, 0>(src, dst, wt, g, mode, cv, s);
+  Taps<T> taps;
+  std::memset(&taps, 0, sizeof(taps));
+  if (g.taps <= param_taps<T>()) std::memcpy(taps.w, wh, sizeof(T) * g.taps);
+  const bool un = unroll != 0;
+  if (g.run == 16)
+    return launch_run<T, 16>(src, dst, wt, taps, g, mode, cv, un, s);
+  return launch_run<T, 8>(src, dst, wt, taps, g, mode, cv, un, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The route a launch of these extents takes: 1 tiled, 0 direct.
+// The route a launch of these extents takes: 0
+// direct, 1 tiled with runtime tap loops (the generic build), 2 tiled with
+// the window unrolled. run 0: the default run (default_plan), else 8 or
+// 16.
 int nd_stencil_tiled(int n0, int n1, int n2, long long inner, int k0, int k1,
-                     int k2, int item) {
-  return plan(1, n0, n1, n2, (int)inner, k0, k1, k2, (size_t)item).tiles > 0;
+                     int k2, int item, int run, int unroll) {
+  if ((run && !valid_run(run)) || (item != 4 && item != 8)) return -1;
+  const Geo g =
+      run ? cached_plan(1, n0, n1, n2, (int)inner, k0, k1, k2, item, run)
+      : item == 4
+          ? default_plan<float>(1, n0, n1, n2, (int)inner, k0, k1, k2, unroll)
+          : default_plan<double>(1, n0, n1, n2, (int)inner, k0, k1, k2,
+                                 unroll);
+  if (g.tiles == 0) return 0;
+  const bool un = unroll && (item == 4 ? unrolled<float>(k0, k1, k2)
+                                       : unrolled<double>(k0, k1, k2));
+  return un ? 2 : 1;
 }
 
+// w: the flipped kernel on the device; wh: the same values on the host
+// (read during the call; the launch passes up to 64 f32 or 32 f64 of them
+// by value). run: outputs a thread runs along n0 (0: default_plan's; 8 or
+// 16). unroll 0 forces the generic build.
 int nd_stencil_f32(const void* in, void* out, long long outer, int n0, int n1,
-                   int n2, long long inner, const void* w, int k0, int k1,
-                   int k2, int mode, double cval, void* stream) {
-  return launch<float>(in, out, outer, n0, n1, n2, inner, w, k0, k1, k2, mode,
-                       cval, stream);
+                   int n2, long long inner, const void* w, const void* wh,
+                   int k0, int k1, int k2, int mode, double cval, int run,
+                   int unroll, void* stream) {
+  return launch<float>(in, out, outer, n0, n1, n2, inner, w, wh, k0, k1, k2,
+                       mode, cval, run, unroll, stream);
 }
 
 int nd_stencil_f64(const void* in, void* out, long long outer, int n0, int n1,
-                   int n2, long long inner, const void* w, int k0, int k1,
-                   int k2, int mode, double cval, void* stream) {
-  return launch<double>(in, out, outer, n0, n1, n2, inner, w, k0, k1, k2,
-                        mode, cval, stream);
+                   int n2, long long inner, const void* w, const void* wh,
+                   int k0, int k1, int k2, int mode, double cval, int run,
+                   int unroll, void* stream) {
+  return launch<double>(in, out, outer, n0, n1, n2, inner, w, wh, k0, k1, k2,
+                        mode, cval, run, unroll, stream);
 }
 
 }  // extern "C"

@@ -10,9 +10,16 @@ Replaces ``nd_tpu/ops/conv.py`` ``_conv_valid`` (XLA's
 ``conv_general_dilated``, no Pallas kernel).
 
 On the H100 the kernel is bound by device-memory bytes at the path's
-windows. Each block stages a tile's halo box and the weights in shared
-memory and forms every output of the tile there; a kernel too large for
-any tile reads device memory directly. See the source for the design.
+windows. Persistent blocks stage each tile's halo box in shared memory
+(16-byte copies where the layout allows, the next tile's box while they
+compute the current one); each thread slides a run of ``RUN`` outputs
+along n0, reading each staged value once for the whole run. Every
+window of at most 7 rows along n0, 9 taps a row (k1 * k2) and 64
+float32 (32 float64) taps is unrolled at compile time, its weights
+passed by value in the launch parameters (``UNROLLED``); other windows
+take runtime tap loops with the weights in shared memory. A kernel too
+large for any tile reads device memory directly. See the source for the
+design.
 
 Numerics: one accumulator per output over the taps in row-major order,
 each tap's product rounded, then added (``-fmad=false``), zero taps
@@ -27,6 +34,7 @@ device raises. ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -35,13 +43,21 @@ import torch
 from .. import _build
 from .conv import pad_reflect
 
-__all__ = ['stencil', 'stencil_plain', 'stencil_tiled', 'MODES',
-           'launches']
+__all__ = ['stencil', 'stencil_plain', 'stencil_tiled', 'stencil_route',
+           'MODES', 'RUN', 'UNROLLED', 'launches']
 
 MODES = {'reflect': 0, 'mirror': 1, 'nearest': 2, 'constant': 3,
          'wrap': 4}
 
 launches = 0           # stencil kernel launches since import (or reset)
+# outputs a thread runs along n0: 0 takes the kernel's default
+# (default_plan in csrc/stencil.cu); 8 or 16 force one (python -m
+# nd_tpu_torch.scan_sweep stencil sweeps them)
+RUN = 0
+# False forces the generic build on windows that have an unrolled one (the
+# sweep's A/B); both give the same bits
+UNROLLED = True
+_ROUTES = ('direct', 'generic', 'unrolled')
 
 
 def reset_launches():
@@ -88,18 +104,40 @@ def stencil_plain(x, kernel, mode='reflect', cval=0.0):
 
 
 @functools.lru_cache(maxsize=64)
-def _device_weights(weights, shape, dtype, device):
-    """The flipped kernel on the card in the kernel's dtype (each weight
-    rounded once from float64), cached so that a call copies nothing."""
-    return torch.tensor(weights, dtype=dtype, device=device).reshape(shape)
+def _cached_weights(data, shape, dtype, device):
+    host = np.frombuffer(data, np.float64).reshape(shape).astype(
+        np.float32 if dtype == torch.float32 else np.float64)
+    return host, torch.from_numpy(host).to(device)
+
+
+def _weights(k, dtype, device):
+    """The flipped kernel ``k`` in ``dtype`` (each weight rounded once from
+    float64) on the host, whose values the launch passes by value, and on
+    ``device``, cached by the kernel's float64 bytes, shape, dtype and
+    device so that a call copies nothing."""
+    k = np.ascontiguousarray(k, np.float64)
+    return _cached_weights(k.tobytes(), k.shape, dtype, device)
 
 
 @functools.lru_cache(maxsize=256)
+def stencil_route(n0, n1, n2, inner, k0, k1, k2, itemsize, run=0,
+                  unrolled=True):
+    """'unrolled' or 'generic' where the kernel takes these extents in
+    shared-memory tiles (the window unrolled at compile time, or runtime
+    tap loops), 'direct' where it reads device memory directly (the plan
+    in csrc/stencil.cu)."""
+    fn = _build.function('nd_stencil_tiled', 'iiiqiiiiii')
+    route = fn(n0, n1, n2, inner, k0, k1, k2, itemsize, run, int(unrolled))
+    if route < 0:
+        raise ValueError('stencil run %r or item size %r not built'
+                         % (run, itemsize))
+    return _ROUTES[route]
+
+
 def stencil_tiled(n0, n1, n2, inner, k0, k1, k2, itemsize):
     """True where the kernel takes these extents in shared-memory tiles,
-    False where it takes the direct route (the plan in csrc/stencil.cu)."""
-    fn = _build.function('nd_stencil_tiled', 'iiiqiiii')
-    return bool(fn(n0, n1, n2, inner, k0, k1, k2, itemsize))
+    False where it takes the direct route."""
+    return stencil_route(n0, n1, n2, inner, k0, k1, k2, itemsize) != 'direct'
 
 
 def stencil(x, kernel, mode='reflect', cval=0.0):
@@ -113,16 +151,17 @@ def stencil(x, kernel, mode='reflect', cval=0.0):
     if x.device.type != 'cuda':
         raise ValueError('stencil runs on cuda or cpu tensors, not %s'
                          % x.device)
-    w = _device_weights(tuple(np.asarray(k, np.float64).ravel().tolist()),
-                        k.shape, x.dtype, x.device)
+    host, w = _weights(k, x.dtype, x.device)
     out = torch.empty_like(x)
     name = 'nd_stencil_f32' if x.dtype == torch.float32 else 'nd_stencil_f64'
-    fn = _build.function(name, 'ppqiiiqpiiiidp')
-    outer, n0, n1, n2, inner = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), outer, n0, n1, n2, inner,
-                 w.data_ptr(), *k.shape, MODES[mode], float(cval), stream)
+    fn = _build.function(name, 'ppqiiiqppiiiidiip')
+    index = x.device.index
+    guard = torch.cuda.device(index) if index != torch.cuda.current_device() \
+        else contextlib.nullcontext()
+    with guard:
+        err = fn(x.data_ptr(), out.data_ptr(), *x.shape, w.data_ptr(),
+                 host.ctypes.data, *k.shape, MODES[mode], float(cval), RUN,
+                 int(UNROLLED), torch._C._cuda_getCurrentRawStream(index))
     _build.bump(globals(), 'launches')
     _build.check(name, err)
     return out

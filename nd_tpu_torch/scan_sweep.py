@@ -40,10 +40,18 @@ stencil (not in the default set): times the stencil kernel
 (``csrc/stencil.cu``) at ``chip_smoke.py`` S1's shapes, the 5 x 5 disk
 over the stacked views that ``ConvolutionFilter`` launches for the four
 variables (4 x 1024 x 1024 x 11, x 12, x 3) and over the bench cube's
-(1, y, x, 48) view, and the 27-point Laplacian over (y, x, time) of the
-long stack's C11; each output must equal ``stencil_plain``'s. Four
-medians of 5 per shape. Run it from two checkouts in one call to compare
-two builds of the kernel.
+(1, y, x, 48) view, the 27-point Laplacian over (y, x, time) of the long
+stack's C11, and over the 11-wide stacked view the 3 x 3 and 7 x 7 disks
+and a random 4 x 3 x 2 kernel (its last axis over time); each output
+must equal ``stencil_plain``'s. Per row: four medians of 5 single calls
+(CUDA events around one call, the wrapper's host work included), the
+device time a launch over 50 back-to-back calls, and the kernel's device
+time under ``torch.profiler``; then the back-to-back time at each run
+length (``stencil_cuda.RUN`` 8, 16) and, for a window with an
+unrolled build, the unrolled and the generic build in turns (unrolled,
+generic, generic, unrolled; ``stencil_cuda.UNROLLED``). A tree without
+those knobs (an older checkout) prints the first line only. Run it from
+two checkouts in one call to compare two versions of the kernel.
 
 Each plan's flags and margins must be bit-equal to the plain version's
 (a failure raises); its time is the median of 5 CUDA-event timings of
@@ -178,6 +186,56 @@ def _taps_sweep(cs, card, dev):
                      statistics.median(times), card), flush=True)
 
 
+def back_to_back_ms(fn, n=50, reps=5):
+    """ms a call of n back-to-back calls between one event pair (median of
+    reps after one warm-up run): the device time of a launch, the
+    wrapper's host work hidden behind the previous launch."""
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def profiler_ms(fn, name, n=20):
+    """The mean device time of the kernels whose name holds ``name`` under
+    torch.profiler over n calls (after one warm-up call), over the events
+    it caught: a process's earlier profiler windows can leave a later one
+    without some events (chip_smoke.py phase 17)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not spans:
+        raise RuntimeError('torch.profiler caught no %r kernel' % name)
+    return sum(spans) / 1e3 / len(spans)
+
+
+def _disk(r):
+    """The flipped (2r+1, 2r+1, 1) disk of radius**2 <= r*r + 1 (r = 2:
+    chip_smoke.DISK), zero taps included."""
+    import numpy as np
+    ax = np.arange(-r, r + 1)
+    d = (ax[:, None] ** 2 + ax[None, :] ** 2 <= r * r + 1).astype(float)
+    return (d / d.sum())[:, :, None]
+
+
 def _stencil_sweep(cs, card, dev):
     import numpy as np
     from .ops import stencil_cuda
@@ -190,24 +248,76 @@ def _stencil_sweep(cs, card, dev):
     def stacked(c, k):
         return c[:, :, :k].permute(3, 0, 1, 2).contiguous().reshape(
             4, cs.NY, cs.NX, 1, k)
-    rows = [('disk stacked (4,y,x,1,11)', stacked(stack, 11), disk),
+    comp = stacked(stack, 11)
+    rows = [('disk stacked (4,y,x,1,11)', comp, disk),
             ('disk stacked (4,y,x,1,12)', stacked(cube, cs.K), disk),
             ('disk stacked (4,y,x,1,3)', stacked(cube, cs.K // 4), disk),
             ('disk bench (1,y,x,1,48)',
              cube.reshape(1, cs.NY, cs.NX, 1, cs.K * 4), disk),
             ('Laplace27 C11 (1,y,x,56,1)',
              stack[..., 0].contiguous().reshape(1, cs.NY, cs.NX, cs.KL, 1),
-             np.flip(cs.LAPLACE27))]
+             np.flip(cs.LAPLACE27)),
+            ('disk3 stacked (4,y,x,1,11)', comp, _disk(1)),
+            ('disk7 stacked (4,y,x,1,11)', comp, _disk(3)),
+            ('random 4x3x2 stacked (4,y,x,11,1)',
+             comp.reshape(4, cs.NY, cs.NX, 11, 1),
+             np.random.RandomState(cs.SEED + 14).rand(4, 3, 2) - 0.3)]
+    knobs = hasattr(stencil_cuda, 'UNROLLED')    # a tree before the knobs
     for label, x, k in rows:
-        if not torch.equal(stencil_cuda.stencil(x, k),
-                           stencil_cuda.stencil_plain(x, k)):
+        def call():
+            return stencil_cuda.stencil(x, k)
+        ref = stencil_cuda.stencil_plain(x, k)
+        if not torch.equal(call(), ref):
             raise RuntimeError('stencil %s differs from its plain version'
                                % label)
-        times = [_ms(lambda: stencil_cuda.stencil(x, k)) for _ in range(4)]
-        print('stencil %s k %s: %s ms (median %.4f) | %s'
-              % (label, 'x'.join(map(str, k.shape)),
+        if knobs:
+            route = stencil_cuda.stencil_route(*x.shape[1:], *k.shape,
+                                               x.element_size())
+        else:
+            route = 'tiled' if stencil_cuda.stencil_tiled(
+                *x.shape[1:], *k.shape, x.element_size()) else 'direct'
+        times = [_ms(call) for _ in range(4)]
+        print('stencil %s k %s (%s): single call %s ms (median %.4f); '
+              'back-to-back %.4f ms a launch; profiler device %.4f ms a '
+              'launch | %s'
+              % (label, 'x'.join(map(str, k.shape)), route,
                  ' '.join('%.4f' % t for t in times),
-                 statistics.median(times), card), flush=True)
+                 statistics.median(times), back_to_back_ms(call),
+                 profiler_ms(call, 'stencil'), card), flush=True)
+        if not knobs:
+            continue
+        runs = {}
+        try:
+            for run in (8, 16):
+                stencil_cuda.RUN = run
+                if not torch.equal(call(), ref):
+                    raise RuntimeError('stencil %s run %d differs from its '
+                                       'plain version' % (label, run))
+                runs[run] = back_to_back_ms(call)
+        finally:
+            stencil_cuda.RUN = 0
+        print('stencil %s runs (back-to-back ms a launch): %s | %s'
+              % (label, ', '.join('R=%d %.4f' % kv for kv in runs.items()),
+                 card), flush=True)
+        if route != 'unrolled':
+            continue
+        ab = {True: [], False: []}
+        try:
+            for unrolled in (True, False, False, True):
+                stencil_cuda.UNROLLED = unrolled
+                if not torch.equal(call(), ref):
+                    raise RuntimeError('stencil %s unrolled=%s differs '
+                                       'from its plain version'
+                                       % (label, unrolled))
+                ab[unrolled].append(back_to_back_ms(call))
+        finally:
+            stencil_cuda.UNROLLED = True
+        print('stencil %s unrolled %s | generic %s ms a launch '
+              '(back-to-back, in turns): generic / unrolled x%.3f | %s'
+              % (label, ' '.join('%.4f' % t for t in ab[True]),
+                 ' '.join('%.4f' % t for t in ab[False]),
+                 min(ab[False]) / min(ab[True]), card), flush=True)
+        del ref
 
 
 def _library_sweep(cs, card, dev):

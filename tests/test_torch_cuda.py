@@ -1143,16 +1143,58 @@ def test_checkpoints_round_trip_onto_the_card(cuda, tmp_path):
 
 DISK = np.array([[1.0 if i * i + j * j <= 5 else 0.0 for j in range(-2, 3)]
                  for i in range(-2, 3)]) / 21.0
+STENCIL_MODES = [('reflect', 0.0), ('mirror', 0.0), ('nearest', 0.0),
+                 ('wrap', 0.0), ('constant', 0.0), ('constant', 1.5)]
 
 
-@pytest.mark.parametrize('mode,cval', [('reflect', 0.0), ('mirror', 0.0),
-                                       ('nearest', 0.0), ('wrap', 0.0),
-                                       ('constant', 0.0), ('constant', 1.5)])
+def _disk(r):
+    """The flipped (2r+1, 2r+1, 1) disk of radius**2 <= r*r + 1, zero taps
+    included."""
+    ax = np.arange(-r, r + 1)
+    d = (ax[:, None] ** 2 + ax[None, :] ** 2 <= r * r + 1).astype(float)
+    return (d / d.sum())[:, :, None]
+
+
+def _stencil_kernel(kshape):
+    if kshape in ('disk3', 'disk5', 'disk7'):
+        return _disk(int(kshape[-1]) // 2)
+    return np.random.RandomState(8).rand(*kshape) - 0.3
+
+
+@pytest.mark.parametrize('mode,cval', STENCIL_MODES)
 @pytest.mark.parametrize('shape,kshape,dtype', [
     ((1, 64, 80, 1, 12), (5, 5, 1), torch.float32),
     ((2, 33, 47, 9, 3), (3, 3, 3), torch.float32),
     ((1, 37, 53, 7, 1), (4, 3, 2), torch.float64),
     ((1, 24, 24, 1, 2), (181, 181, 1), torch.float32),      # direct route
+    # the register run's edges: n0 not a multiple of the run, n0 < k0
+    ((1, 19, 40, 1, 12), 'disk5', torch.float32),
+    ((1, 3, 40, 1, 12), 'disk5', torch.float32),
+    ((1, 40, 1, 1, 12), 'disk5', torch.float32),            # n1 = 1
+    ((1, 40, 50, 1, 1), 'disk5', torch.float32),            # row 1
+    ((4, 30, 40, 1, 11), 'disk5', torch.float32),           # outer 4, row 11
+    ((1, 30, 40, 1, 48), 'disk5', torch.float32),           # row 48
+    ((4, 30, 40, 1, 11), 'disk3', torch.float32),
+    ((4, 30, 40, 1, 11), 'disk7', torch.float32),
+    ((4, 30, 40, 1, 11), (4, 3, 2), torch.float32),
+    ((1, 40, 30, 1, 12), (5, 1, 1), torch.float32),
+    ((1, 40, 30, 1, 12), (1, 5, 1), torch.float32),
+    ((1, 24, 20, 1, 6), (9, 9, 1), torch.float32),          # generic build
+    ((1, 30, 28, 20, 1), (3, 3, 3), torch.float32),         # Laplacian view
+    # the unrolled builds' limits: 7 rows x 9 row taps (63 by value), past
+    # them the generic build (8 rows; 11 row taps)
+    ((1, 30, 28, 1, 5), (7, 9, 1), torch.float32),
+    ((1, 30, 28, 1, 5), (8, 2, 1), torch.float32),
+    ((1, 30, 12, 20, 1), (2, 1, 11), torch.float32),
+    # float64 through every build: unrolled, generic (7 x 7 = 49 taps and
+    # 4 x 9 = 36 past the 32 passed by value)
+    ((4, 30, 40, 1, 11), 'disk5', torch.float64),
+    ((1, 30, 28, 20, 1), (3, 3, 3), torch.float64),
+    ((4, 30, 40, 1, 11), 'disk3', torch.float64),
+    ((4, 30, 40, 1, 11), 'disk7', torch.float64),
+    ((1, 24, 20, 1, 6), (9, 9, 1), torch.float64),
+    ((1, 30, 28, 1, 5), (4, 8, 1), torch.float64),
+    ((1, 30, 28, 1, 5), (4, 9, 1), torch.float64),
 ])
 def test_stencil_equals_its_plain_version(cuda, shape, kshape, dtype, mode,
                                           cval):
@@ -1160,15 +1202,79 @@ def test_stencil_equals_its_plain_version(cuda, shape, kshape, dtype, mode,
     adds in its order (-fmad=false)."""
     from nd_tpu_torch.ops import stencil_cuda
     x = _data(shape, seed=7).to(dtype).to(cuda)
-    k = np.random.RandomState(8).rand(*kshape) - 0.3
+    k = _stencil_kernel(kshape)
     before = stencil_cuda.launches
     got = stencil_cuda.stencil(x, k, mode, cval)
     assert stencil_cuda.launches == before + 1
     ref = stencil_cuda.stencil_plain(x, k, mode, cval)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, ref)
-    assert stencil_cuda.stencil_tiled(*shape[1:], *kshape,
-                                      x.element_size()) == (kshape[0] < 100)
+    assert stencil_cuda.stencil_tiled(*shape[1:], *k.shape,
+                                      x.element_size()) == (k.shape[0] < 100)
+
+
+@pytest.mark.parametrize('kshape,dtype,route', [
+    ((5, 5, 1), torch.float32, 'unrolled'),
+    ((3, 3, 3), torch.float64, 'unrolled'),
+    ((7, 9, 1), torch.float32, 'unrolled'),
+    ((8, 8, 1), torch.float32, 'generic'),
+    ((1, 11, 1), torch.float32, 'generic'),
+    ((4, 8, 1), torch.float64, 'unrolled'),
+    ((4, 9, 1), torch.float64, 'generic'),
+    ((181, 181, 1), torch.float32, 'direct'),
+])
+def test_stencil_route_per_window(cuda, kshape, dtype, route):
+    """Every window up to 7 rows x 9 row taps whose weights fit the launch
+    parameters (64 float32, 32 float64) takes an unrolled build, others
+    the generic one; the forced generic build (unrolled=False) and both
+    runs give the same bits."""
+    from nd_tpu_torch.ops import stencil_cuda
+    shape = (1, 24, 20, 1, 6)
+    item = torch.tensor([], dtype=dtype).element_size()
+    assert stencil_cuda.stencil_route(*shape[1:], *kshape, item) == route
+    if route != 'unrolled':
+        return
+    assert stencil_cuda.stencil_route(*shape[1:], *kshape, item,
+                                      unrolled=False) == 'generic'
+    x = _data(shape, seed=9).to(dtype).to(cuda)
+    k = _stencil_kernel(kshape)
+    ref = stencil_cuda.stencil_plain(x, k, 'reflect')
+    try:
+        for run, unrolled in ((0, True), (8, True), (16, True), (0, False)):
+            stencil_cuda.RUN, stencil_cuda.UNROLLED = run, unrolled
+            assert torch.equal(stencil_cuda.stencil(x, k, 'reflect'), ref)
+    finally:
+        stencil_cuda.RUN, stencil_cuda.UNROLLED = 0, True
+
+
+@pytest.mark.parametrize('mode,cval', STENCIL_MODES)
+def test_stencil_nan_under_a_zero_weight(cuda, mode, cval):
+    """A NaN under a zero tap of the disk propagates (0 * NaN is NaN), as
+    in the plain version and XLA's convolution; elsewhere bit-equal."""
+    from nd_tpu_torch.ops import stencil_cuda
+    x = _data((4, 30, 40, 1, 11), seed=11).float().to(cuda)
+    x[1, 7, 9, 0, 3] = float('nan')          # under the disk's zero corners
+    x[2, 0, 0, 0, 0] = float('nan')          # at the array's edge
+    k = _disk(2)
+    got = stencil_cuda.stencil(x, k, mode, cval)
+    ref = stencil_cuda.stencil_plain(x, k, mode, cval)
+    torch.cuda.synchronize()
+    nan = ref.isnan()
+    assert int(nan.sum()) > 21 and torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize('mode,cval', STENCIL_MODES)
+def test_stencil_seam_cut_tile_equals_the_whole_call(cuda, mode, cval):
+    """An njobs chunk (rows 13..28 of 50, a halo of 2 each side) cuts the
+    whole call's tiles: its rows equal the whole call's bit for bit."""
+    from nd_tpu_torch.ops import stencil_cuda
+    x = _data((4, 50, 40, 1, 11), seed=12).float().to(cuda)
+    k = _disk(2)
+    whole = stencil_cuda.stencil(x, k, mode, cval)
+    part = stencil_cuda.stencil(x[:, 11:31].contiguous(), k, mode, cval)
+    torch.cuda.synchronize()
+    assert torch.equal(part[:, 2:18], whole[:, 13:29])
 
 
 def test_non_separable_convolve_on_the_card_equals_the_cpu(cuda):

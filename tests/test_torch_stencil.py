@@ -169,3 +169,45 @@ def test_expand_kernel_matches_jax():
             _expand_kernel(k, *bad)
         with pytest.raises(ValueError):
             jexpand(k, *bad)
+
+
+def test_weights_cache_keys_on_content_dtype_and_device():
+    """The launch's weights (host values passed by value, the device copy)
+    are cached by the kernel's float64 bytes, shape, dtype and device:
+    equal kernels share an entry, and a kernel changed in place, reshaped
+    or asked for in another dtype never gets stale weights."""
+    k = _kernel((3, 4, 2))
+    host, dev = stencil_cuda._weights(k, torch.float32, torch.device('cpu'))
+    again = stencil_cuda._weights(k.copy(), torch.float32,
+                                  torch.device('cpu'))
+    assert again[0] is host and again[1] is dev
+    ref = torch.tensor(k.ravel().tolist(), dtype=torch.float32)
+    assert host.dtype == np.float32 and host.shape == k.shape
+    assert torch.equal(torch.from_numpy(host).reshape(-1), ref)
+    assert torch.equal(dev.reshape(-1), ref)
+    k[1, 2, 0] += 0.25                              # changed in place
+    changed, _ = stencil_cuda._weights(k, torch.float32, torch.device('cpu'))
+    assert changed is not host and changed[1, 2, 0] == np.float32(k[1, 2, 0])
+    flat, _ = stencil_cuda._weights(k.reshape(4, 3, 2), torch.float32,
+                                    torch.device('cpu'))
+    assert flat.shape == (4, 3, 2) and flat is not changed
+    f64, dev64 = stencil_cuda._weights(k, torch.float64, torch.device('cpu'))
+    assert f64.dtype == np.float64 and np.array_equal(f64, k)
+    assert dev64.dtype == torch.float64
+    # a float32 kernel is keyed by its float64 value, as the plain version
+    # reads it (float(w))
+    k32 = k.astype(np.float32)
+    h32, _ = stencil_cuda._weights(k32, torch.float64, torch.device('cpu'))
+    assert np.array_equal(h32, k32.astype(np.float64))
+
+
+def test_weights_rounding_matches_the_plain_version():
+    """Each weight rounded once from float64 to the input's dtype, as
+    ``stencil_plain`` rounds ``float(w)``: the kernel multiplies by the
+    same values."""
+    k = _kernel((5, 5, 1), seed=4) / 3.0
+    for dtype in (torch.float32, torch.float64):
+        host, _ = stencil_cuda._weights(k, dtype, torch.device('cpu'))
+        for (i, j, m), w in np.ndenumerate(k):
+            assert torch.tensor(float(w), dtype=dtype).item() == \
+                float(host[i, j, m])
