@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
-training path and its dated-stack path once on one CUDA device.
+training path, its dated-stack path and its I/O once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -202,6 +202,31 @@ the seed):
      composites (the span C11 + C22 over its temporal mean): the vmap
      route ran, and its result equals the same expression on the same
      stacked tensor bit for bit.
+
+and the I/O layer (each result held against the same call on the CPU,
+exactly, and timed beside the card's name and power limit):
+
+ I1. the bench cube as the quick start's ``stack.nc`` (C11, C12 as
+     complex64, C22, a time coordinate, ``crs``/``transform`` attrs)
+     written by ``to_netcdf`` (netCDF classic CDF-2 where h5py is
+     missing, as on the card's machine; the writer is printed) and read
+     back onto the card by ``open_dataset``: bit-equal, coordinates and
+     attrs equal, on the card; write and read MB/s, and the
+     host-to-device share of the read;
+ I2. the quick start as README.md writes it, from that file:
+     ``open_dataset`` -> ``.nd.as_complex()`` -> ``NLMeansFilter(r=2,
+     f=1)`` -> ``OmnibusTest(ml=3, alpha=0.01)``, counted: 0 mismatches
+     against the plain scan of the same filtered data, the change map
+     equal to phase 6's, and the method-style line equal too;
+ I3. a 512 x 512 x 12 cut through GeoTIFF (uncompressed strips; deflate
+     tiles with a 2x overview), zarr and ENVI (a written big-endian
+     ``.img``/``.hdr`` pair), each bit-equal on the card and the CPU,
+     with MB/s;
+ I4. ``align`` of two 512 x 512 products written as files (the cube
+     and a copy offset by 0.37 px): the ``_aligned.nc`` files equal
+     ``Reprojection`` of the same products in memory bit for bit; the
+     same ``align`` on the CPU within W2's rtol 1e-5, atol 1e-6 (the
+     resampling's sums round in another order on the card).
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -1382,6 +1407,258 @@ def run_series_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return tuple(counts_s2) + (counts_s3,)
 
 
+# ---- I1-I4: the I/O layer -----------------------------------------------------
+
+I_CUT = 512                 # I3 and I4: a 512 x 512 x 12 cut of the cube
+I_SHIFT = 0.37              # I4: the copy's offset, in pixels of the grid
+I_RES = 10.0                # I1-I4: metres a pixel (EPSG:32633)
+
+
+def io_dataset(cube, ny, nx, x0=5e5, y0=4e6, device=None):
+    """The cube as the quick start's file holds it: C11, C12 (complex),
+    C22 over (y, x, time) with a 12-day time coordinate from 2023-01-03,
+    UTM coordinates at ``I_RES`` and ``crs``/``transform`` attrs."""
+    import torch
+    from nd_tpu_torch.core import Dataset
+    k = cube.shape[2]
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(k) * np.timedelta64(12, 'D')
+    part = cube[:ny, :nx]
+    return Dataset(
+        {'C11': (('y', 'x', 'time'), part[..., 0]),
+         'C12': (('y', 'x', 'time'), torch.complex(part[..., 1],
+                                                    part[..., 2])),
+         'C22': (('y', 'x', 'time'), part[..., 3])},
+        coords={'y': y0 - I_RES * (np.arange(ny) + 0.5),
+                'x': x0 + I_RES * (np.arange(nx) + 0.5), 'time': times},
+        attrs={'crs': 'epsg:32633',
+               'transform': (I_RES, 0.0, x0, 0.0, -I_RES, y0)},
+        device=device)
+
+
+def same_io(got, ref, what, device=None):
+    """Bit-equal datasets: dims, coordinates, attrs, dtypes and values
+    (NaN where NaN); ``device`` is where ``got``'s tensors must be."""
+    import torch
+    check(dict(got.sizes) == dict(ref.sizes)
+          and set(got._variables) == set(ref._variables)
+          and set(got._coords) == set(ref._coords), what, 'names')
+    for table in ('_variables', '_coords'):
+        for k, r in getattr(ref, table).items():
+            g = getattr(got, table)[k]
+            check(g.dims == r.dims, what, k, g.dims, r.dims)
+            if isinstance(r.data, torch.Tensor):
+                check(isinstance(g.data, torch.Tensor)
+                      and g.data.dtype == r.data.dtype, what, k)
+                if device is not None:
+                    check(g.data.device.type == device.type, what, k,
+                          g.data.device)
+                a = g.data.cpu().contiguous()
+                b = r.data.cpu().contiguous()
+                if a.is_complex():
+                    a, b = torch.view_as_real(a), torch.view_as_real(b)
+                check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                      what, k, 'values')
+            else:
+                check(np.array_equal(np.asarray(g.data), np.asarray(r.data))
+                      and np.asarray(g.data).dtype == np.asarray(r.data)
+                      .dtype, what, k)
+    check(set(got.attrs) == set(ref.attrs)
+          and all(np.array_equal(np.asarray(got.attrs[k]),
+                                 np.asarray(ref.attrs[k]))
+                  for k in ref.attrs), what, 'attrs')
+
+
+def run_io_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts, cube,
+                  readme_change):
+    """I1-I4: the bench cube written to netCDF and read back onto the
+    card, the quick start run from that file, a cut through GeoTIFF,
+    zarr and ENVI, and ``align`` of two products written as files. Each
+    result is held against the same call on the CPU, exactly. Returns
+    the kernel launches of I2's quick start."""
+    import tempfile
+    import torch
+    from nd_tpu_torch import io as tio
+    from nd_tpu_torch.io import envi, netcdf
+    from nd_tpu_torch.ops import conv_cuda
+    from nd_tpu_torch.ops.change import change_detection_plain
+    from nd_tpu_torch.ops.conv import _separable_factors
+
+    cpu = torch.device('cpu')
+    t_io = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def mbs(nbytes, secs):
+        return nbytes / secs / 1e6
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- I1: the bench cube to netCDF and back onto the card ------------
+        ds = io_dataset(cube, NY, NX, device=dev)
+        nbytes = sum(v.data.numel() * v.data.element_size()
+                     for v in ds._variables.values())
+        path = os.path.join(tmp, 'stack.nc')
+        _, w_s = timed(lambda: ndt.to_netcdf(ds, path))
+        back, r_s = timed(lambda: ndt.open_dataset(path, as_complex=True))
+        host, h_s = timed(lambda: ndt.open_dataset(path, as_complex=True,
+                                                   device='cpu'))
+        _, h2d_s = timed(lambda: [v.data.to(dev) for v in
+                                  host._variables.values()])
+        same_io(back, ds, 'I1 card read', dev)
+        same_io(host, back, 'I1 CPU read')
+        phase('I1', 'bench cube %s as C11, C12 (complex64), C22 + time, '
+              'crs, transform -> %s: %s writer, %d MB file; write %.2f s '
+              '(%.0f MB/s from the card), read onto the card %.2f s (%.0f '
+              'MB/s), read onto the CPU %.2f s, the host-to-device copy of '
+              'its tensors %.3f s (%.1f%% of the card read); bit-equal, on '
+              'the card, equal to the CPU read | %s'
+              % (tuple(cube.shape), os.path.basename(path), netcdf.writer(),
+                 os.path.getsize(path) // 10 ** 6, w_s, mbs(nbytes, w_s),
+                 r_s, mbs(nbytes, r_s), h_s, h2d_s, 100.0 * h2d_s / r_s,
+                 card))
+        del host
+
+        # ---- I2: the quick start from the file, counted --------------------
+        reset_counts()
+
+        def quick_start():
+            qs = ndt.open_dataset(path)
+            qs = qs.nd.as_complex()
+            flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
+                                    h=3).apply(qs)
+            change = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+            return flt, change
+        (flt, change), qs_s = timed(quick_start)
+        counts = read_counts()
+        method, m_s = timed(lambda: ndt.open_dataset(path).filter.nlmeans(
+            r=2, f=1, sigma=2, h=3).nd.change_omnibus(ml=3))
+        box = _separable_factors(np.ones((3, 3)) / 9)
+        st = torch.stack([flt['C11'].data, flt['C12__re'].data,
+                          flt['C12__im'].data, flt['C22'].data])
+        looked = conv_cuda.sepconv2_plain(st, box[0], box[1])
+        plain = change_detection_plain(looked.permute(1, 2, 3, 0)
+                                       .contiguous(), 0.01, n=9)
+        mism = int((change.data != plain).sum())
+        check(mism == 0, 'I2 mismatches against the plain scan', mism)
+        check(change.dims == ('y', 'x', 'time')
+              and change.data.device == readme_change.device,
+              'I2 change map', change.dims, change.data.device)
+        check(torch.equal(change.data, readme_change),
+              'I2 change map differs from phase 6\'s')
+        check(torch.equal(method.data, change.data),
+              'I2 method-style line', method.dims)
+        check(all(counts[n] > 0 for n in ('nlmeans', 'omnibus', 'sepconv',
+                                          'omnibus_mixed')),
+              'I2 launches', counts)
+        phase('I2', 'quick start from %s: open_dataset -> as_complex -> '
+              'NLMeansFilter(r=2, f=1) -> OmnibusTest(ml=3, alpha=0.01) '
+              '%.3f s wall (the read included); %d mismatches vs the plain '
+              'scan of the same filtered data; the change map (%d changes) '
+              'equals phase 6\'s in-memory chain; README:94\'s method-style '
+              'line %.3f s, equal; launches %s | %s'
+              % (os.path.basename(path), qs_s, mism, int(change.data.sum()),
+                 m_s, json.dumps({k: v for k, v in counts.items() if v}),
+                 card))
+        del flt, change, method, st, looked, plain, back
+
+        # ---- I3: a cut through GeoTIFF, zarr and ENVI -------------------------
+        cut = io_dataset(cube, I_CUT, I_CUT, device=dev)
+        cut_cpu = io_dataset(cube.cpu(), I_CUT, I_CUT, device=cpu)
+        real = tio.disassemble_complex(cut)
+        bands = torch.cat([real[v].transpose('time', 'y', 'x').data
+                           for v in real.data_vars])      # to_geotiff's order
+        cut_bytes = bands.numel() * bands.element_size()
+        lines = []
+        for label, kw in (('GeoTIFF uncompressed strips',
+                           dict(compress=False)),
+                          ('GeoTIFF deflate 256-px tiles + 2x overview',
+                           dict(compress='deflate', tiled=True,
+                                tile_size=256, overviews=[2]))):
+            p = os.path.join(tmp, 'cut.tif')
+            _, w_s = timed(lambda: tio.to_geotiff(real, p, **kw))
+            da, r_s = timed(lambda: tio.open_rasterio(p))
+            da_cpu = tio.open_rasterio(p, device='cpu')
+            check(da.data.device == bands.device, label, da.data.device)
+            check(torch.equal(da.data, bands)
+                  and torch.equal(da_cpu.data, bands.cpu()), label)
+            if kw.get('overviews'):
+                ov = tio.open_rasterio(p, overview_level=0)
+                ov_cpu = tio.open_rasterio(p, overview_level=0, device='cpu')
+                check(tuple(ov.shape) == (bands.shape[0], I_CUT // 2,
+                                          I_CUT // 2)
+                      and torch.equal(ov.data.cpu(), ov_cpu.data),
+                      label, 'overview')
+            lines.append('%s: write %.0f MB/s, read %.0f MB/s (%.1f MB)'
+                         % (label, mbs(cut_bytes, w_s), mbs(cut_bytes, r_s),
+                            os.path.getsize(p) / 1e6))
+        p = os.path.join(tmp, 'cut.zarr')
+        _, w_s = timed(lambda: tio.to_zarr(cut, p))
+        z, r_s = timed(lambda: tio.open_zarr(p))
+        same_io(z, cut, 'I3 zarr', dev)
+        same_io(tio.open_zarr(p, device='cpu'), cut_cpu, 'I3 zarr CPU')
+        lines.append('zarr (zlib): write %.0f MB/s, read %.0f MB/s'
+                     % (mbs(cut_bytes, w_s), mbs(cut_bytes, r_s)))
+        p = os.path.join(tmp, 'cut')
+        bands.cpu().numpy().astype('>f4').tofile(p + '.img')
+        with open(p + '.hdr', 'w') as fh:
+            fh.write('ENVI\nsamples = %d\nlines = %d\nbands = %d\n'
+                     'data type = 4\ninterleave = bsq\nbyte order = 1\n'
+                     % (I_CUT, I_CUT, bands.shape[0]))
+        env, r_s = timed(lambda: torch.from_numpy(
+            envi.read_envi(p + '.img').astype(np.float32)).to(dev))
+        check(torch.equal(env, bands), 'I3 ENVI')
+        lines.append('ENVI (big-endian bsq) read onto the card %.0f MB/s'
+                     % mbs(cut_bytes, r_s))
+        phase('I3', '%s cut, %d bands, bit-equal on the card and the CPU: '
+              '%s | %s' % ((I_CUT, I_CUT, cube.shape[2]), bands.shape[0],
+                           '; '.join(lines), card))
+        del z, bands, real
+
+        # ---- I4: align two products written as files ------------------------
+        shift = I_SHIFT * I_RES
+        paths = []
+        for name, x0, y0 in (('cube', 5e5, 4e6),
+                             ('shifted', 5e5 + shift, 4e6 - shift)):
+            paths.append(os.path.join(tmp, name + '.nc'))
+            ndt.to_netcdf(io_dataset(cube, I_CUT, I_CUT, x0, y0,
+                                     device=dev), paths[-1])
+        out_card, out_cpu = (os.path.join(tmp, 'aligned_card'),
+                             os.path.join(tmp, 'aligned_cpu'))
+        _, a_s = timed(lambda: ndt.warp.align(paths, out_card))
+        ndt.warp.Alignment(device='cpu').apply(paths, out_cpu)
+        opened = [ndt.open_dataset(p, as_complex=False) for p in paths]
+        grid = dict(extent=ndt.warp.get_common_bounds(opened),
+                    res=ndt.warp.get_common_resolution(opened),
+                    dst_crs=ndt.warp.get_crs(opened[0]))
+        worst = 0.0
+        for name, prod in zip(('cube', 'shifted'), opened):
+            got = ndt.open_dataset(os.path.join(out_card,
+                                                name + '_aligned.nc'))
+            mem = ndt.Reprojection(**grid).apply(prod)
+            same_io(got, mem, 'I4 %s against Reprojection in memory' % name,
+                    dev)
+            ref = ndt.open_dataset(os.path.join(out_cpu,
+                                                name + '_aligned.nc'),
+                                   device='cpu')
+            worst = max(worst, hold_datasets(got, ref, 1e-5, 1e-6,
+                                             'I4 %s against the CPU' % name))
+        phase('I4', 'align of two %d x %d x %d products written as files '
+              '(the second offset by %.2f px): %.2f s (reads, two '
+              'reprojections onto %s, writes); the _aligned.nc files read '
+              'back equal Reprojection of the same products in memory bit '
+              'for bit, and the CPU run within W2\'s rtol 1e-5, atol 1e-6 '
+              '(max abs diff %.3g) | %s'
+              % (I_CUT, I_CUT, cube.shape[2], I_SHIFT, a_s,
+                 dict(got.sizes), worst, card))
+    phase('I', 'I1-I4 ran %.1f s' % (time.perf_counter() - t_io))
+    return counts
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -1694,6 +1971,7 @@ def main():
           and change.data.device == cube.device, 'README change map',
           change.dims, change.data.device)
     check(mism == 0, 'README omnibus mismatches', mism)
+    readme_change = change.data              # I2 reads the same map
     phase(6, 'README chain: NLMeans within rtol 1e-5/atol 1e-6 of plain; '
           'OmnibusTest %d mismatches vs plain scan of the same filtered '
           'data; %d changes' % (mism, int(change.data.sum())))
@@ -2332,10 +2610,14 @@ def main():
                                  read_counts, cube, stack, box_taps, row_ms,
                                  err)
 
+    # ---- I1-I4. the I/O layer: the quick start from a file, counted
+    counts_i2 = run_io_phases(ndt, dev, card, cuda_ms, reset_counts,
+                              read_counts, cube, readme_change)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
-                                          counts_wide, counts_w5,
-                                          counts_t1) + counts_s)
+                                          counts_wide, counts_w5, counts_t1,
+                                          counts_i2) + counts_s)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -5,7 +5,9 @@ series, and the georeferencing layer in front of them (CRS, reprojection,
 resampling and coregistration, with the ``ds.nd.*`` / ``ds.filter.*``
 accessors), the flagship model's training step, the classifiers
 (scikit-learn bridge and ``TorchClassifier``) and checkpoints
-(``nd_tpu_torch.models.checkpoint``).
+(``nd_tpu_torch.models.checkpoint``), and the I/O (netCDF, GeoTIFF,
+ENVI, zarr, BEAM-DIMAP: ``open_dataset``, ``to_netcdf``,
+``nd_tpu_torch.io``).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
@@ -16,18 +18,21 @@ the kernel's plain PyTorch version.
 from .algorithm import Algorithm, parallelize, wrap_algorithm
 from .change import OmnibusTest, omnibus
 from .classify import Classifier, TorchClassifier, class_mean
-from .core import DataArray, Dataset, Variable, from_jax_dataset
+from .core import (DataArray, Dataset, Variable, concat, from_jax_dataset,
+                   merge)
 from .crs import CRS, Affine, transform_coords
 from .filters import (BoxcarFilter, ConvolutionFilter, GaussianFilter,
                       NLMeansFilter, boxcar, convolution, gaussian, nlmeans)
-from .io import assemble_complex, disassemble_complex
+from .io import (assemble_complex, disassemble_complex, open_dataset,
+                 to_netcdf)
 from .models import SARChangePipeline, change_features, multilook
 from .warp import (Coregistration, Reprojection, Resample, coregister,
                    reproject, resample)
 from . import accessors  # noqa: E402,F401  (attaches .nd / .filter)
 
 __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
-           'DataArray', 'Dataset', 'from_jax_dataset', 'CRS', 'Affine',
+           'DataArray', 'Dataset', 'from_jax_dataset', 'concat', 'merge',
+           'open_dataset', 'to_netcdf', 'CRS', 'Affine',
            'transform_coords', 'BoxcarFilter', 'ConvolutionFilter',
            'GaussianFilter', 'NLMeansFilter', 'boxcar', 'convolution',
            'gaussian', 'nlmeans', 'OmnibusTest', 'omnibus', 'Classifier',

@@ -120,7 +120,8 @@ class NDAccessor:
         return apply(self._obj, fn, signature=signature, njobs=njobs)
 
     def to_netcdf(self, path, *args, **kwargs):
-        _not_ported('nd.to_netcdf (the I/O)', 13)
+        from .io import to_netcdf
+        return to_netcdf(self._obj, path, *args, **kwargs)
 
     def tile(self, path, *args, **kwargs):
         _not_ported('nd.tile (tiling)', 17)
@@ -192,6 +193,7 @@ def _patch_accessor_docs():
         (NDAccessor, 'change_omnibus', change.omnibus),
         (NDAccessor, 'as_complex', io.assemble_complex),
         (NDAccessor, 'as_real', io.disassemble_complex),
+        (NDAccessor, 'to_netcdf', io.to_netcdf),
         (NDAccessor, 'apply', utils.apply),
         (FilterAccessor, 'nlmeans', filters.nlmeans),
         (FilterAccessor, 'boxcar', filters.boxcar),

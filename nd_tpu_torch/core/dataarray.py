@@ -1071,66 +1071,74 @@ class DataArray(_NDOpsMixin):
 
     # -- reductions ---------------------------------------------------------------------
     def reduce(self, func, dim=None, **kwargs):
-        """Reduce with ``func(data, dim=...)`` over the named dims (all
-        of them for ``None``); ``dim`` reaches ``func`` as None, an int
-        or a tuple of ints."""
-        var = self.variable.reduce(func, dim, **kwargs)
+        """Reduce with ``func(data, axis=...)`` over the named dims (all
+        of them for ``None``), as numpy's reducers take it; ``axis`` is
+        None, an int or a tuple of ints."""
+        return self._reduced(self.variable.reduce(func, dim, **kwargs))
+
+    def _reduce(self, func, dim=None, **kwargs):
+        """The port's own reducers: ``func(data, dim=...)``."""
+        return self._reduced(self.variable._reduce(func, dim, **kwargs))
+
+    def _reduced(self, var):
         return DataArray._from_parts(
             var, _reduced_coords(self._coords, set(var.dims)), self.attrs,
             self.name)
 
     def mean(self, dim=None, **kw):
-        return self.reduce(nanops.nanmean, dim, **kw)
+        return self._reduce(nanops.nanmean, dim, **kw)
 
     def std(self, dim=None, **kw):
-        return self.reduce(nanops.nanstd, dim, **kw)
+        return self._reduce(nanops.nanstd, dim, **kw)
 
     def var(self, dim=None, **kw):
-        return self.reduce(nanops.nanvar, dim, **kw)
+        return self._reduce(nanops.nanvar, dim, **kw)
 
     def min(self, dim=None, **kw):
-        return self.reduce(nanops.nanmin, dim, **kw)
+        return self._reduce(nanops.nanmin, dim, **kw)
 
     def max(self, dim=None, **kw):
-        return self.reduce(nanops.nanmax, dim, **kw)
+        return self._reduce(nanops.nanmax, dim, **kw)
 
     def sum(self, dim=None, **kw):
-        return self.reduce(nanops.nansum, dim, **kw)
+        return self._reduce(nanops.nansum, dim, **kw)
 
     def median(self, dim=None, **kw):
-        return self.reduce(nanops.nanmedian, dim, **kw)
+        return self._reduce(nanops.nanmedian, dim, **kw)
 
     def prod(self, dim=None, **kw):
-        return self.reduce(nanops.nanprod, dim, **kw)
+        return self._reduce(nanops.nanprod, dim, **kw)
 
     def all(self, dim=None, **kw):
-        return self.reduce(nanops.all_, dim, **kw)
+        return self._reduce(nanops.all_, dim, **kw)
 
     def any(self, dim=None, **kw):
-        return self.reduce(nanops.any_, dim, **kw)
+        return self._reduce(nanops.any_, dim, **kw)
 
     def count(self, dim=None, **kw):
-        return self.notnull().astype(torch.int64).reduce(torch.sum, dim,
-                                                           **kw)
+        return self.notnull().astype(torch.int64)._reduce(torch.sum, dim,
+                                                            **kw)
 
     def argmin(self, dim=None, **kw):
-        return self.reduce(nanops.nanargmin, dim, **kw)
+        return self._reduce(nanops.nanargmin, dim, **kw)
 
     def argmax(self, dim=None, **kw):
-        return self.reduce(nanops.nanargmax, dim, **kw)
+        return self._reduce(nanops.nanargmax, dim, **kw)
 
-    def quantile(self, q, dim=None, **kw):
-        """numpy's nanquantile ('linear'); a 1-d ``q`` gives a new leading
+    def quantile(self, q, dim=None, method='linear', **kw):
+        """numpy's nanquantile with ``method`` one of
+        ``nanops.QUANTILE_METHODS``; a 1-d ``q`` gives a new leading
         ``quantile`` dim with its coordinate."""
         q_arr = np.asarray(q, np.float64)
         if q_arr.ndim == 0:
-            return self.reduce(
-                lambda x, dim: nanops.nanquantile(x, float(q_arr), dim),
+            return self._reduce(
+                lambda x, dim: nanops.nanquantile(x, float(q_arr), dim,
+                                                  method),
                 dim, **kw)
         red = self.dims if dim is None else \
             ((dim,) if isinstance(dim, str) else tuple(dim))
         axes = tuple(self.dims.index(d) for d in red)
-        data = nanops.nanquantile(self.data, q_arr, axes)
+        data = nanops.nanquantile(self.data, q_arr, axes, method)
         out_dims = ('quantile',) + tuple(d for d in self.dims
                                          if d not in red)
         coords = _reduced_coords(self._coords, set(out_dims))

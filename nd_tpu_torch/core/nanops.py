@@ -6,10 +6,11 @@ their PyTorch counterparts, each ``fn(x, dim=None | int | tuple)``:
   - ``nanmean``, ``nanvar``/``nanstd`` (ddof 0), ``nansum``, ``nanmin``/
     ``nanmax`` (NaN for an all-NaN slice), ``nanprod``;
   - ``nanquantile`` and ``nanmedian``: a sort along the reduced axes
-    (NaN sorts last), a count of the valid values and numpy's 'linear'
-    interpolation written out. ``torch.quantile`` refuses inputs of more
-    than 2**24 elements and ``torch.nanmedian`` returns the lower of two
-    middle values, so neither is used;
+    (NaN sorts last), a count of the valid values and numpy's 'linear',
+    'lower', 'higher', 'midpoint' and 'nearest' methods written out.
+    ``torch.quantile`` refuses inputs of more than 2**24 elements and
+    ``torch.nanmedian`` returns the lower of two middle values, so
+    neither is used;
   - ``nanargmin``/``nanargmax``: -1 for an all-NaN slice (as
     ``jnp.nanargmin``; numpy raises);
   - ``all_``/``any_``: numpy's truthiness (NaN is true);
@@ -57,8 +58,10 @@ def nanmean(x, dim=None):
 def nanvar(x, dim=None, ddof=0):
     x = floating(x)
     dev = (x - torch.nanmean(x, dim=dim, keepdim=True)) ** 2
-    cnt = (~torch.isnan(x)).sum(dim=dim)
-    return torch.nansum(dev, dim=dim) / (cnt - ddof)
+    dof = (~torch.isnan(x)).sum(dim=dim) - ddof
+    # numpy and jnp give NaN where no degree of freedom is left
+    return (torch.nansum(dev, dim=dim) / dof).masked_fill(dof <= 0,
+                                                          float('nan'))
 
 
 def nanstd(x, dim=None, ddof=0):
@@ -98,9 +101,19 @@ def nanprod(x, dim=None):
     return torch.prod(xt, dim=-1)
 
 
-def nanquantile(x, q, dim=None):
-    """numpy's ``nanquantile`` (method 'linear'). A scalar ``q`` removes
-    the reduced axes; a 1-d ``q`` puts a new leading axis in front."""
+# numpy's methods that pick or interpolate between the two order
+# statistics around the virtual index (q * (n - 1)); numpy's other
+# methods (the H&F continuous ones) are not ported
+QUANTILE_METHODS = ('linear', 'lower', 'higher', 'midpoint', 'nearest')
+
+
+def nanquantile(x, q, dim=None, method='linear'):
+    """numpy's ``nanquantile`` with ``method`` one of
+    :data:`QUANTILE_METHODS`. A scalar ``q`` removes the reduced axes; a
+    1-d ``q`` puts a new leading axis in front."""
+    if method not in QUANTILE_METHODS:
+        raise ValueError('quantile method %r is not supported (the port '
+                         'has %s)' % (method, ', '.join(QUANTILE_METHODS)))
     x = floating(x)
     qa = np.asarray(q, np.float64)
     if qa.ndim > 1 or ((qa < 0) | (qa > 1)).any():
@@ -113,13 +126,20 @@ def nanquantile(x, q, dim=None):
     outs = []
     for qi in np.atleast_1d(qa).tolist():
         pos = (cnt - 1).to(torch.float64) * qi         # the virtual index
-        lo = pos.floor().clamp(min=0).to(torch.int64)
-        hi = torch.minimum(lo + 1, last)
-        t = (pos - lo).to(x.dtype)
-        a = torch.gather(srt, -1, lo)
-        b = torch.gather(srt, -1, hi)
-        d = b - a
-        out = torch.where(t >= 0.5, b - d * (1 - t), a + d * t)
+        if method in ('lower', 'higher', 'nearest'):
+            idx = {'lower': torch.floor, 'higher': torch.ceil,
+                   'nearest': torch.round}[method](pos)   # half to even
+            out = torch.gather(srt, -1, idx.clamp(min=0).to(torch.int64))
+        else:
+            lo = pos.floor().clamp(min=0).to(torch.int64)
+            hi = torch.minimum(lo + 1, last)
+            t = (pos - lo).to(x.dtype)
+            if method == 'midpoint':
+                t = torch.where(t > 0, 0.5, 0.0).to(x.dtype)
+            a = torch.gather(srt, -1, lo)
+            b = torch.gather(srt, -1, hi)
+            d = b - a
+            out = torch.where(t >= 0.5, b - d * (1 - t), a + d * t)
         out = out.masked_fill(cnt == 0, float('nan'))
         outs.append(out[..., 0])
     if qa.ndim == 0:

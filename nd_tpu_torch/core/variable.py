@@ -34,6 +34,9 @@ def as_tensor(data, device=None):
     if isinstance(data, torch.Tensor):
         return data
     device = torch.device(DEFAULT_DEVICE if device is None else device)
+    if isinstance(data, np.ndarray) and not data.dtype.isnative:
+        # tensors have the machine's byte order only (big-endian files)
+        data = data.astype(data.dtype.newbyteorder('='))
     if device.type == 'cpu' and isinstance(data, np.ndarray):
         # no copy (np.ascontiguousarray would make a 0-d array 1-d)
         return torch.from_numpy(np.require(data, requirements='C'))
@@ -276,19 +279,32 @@ class Variable:
 
     # -- reductions ----------------------------------------------------------
     def reduce(self, func, dim=None, **kwargs):
-        """``func(data, dim=axes, **kwargs)`` over the named dims (all
-        of them for ``None``); ``axes`` is None, an int or a tuple."""
+        """``func(data, axis=axes, **kwargs)`` over the named dims (all
+        of them for ``None``), as numpy's reducers take it; ``axes`` is
+        None, an int or a tuple. A result that is not a tensor lands on
+        the data's device."""
+        axes, dims = self._reduction_axes(dim)
+        return self._reduced(func(self.data, axis=axes, **kwargs), dims)
+
+    def _reduce(self, func, dim=None, **kwargs):
+        """The port's own reducers (``core.nanops``): ``func(data,
+        dim=axes)``."""
+        axes, dims = self._reduction_axes(dim)
+        return self._reduced(func(self.data, dim=axes, **kwargs), dims)
+
+    def _reduction_axes(self, dim):
+        """(axes, the dims that remain) of a reduction over ``dim``."""
         if dim is None:
-            axes = None
-            dims = ()
-        else:
-            if isinstance(dim, str):
-                dim = (dim,)
-            axes = tuple(self.dims.index(d) for d in dim)
-            dims = tuple(d for d in self.dims if d not in dim)
-            if len(axes) == 1:
-                axes = axes[0]
-        data = func(self.data, dim=axes, **kwargs)
+            return None, ()
+        if isinstance(dim, str):
+            dim = (dim,)
+        axes = tuple(self.dims.index(d) for d in dim)
+        return (axes[0] if len(axes) == 1 else axes,
+                tuple(d for d in self.dims if d not in dim))
+
+    def _reduced(self, data, dims):
+        if not isinstance(data, torch.Tensor):
+            data = as_array(data, getattr(self.data, 'device', None))
         # keepdims-style reducers preserve rank; otherwise trust `dims`
         if data.ndim == self.ndim:
             dims = self.dims

@@ -1,19 +1,37 @@
-"""Input/output helpers: so far only the complex (dis)assembly of
-variables, ``nd_tpu/io/__init__.py``'s ``assemble_complex`` and
-``disassemble_complex``. The readers and writers wait for ROADMAP
-item 13."""
+"""I/O layer: netCDF, GeoTIFF, ENVI, zarr, BEAM-DIMAP and the complex
+(dis)assembly of variables.
+
+Counterpart of ``nd_tpu/io/__init__.py``. The readers and writers are
+host-side numpy, as in the JAX package: a reader puts numeric data on
+``device`` (``cuda`` unless the caller names another), a writer copies
+each variable of a CUDA dataset to the host once. netCDF-4 needs
+``h5py``; without it netCDF classic is read and written
+(:mod:`.netcdf`). Not ported yet: the lazy opens (``chunks=``, ROADMAP
+item 19) and JPEG 2000 with the Sentinel-2 granule reader (item 18).
+"""
 
 from __future__ import annotations
 
+import os
 import re
 
+import numpy as np
 import torch
 
-from ..core import DataArray
+from .. import utils
+from ..core import DataArray, Dataset
 from ..core.variable import Variable
+from .zarr import open_zarr, to_zarr
 
-__all__ = ['assemble_complex', 'disassemble_complex']
+__all__ = ['open_dataset', 'open_netcdf', 'open_beam_dimap',
+           'open_rasterio', 'to_netcdf', 'to_geotiff', 'to_zarr',
+           'open_zarr', 'assemble_complex', 'disassemble_complex',
+           'add_time']
 
+
+# --------------------
+# CONVERSION FUNCTIONS
+# --------------------
 
 def disassemble_complex(ds, inplace=False):
     """Split complex variables into ``<name>__re`` / ``<name>__im``
@@ -69,3 +87,288 @@ def assemble_complex(ds, inplace=False):
         del new_ds._variables[m_im.group(0)]
     if not inplace:
         return new_ds
+
+
+def add_time(ds, inplace=False):
+    """Ensure the dataset has a ``time`` coordinate (from
+    ``attrs['start_date']`` if missing)."""
+    result = ds if inplace else ds.copy(deep=False)
+    if 'time' not in result._coords:
+        times = np.asarray(
+            [np.datetime64(utils.str2date(ds.attrs['start_date']), 'ns')])
+        result._coords['time'] = Variable(('time',), times)
+    if not inplace:
+        return result
+
+
+def _no_lazy(chunks):
+    if chunks is not None:
+        raise NotImplementedError(
+            'chunks= (a lazy open) is not ported yet: the lazy views come '
+            'with tiling (ROADMAP item 19)')
+
+
+# -------------
+# OPEN DATASETS
+# -------------
+
+def open_dataset(path, *args, **kwargs):
+    """Open a datacube, dispatching on the file extension.
+
+    ``.nc`` -> :func:`open_netcdf`, ``.dim`` -> :func:`open_beam_dimap`,
+    anything else -> :func:`open_rasterio`. Pass ``device=`` for another
+    device than ``cuda``.
+    """
+    _, ext = os.path.splitext(str(path))
+    if ext == '.nc':
+        return open_netcdf(path, *args, **kwargs)
+    if ext == '.dim':
+        return open_beam_dimap(path, *args, **kwargs)
+    try:
+        return open_rasterio(path, *args, **kwargs)
+    except Exception as e:
+        raise IOError('Could not read the file: %s' % e) from e
+
+
+# --------------
+# FORMAT: NETCDF
+# --------------
+
+def to_netcdf(ds, path, *args, **kwargs):
+    """Write a Dataset to netCDF, always disassembling complex variables
+    (reassembled on read via ``open_netcdf(as_complex=True)``).
+    ``complevel=0`` writes contiguous, uncompressed variables. Where
+    ``h5py`` does not import, the file is netCDF classic, uncompressed
+    (``netcdf.writer()`` says which)."""
+    from .netcdf import write_netcdf_file
+    if isinstance(ds, DataArray):
+        ds = ds.to_dataset(name=ds.name or 'data')
+    write = disassemble_complex(ds)
+    complevel = kwargs.get('complevel', 5)
+    compress = kwargs.get('compress', True) and complevel > 0
+    write_netcdf_file(write, path, compress=compress,
+                      complevel=complevel,
+                      encoding=kwargs.get('encoding'))
+    return path
+
+
+def open_netcdf(path, as_complex=False, rename_latlon=True, *args,
+                **kwargs):
+    """Read a netCDF file into a Dataset, numeric data on ``device=``
+    (default ``cuda``).
+
+    lat/lon dimensions are renamed to y/x (keeping lat/lon coords); pass
+    ``rename_latlon=False`` for a verbatim read, ``decode_cf=False`` to
+    keep the stored values. ``chunks=`` (a lazy open) raises until
+    ROADMAP item 19.
+    """
+    from .netcdf import open_netcdf_file
+    _no_lazy(kwargs.get('chunks'))
+    ds = open_netcdf_file(path, decode_cf=kwargs.get('decode_cf', True),
+                          device=kwargs.get('device'))
+    if as_complex:
+        ds = assemble_complex(ds)
+    if rename_latlon and 'lon' in ds.sizes and 'lat' in ds.sizes:
+        lat = ds._coords.get('lat')
+        lon = ds._coords.get('lon')
+        ds = ds.rename({'lat': 'y', 'lon': 'x'})
+        if lat is not None:
+            ds._coords['lat'] = Variable(('y',), lat.data, lat.attrs)
+        if lon is not None:
+            ds._coords['lon'] = Variable(('x',), lon.data, lon.attrs)
+    return ds
+
+
+# ---------------------
+# FORMAT: RASTER (TIFF)
+# ---------------------
+
+def _read_world_file(path):
+    """ESRI world-file georeferencing for plain image rasters.
+
+    GDAL's sidecar rule: ``<first><last>w`` of the image extension
+    (``.pgw``/``.jgw``/``.bpw``/``.tfw``) or the generic ``.wld``. The
+    six lines anchor at the CENTER of the upper-left pixel; returns a
+    corner-anchored Affine matching the GeoTIFF reader's convention.
+    """
+    from ..crs import Affine
+    base, ext = os.path.splitext(str(path))
+    ext = ext.lstrip('.')
+    candidates = ['%s.%s' % (base, (ext[0] + ext[-1] + 'w').lower()),
+                  base + '.wld'] if len(ext) >= 2 else [base + '.wld']
+    for cand in candidates:
+        if not os.path.exists(cand):
+            continue
+        with open(cand) as fh:
+            vals = [float(line.strip()) for line in fh
+                    if line.strip()][:6]
+        if len(vals) != 6:
+            raise IOError('world file %s must have 6 numeric lines'
+                          % cand)
+        A, D, B, E, C, F = vals
+        return Affine(A, B, C - (A + B) / 2.0,
+                      D, E, F - (D + E) / 2.0)
+    return None
+
+
+def _read_prj_file(path):
+    from ..crs import CRS
+    base, _ = os.path.splitext(str(path))
+    prj = base + '.prj'
+    if os.path.exists(prj):
+        with open(prj) as fh:
+            return CRS.from_wkt(fh.read())
+    return None
+
+
+_PLAIN_IMAGE_EXTS = ('.png', '.jpg', '.jpeg', '.bmp')
+_JP2_EXTS = ('.jp2', '.j2k', '.jpc', '.jpx')
+
+
+def _open_plain_image(path, overview_level=None, device=None):
+    """Plain image rasters (PNG/JPEG/BMP via OpenCV) with ESRI world-file
+    and ``.prj`` sidecar georeferencing. Always eager; ``overview_level``
+    is rejected (no pyramid)."""
+    try:
+        import cv2
+    except ImportError:
+        raise IOError('reading %s needs OpenCV (cv2), which is not '
+                      'installed' % os.path.splitext(str(path))[1])
+    if overview_level is not None:
+        raise ValueError('plain image rasters carry no overview '
+                         'pyramid; open the full resolution')
+    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise IOError('OpenCV could not decode %s' % path)
+    if img.ndim == 2:
+        data = img[None]
+    else:
+        # BGR(A) -> RGB(A) band order, then (band, y, x)
+        if img.shape[2] == 3:
+            img = img[:, :, ::-1]
+        elif img.shape[2] == 4:
+            img = np.concatenate([img[:, :, 2::-1], img[:, :, 3:]],
+                                 axis=2)
+        data = np.moveaxis(img, 2, 0)
+    return _raster_dataarray(data, _read_world_file(path),
+                             _read_prj_file(path), nodata=None, is_tiled=0,
+                             device=device)
+
+
+def _raster_dataarray(data, transform, crs, nodata, is_tiled, device=None):
+    """Assemble the (band, y, x) DataArray open_rasterio returns."""
+    nbands, height, width = data.shape[0], data.shape[1], data.shape[2]
+    attrs = {}
+    coords = {'band': np.arange(1, nbands + 1)}
+    if transform is not None:
+        cols = np.arange(width) + 0.5
+        rows = np.arange(height) + 0.5
+        if transform.b or transform.d:
+            C, R = np.meshgrid(cols, rows)
+            coords['xc'] = (('y', 'x'),
+                            transform.a * C + transform.b * R
+                            + transform.c)
+            coords['yc'] = (('y', 'x'),
+                            transform.d * C + transform.e * R
+                            + transform.f)
+        else:
+            coords['x'] = transform.a * cols + transform.c
+            coords['y'] = transform.e * rows + transform.f
+        attrs['transform'] = tuple(transform)[:6]
+        attrs['res'] = (abs(transform.a), abs(transform.e))
+    if crs is not None:
+        attrs['crs'] = crs.to_proj4()
+    if nodata is not None:
+        attrs['nodatavals'] = (nodata,) * nbands
+    attrs['is_tiled'] = int(is_tiled)
+    return DataArray(np.ascontiguousarray(data), dims=('band', 'y', 'x'),
+                     coords=coords, attrs=attrs, device=device)
+
+
+def open_rasterio(path, chunks=None, overview_level=None, device=None,
+                  *args, **kwargs):
+    """Read a raster (GeoTIFF, or PNG/JPEG/BMP with world-file sidecars)
+    into a (band, y, x) DataArray on ``device`` (default ``cuda``).
+
+    Coordinates are pixel-center positions from the affine transform;
+    attrs carry transform/crs/res/nodatavals. ``overview_level`` selects
+    a reduced-resolution overview IFD (0 = first/largest): the raster
+    decodes at that decimation and the transform/coords scale to match.
+    ``chunks=`` (a lazy open, item 19) and JPEG 2000 (item 18) raise
+    until their ROADMAP items.
+    """
+    from .geotiff import TiffFile
+    _no_lazy(chunks)
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext in _PLAIN_IMAGE_EXTS:
+        return _open_plain_image(path, overview_level=overview_level,
+                                 device=device)
+    if ext in _JP2_EXTS:
+        raise NotImplementedError(
+            'JPEG 2000 (%s) is not ported yet: the decoder comes with the '
+            'Sentinel-2 granule reader (ROADMAP item 18)' % ext)
+    with TiffFile(str(path)) as t:
+        width, height = t.width, t.height
+        if overview_level is not None:
+            data = t.read_overview(int(overview_level))
+        else:
+            data = t.read()
+        transform = t.transform
+        if overview_level is not None and transform is not None:
+            # decimated pixels cover width/ov_w source pixels each
+            from ..crs import Affine
+            transform = transform * Affine.scale(width / data.shape[2],
+                                                 height / data.shape[1])
+        crs = t.crs
+        nodata = t.nodata
+        is_tiled = int(322 in t.tags)
+    return _raster_dataarray(data, transform, crs, nodata, is_tiled,
+                             device=device)
+
+
+def to_geotiff(ds, path, nodata=None, compress=True, tiled=False,
+               tile_size=256, overviews=None):
+    """Write a Dataset/DataArray to a GeoTIFF.
+
+    A Dataset writes one band per (y, x) variable; a DataArray writes
+    its (possibly banded) raster directly. Geo-metadata is taken from
+    the object (``warp.get_transform`` / ``get_crs``). ``tiled=True`` +
+    ``overviews=True`` (or a list of decimation factors) writes the
+    cloud-optimized layout: square internal tiles plus a
+    reduced-resolution overview pyramid.
+    """
+    from ..crs import Affine
+    from ..warp import get_crs, get_transform
+    from .geotiff import write_geotiff
+
+    transform = get_transform(ds)
+    if transform is not None:
+        # the framework's transform maps pixel index -> coordinate
+        # (corner-grid convention); GeoTIFF anchors the transform at
+        # the outer corner of pixel (0, 0) with centers at +0.5
+        transform = transform * Affine.translation(-0.5, -0.5)
+    crs = get_crs(ds)
+    if isinstance(ds, Dataset):
+        bands = []
+        for v in utils.get_vars_for_dims(ds, ('y', 'x')):
+            da = ds[v].transpose('y', 'x', *[
+                d for d in ds[v].dims if d not in ('y', 'x')])
+            vals = np.asarray(da.values)
+            vals = vals.reshape(vals.shape[0], vals.shape[1], -1)
+            for b in range(vals.shape[2]):
+                bands.append(vals[:, :, b])
+        data = np.stack(bands, axis=0)
+    else:
+        da = ds
+        order = [d for d in ('band',) if d in da.dims] + ['y', 'x']
+        extra = [d for d in da.dims if d not in order]
+        da = da.transpose(*(extra + order))
+        data = np.asarray(da.values)
+        data = data.reshape((-1,) + data.shape[-2:])
+    write_geotiff(path, data, transform=transform, crs=crs,
+                  nodata=nodata, compress=compress, tiled=tiled,
+                  tile_size=tile_size, overviews=overviews)
+    return path
+
+
+from .beam_dimap import open_beam_dimap  # noqa: E402

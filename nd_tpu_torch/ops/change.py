@@ -41,7 +41,7 @@ from .stats import chi2_cdf
 __all__ = ['omnibus_probabilities', 'omnibus_rho', 'omnibus_thresholds',
            'decision_tables',
            'change_detection', 'change_detection_plain',
-           'change_detection_exact', 'pack_flags']
+           'change_detection_exact', 'pack_flags', 'omnibus_z']
 
 _P = 2.0  # dual-pol covariance matrices are 2x2
 
@@ -51,6 +51,22 @@ def omnibus_rho(j, n):
     j = np.asarray(j, np.float64)
     return 1 - (2 * _P ** 2 - 1) / (6 * (j - 1) * _P) \
         * (j / n - 1 / (n * j))
+
+
+def omnibus_z(ts, n, device=None):
+    """-2 rho logQ statistic over a full (k, 4) series, for testing and
+    inspection (the JAX package's ``omnibus_z``)."""
+    ts = as_tensor(ts, device)
+    k = ts.shape[0]
+    dets = ts[:, 0] * ts[:, 3] - ts[:, 1] ** 2 - ts[:, 2] ** 2
+    sums = ts.sum(0)
+    det_of_sum = sums[0] * sums[3] - sums[1] ** 2 - sums[2] ** 2
+    log_prod = torch.log(dets.abs()).sum()
+    log_prod = torch.where(torch.prod(torch.sign(dets)) > 0, log_prod,
+                           float('nan'))
+    logQ = n * (_P * k * np.log(float(k)) + log_prod
+                - k * torch.log(det_of_sum))
+    return -2 * float(omnibus_rho(k, n)) * logQ
 
 
 def _window_probability(csum, logdet, negcnt, j, n, dtype):

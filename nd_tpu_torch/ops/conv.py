@@ -40,7 +40,7 @@ import torch
 from ..core.variable import as_tensor
 
 __all__ = ['convolve', 'separable_convolve', 'gaussian_kernel1d',
-           'pad_reflect']
+           'uniform_sums', 'pad_reflect']
 
 # Taps per axis the fused three-axis route admits (the reference's
 # conv_pallas._MAX_TAPS); longer kernels take the sequential passes.
@@ -375,3 +375,12 @@ def gaussian_kernel1d(sigma, truncate=4.0, radius=None):
     else:
         phi = np.exp(-0.5 * (x / float(sigma)) ** 2)
     return phi / phi.sum()
+
+
+def uniform_sums(arr, sizes, axes, device=None):
+    """Sliding-window sums ('valid') of ``sizes[i]`` samples along each
+    ``axes[i]``."""
+    arr = as_tensor(arr, device)
+    for ax, s in zip(axes, sizes):
+        arr = arr.unfold(ax, int(s), 1).sum(-1)
+    return arr

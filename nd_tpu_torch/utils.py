@@ -115,24 +115,66 @@ def squeeze(obj):
         return obj
 
 
+# forms that ISO 8601 does not cover, read with strptime: SNAP's
+# BEAM-DIMAP headers (03-Jan-2023 10:00:00.000000), slashed year-first
+# dates and month-name dates
+_STRPTIME_FORMATS = ('%d-%b-%Y %H:%M:%S.%f', '%d-%b-%Y %H:%M:%S',
+                     '%d-%b-%Y', '%Y/%m/%d %H:%M:%S.%f', '%Y/%m/%d %H:%M:%S',
+                     '%Y/%m/%d', '%b %d %Y %H:%M:%S', '%b %d %Y')
+# an ISO-like date whose fields after the year need not be zero-padded,
+# as CF epochs write it ('1970-1-1 0:0:0', '... UTC')
+_LOOSE_ISO = re.compile(
+    r'(\d{4})-(\d{1,2})-(\d{1,2})(?:[ T](\d{1,2}):(\d{1,2})'
+    r'(?::(\d{1,2})(?:\.(\d{1,6})\d*)?)?)?\s*(Z|UTC|GMT)?$')
+# day and month in either order with one separator: pandas reads
+# 03.01.2023 as 1 March, a European reader as 3 January
+_AMBIGUOUS = re.compile(r'\d{1,2}([./-])\d{1,2}\1\d{2,4}$')
+
+
 def str2date(string, fmt=None, tz=False):
     """Parse a date string to a datetime (tz-aware UTC with ``tz``).
-    Without ``fmt`` the string is ISO 8601 (dates, times, offsets, 'Z'),
-    read without pandas."""
+    Without ``fmt`` the string is ISO 8601 (dates, times, offsets, 'Z';
+    fields need not be zero-padded), SNAP's ``03-Jan-2023 10:00:00.000``,
+    ``2023/01/03`` or ``Jan 3 2023``, read without pandas. A date whose
+    day and month could be either way round (``03.01.2023``) raises."""
     if fmt is not None:
         date_object = datetime.datetime.strptime(string, fmt)
     else:
-        try:
-            date_object = datetime.datetime.fromisoformat(string)
-        except ValueError:
-            date_object = np.datetime64(string, 'us').astype(
-                datetime.datetime)
+        date_object = _parse_date(string.strip())
     if tz:
         if date_object.tzinfo is None:
             date_object = date_object.replace(tzinfo=datetime.timezone.utc)
     elif date_object.tzinfo is not None:
         date_object = date_object.replace(tzinfo=None)
     return date_object
+
+
+def _parse_date(string):
+    try:
+        return datetime.datetime.fromisoformat(string)
+    except ValueError:
+        pass
+    m = _LOOSE_ISO.match(string)
+    if m:
+        y, mo, d, h, mi, sec, frac, utc = m.groups()
+        return datetime.datetime(
+            int(y), int(mo), int(d), int(h or 0), int(mi or 0),
+            int(sec or 0), int((frac or '0').ljust(6, '0')),
+            tzinfo=datetime.timezone.utc if utc else None)
+    if _AMBIGUOUS.match(string):
+        raise ValueError('ambiguous date %r: the day and the month could '
+                         'be either way round; pass fmt=' % string)
+    for form in _STRPTIME_FORMATS:
+        try:
+            return datetime.datetime.strptime(string, form)
+        except ValueError:
+            continue
+    try:
+        return np.datetime64(string, 'us').astype(datetime.datetime)
+    except ValueError:
+        raise ValueError('unrecognised date %r: not ISO 8601, nor one of '
+                         'the forms %s' % (string, ', '.join(
+                             _STRPTIME_FORMATS))) from None
 
 
 def dict_product(d):

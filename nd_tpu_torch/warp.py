@@ -9,14 +9,16 @@ downsampling. Coregistration is phase correlation on ``torch.fft`` and a
 Catmull-Rom translation (``ops.fft``). The grid convention: the
 coordinate of pixel (row, col) is ``transform * (col, row)``.
 
-``Alignment`` (it writes netCDF files) waits for the I/O port, ROADMAP
-item 13, and ``get_geometry`` (it builds vector geometry) for item 12;
-both raise.
+``Alignment`` reprojects products onto one shared grid and writes each
+to netCDF (``io.to_netcdf``). ``get_geometry`` (it builds vector
+geometry) waits for ROADMAP item 12 and raises.
 """
 
 from __future__ import annotations
 
 import functools
+import glob
+import os
 import warnings
 from collections import namedtuple
 
@@ -27,7 +29,7 @@ from .algorithm import Algorithm, parallelize, wrap_algorithm
 from .core import DataArray, Dataset
 from .core.variable import Variable, to_numpy
 from .crs import CRS, Affine, transform_coords
-from .io import disassemble_complex
+from .io import disassemble_complex, open_dataset, to_netcdf
 from .ops.fft import phase_cross_correlation_batch, translate_batch
 from .ops.interp import (FOOTPRINT_SPAN_CAP, FOOTPRINT_STATS, axis_weights,
                          footprint_axis, footprint_resample,
@@ -931,9 +933,6 @@ resample = wrap_algorithm(Resample, 'resample')
 class Alignment(Algorithm):
     """Align a list of datasets onto one common coordinate grid.
 
-    Not ported yet: it reads and writes netCDF files, and the port's I/O
-    is ROADMAP item 13. Constructing one raises.
-
     Parameters
     ----------
     target : Dataset, optional
@@ -942,14 +941,39 @@ class Alignment(Algorithm):
         Output CRS (default: CRS of the first dataset).
     extent : tuple, optional
         Output bounds (default: the common bounds of all datasets).
+    device : torch.device or str, optional
+        Where products given as files are opened (default ``cuda``);
+        products given as datasets stay on their device.
     """
 
-    def __init__(self, target=None, crs=None, extent=None):
-        raise NotImplementedError(
-            'Alignment writes netCDF files, and the I/O is not ported yet '
-            '(ROADMAP item 13); Reprojection with the extent of '
-            'get_common_bounds and get_common_resolution aligns datasets '
-            'in memory')
+    def __init__(self, target=None, crs=None, extent=None, device=None):
+        self.target = target
+        self.crs = crs
+        self.extent = extent
+        self.device = device
+
+    def _sources(self, datasets):
+        """Normalize the input into (name, loader) pairs. The loader
+        re-opens file-backed products on demand, so the write loop
+        keeps at most one full dataset alive at a time."""
+        if isinstance(datasets, str):
+            datasets = glob.glob(datasets)
+        if not datasets:
+            raise ValueError(
+                'Alignment: nothing to align (empty list or glob '
+                'with no matches)')
+        pairs = []
+        for i, item in enumerate(datasets):
+            if isinstance(item, str):
+                stem = os.path.basename(item)
+                dot = stem.rfind('.')
+                name = stem[:dot] if dot > 0 else stem
+                pairs.append((name, functools.partial(
+                    open_dataset, item, as_complex=False,
+                    device=self.device)))
+            else:
+                pairs.append(('data%d' % i, (lambda d=item: d)))
+        return pairs
 
     def apply(self, datasets, path):
         """Reproject every product onto one shared grid and write each
@@ -962,7 +986,24 @@ class Alignment(Algorithm):
         path : str
             Output directory.
         """
-        raise NotImplementedError('ROADMAP item 13')
+        pairs = self._sources(datasets)
+
+        # the shared grid needs every product's metadata up front
+        opened = [load() for _, load in pairs]
+        grid = {
+            'extent': (get_common_bounds(opened)
+                       if self.extent is None else self.extent),
+            'res': get_common_resolution(opened),
+            'dst_crs': (get_crs(opened[0])
+                        if self.crs is None else self.crs),
+        }
+        del opened
+        proj = Reprojection(**grid)
+
+        os.makedirs(path, exist_ok=True)
+        for name, load in pairs:
+            to_netcdf(proj.apply(load()),
+                      os.path.join(path, name + '_aligned.nc'))
 
 
 align = wrap_algorithm(Alignment, 'align')

@@ -35,7 +35,10 @@ kernel (non-separable convolution) max abs diff 0 to its plain version,
 and the card's non-separable ``convolve`` equal to the CPU's; ``njobs=4``
 equal to ``njobs=1``; the grouped reductions and gap filling on the card
 within rtol 1e-6, atol 1e-6 of the CPU's; ``apply``'s vmap route within
-rtol 1e-12 of the CPU's.
+rtol 1e-12 of the CPU's; the I/O's reads onto the card bit-equal to what
+was written and to the same read onto the CPU, and the quick start from
+a file: NLMeans rtol 1e-5, atol 1e-6 of the CPU's, the change map equal
+to the CPU's omnibus of the card's filtered values.
 """
 
 import ctypes
@@ -1381,3 +1384,101 @@ def test_apply_takes_the_vmap_route_on_the_card(cuda):
         {v: (ds[v].dims, ds[v].data.cpu()) for v in ds.data_vars}), span,
         signature='(time,var)->(time)')
     np.testing.assert_allclose(got.values, ref.values, rtol=1e-12)
+
+
+# ---- the I/O layer on the card ----------------------------------------------
+
+def _on(cube, times, device):
+    """A (y, x, time, 4) C2 cube as the quick start's file holds it: C11,
+    C12 (complex), C22, UTM coordinates, a time coordinate."""
+    cube = cube.to(device)
+    ny, nx = cube.shape[:2]
+    return Dataset({'C11': (('y', 'x', 'time'), cube[..., 0]),
+                    'C12': (('y', 'x', 'time'),
+                            torch.complex(cube[..., 1], cube[..., 2])),
+                    'C22': (('y', 'x', 'time'), cube[..., 3])},
+                   coords={'y': 4e6 - 10 * np.arange(float(ny)),
+                           'x': 5e5 + 10 * np.arange(float(nx)),
+                           'time': times},
+                   attrs={'crs': 'epsg:32633'}, device=device)
+
+
+def _bit_equal(got, ref):
+    assert set(got.data_vars) == set(ref.data_vars)
+    for v in ref.data_vars:
+        assert got[v].dims == ref[v].dims
+        assert torch.equal(got[v].data.cpu(), ref[v].data.cpu()), v
+    for c in ref.coords:
+        np.testing.assert_array_equal(got[c].values, ref[c].values)
+
+
+@pytest.mark.parametrize('reader', ['netcdf', 'zarr', 'geotiff'])
+def test_readers_put_the_data_on_the_card(cuda, tmp_path, reader):
+    ds = _on(torch.from_numpy(sar_cube(24, 20, 12, seed=71,
+                                       special=False)),
+             np.datetime64('2023-01-03', 'ns')
+             + np.arange(12) * np.timedelta64(12, 'D'), cuda)
+    if reader == 'netcdf':
+        p = str(tmp_path / 'a.nc')
+        ndt.to_netcdf(ds, p)
+        got = ndt.open_dataset(p, as_complex=True)
+        host = ndt.open_dataset(p, as_complex=True, device='cpu')
+    elif reader == 'zarr':
+        p = str(tmp_path / 'a.zarr')
+        ndt.io.to_zarr(ds, p)
+        got, host = ndt.io.open_zarr(p), ndt.io.open_zarr(p, device='cpu')
+    else:
+        p = str(tmp_path / 'a.tif')
+        one = ndt.io.disassemble_complex(ds)
+        ndt.io.to_geotiff(one, p, compress='deflate', tiled=True,
+                          tile_size=16)
+        da = ndt.io.open_rasterio(p)
+        assert da.data.device.type == 'cuda'
+        assert torch.equal(da.data.cpu(),
+                           ndt.io.open_rasterio(p, device='cpu').data)
+        return
+    for v in got.data_vars:
+        assert got[v].data.device.type == 'cuda', v
+    _bit_equal(got, ds)
+    _bit_equal(host, ds)
+
+
+def test_netcdf_classic_route_on_the_card(cuda, tmp_path, monkeypatch):
+    from nd_tpu_torch.io import netcdf
+    monkeypatch.setattr(netcdf, '_h5py', lambda: None)
+    assert netcdf.writer() == 'netCDF classic (CDF-2)'
+    ds = _on(torch.from_numpy(sar_cube(24, 20, 12, seed=72,
+                                       special=False)),
+             np.datetime64('2023-01-03', 'ns')
+             + np.arange(12) * np.timedelta64(12, 'D'), cuda)
+    p = str(tmp_path / 'c.nc')
+    ndt.to_netcdf(ds, p)
+    with open(p, 'rb') as fh:
+        assert fh.read(4) == b'CDF\x02'
+    got = ndt.open_dataset(p, as_complex=True)
+    assert all(got[v].data.device.type == 'cuda' for v in got.data_vars)
+    _bit_equal(got, ds)
+
+
+def test_quick_start_from_a_file_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The quick start read from a file onto the card: NLMeans within its
+    tolerance of the CPU's from the same file, and the change map equal
+    to the CPU's OmnibusTest of the card's filtered values."""
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(12) * np.timedelta64(12, 'D')
+    cube = torch.from_numpy(sar_cube(40, 36, 12, seed=73, special=False))
+    p = str(tmp_path / 'stack.nc')
+    ndt.to_netcdf(_on(cube, times, 'cpu'), p)
+    nlm = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.01)
+    flt = {dev: nlm.apply(ndt.open_dataset(p, device=dev).nd.as_complex())
+           for dev in ('cuda', 'cpu')}
+    change = omn.apply(flt['cuda'])
+    assert change.data.device.type == 'cuda'
+    for v in flt['cpu'].data_vars:
+        np.testing.assert_allclose(flt['cuda'][v].values,
+                                   flt['cpu'][v].values, rtol=1e-5,
+                                   atol=1e-6)
+    moved = Dataset({v: (flt['cuda'][v].dims, flt['cuda'][v].data.cpu())
+                     for v in flt['cuda'].data_vars})
+    assert torch.equal(change.data.cpu(), omn.apply(moved).data)

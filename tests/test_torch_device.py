@@ -109,7 +109,39 @@ ENTRY_POINTS = {
     'parallel': lambda **kw: [ndt.utils.parallel(
         lambda part: part * 2, dim='y', chunks=2)(
             Dataset({'a': (('y', 'x'), np.ones((4, 3)))}, **kw))['a'].data],
+    'open_dataset': lambda **kw: (lambda ds: [ds['a'].data, ds['x'].data])(
+        ndt.open_dataset(_files()['nc'], **kw)),
+    'open_netcdf': lambda **kw: (lambda ds: [ds['a'].data, ds['x'].data])(
+        ndt.io.open_netcdf(_files()['nc'], **kw)),
+    'open_rasterio': lambda **kw: (lambda da: [da.data, da['x'].data])(
+        ndt.io.open_rasterio(_files()['tif'], **kw)),
+    'open_zarr': lambda **kw: (lambda ds: [ds['a'].data, ds['x'].data])(
+        ndt.io.open_zarr(_files()['zarr'], **kw)),
+    'open_beam_dimap': lambda **kw: (lambda ds: [ds['Sigma0_VV'].data,
+                                                 ds['lat'].data])(
+        ndt.io.open_beam_dimap(_files()['dim'], **kw)),
 }
+
+_FILES = {}
+
+
+def _files():
+    """One file per reader, written once per process by the port's
+    writers (the BEAM-DIMAP product by the DIMAP tests' writer)."""
+    if not _FILES:
+        from test_torch_dimap import write_dimap
+        tmp = tempfile.mkdtemp()
+        ds = Dataset({'a': (('y', 'x'), np.ones((2, 3), np.float32))},
+                     coords={'y': np.arange(2.0), 'x': np.arange(3.0)},
+                     attrs={'crs': 'epsg:4326'}, device='cpu')
+        _FILES.update(nc=os.path.join(tmp, 'a.nc'),
+                      tif=os.path.join(tmp, 'a.tif'),
+                      zarr=os.path.join(tmp, 'a.zarr'),
+                      dim=write_dimap(os.path.join(tmp, 'product')))
+        ndt.to_netcdf(ds, _FILES['nc'])
+        ndt.io.to_geotiff(ds, _FILES['tif'])
+        ndt.io.to_zarr(ds, _FILES['zarr'])
+    return _FILES
 
 
 def _saved_and_loaded(**kw):

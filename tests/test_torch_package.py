@@ -26,7 +26,9 @@ def test_import_loads_no_jax():
             'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda, '
             'nd_tpu_torch.warp, nd_tpu_torch.accessors, nd_tpu_torch.crs, '
             'nd_tpu_torch.ops.interp, nd_tpu_torch.ops.fft, '
-            'nd_tpu_torch.testing; '
+            'nd_tpu_torch.testing, nd_tpu_torch.io.netcdf, '
+            'nd_tpu_torch.io.geotiff, nd_tpu_torch.io.envi, '
+            'nd_tpu_torch.io.zarr, nd_tpu_torch.io.beam_dimap; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')

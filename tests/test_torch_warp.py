@@ -10,6 +10,8 @@ variables exact; coregistration shifts equal. Coordinates and the
 georeferencing attrs must match too.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -327,14 +329,85 @@ def test_getters_match_jax():
     assert tuple(got[0]) == tuple(want[0]) and got[1:] == want[1:]
 
 
-def test_alignment_and_get_geometry_raise_naming_their_items():
+def test_get_geometry_raises_naming_its_item():
     _, t = _pair()
-    with pytest.raises(NotImplementedError, match='ROADMAP item 13'):
-        ndt.warp.Alignment()
-    with pytest.raises(NotImplementedError, match='ROADMAP item 13'):
-        ndt.warp.align([t], '/nonexistent')
     with pytest.raises(NotImplementedError, match='ROADMAP item 12'):
         T.get_geometry(t)
+
+
+def _products(tmp_path):
+    """Two products in both packages: the cube and a copy shifted by a
+    fraction of a pixel, each also written to netCDF by its package."""
+    from nd_tpu import io as jio
+    from nd_tpu_torch import io as tio
+    dims = {'y': 23, 'x': 29, 'time': 2}
+    a = _pair(dims=dims, special=False, extent=(10.0, 50.0, 12.0, 52.0))
+    b = _pair(dims=dims, special=False, seed=7,
+              extent=(10.37, 49.81, 12.37, 51.81))
+    files = {'j': [], 't': []}
+    for name, (j, t) in (('a', a), ('b', b)):
+        for key, write, ds in (('j', jio.to_netcdf, j), ('t', tio.to_netcdf, t)):
+            path = str(tmp_path / ('%s_%s.nc' % (key, name)))
+            write(ds, path)
+            files[key].append(path)
+    return a, b, files
+
+
+def _aligned_equal(got, ref, exact):
+    """Port output (``got``) against nd_tpu's or the port's own."""
+    assert set(got.data_vars) == set(ref.data_vars)
+    for v in ref.data_vars:
+        g, r = got[v].values, np.asarray(ref[v].values)
+        assert got[v].dims == ref[v].dims and g.dtype == r.dtype, v
+        if exact:
+            np.testing.assert_array_equal(g, r, err_msg=v)
+        else:
+            np.testing.assert_allclose(g, r, err_msg=v, **_tol(r.dtype))
+    for c in ref.coords:
+        np.testing.assert_array_equal(got.coords[c].values,
+                                      np.asarray(ref.coords[c].values))
+    assert set(got.attrs) == set(ref.attrs)
+    for k in ref.attrs:
+        assert np.array_equal(np.asarray(got.attrs[k]),
+                              np.asarray(ref.attrs[k])), k
+
+
+@pytest.mark.parametrize('source', ['datasets', 'files'])
+def test_align_matches_jax_and_in_memory_reprojection(tmp_path, source):
+    """``align`` writes ``<name>_aligned.nc`` per product: the port's
+    files equal its own Reprojection of the products onto the common
+    grid, exactly, and nd_tpu's files within the warp's tolerances."""
+    from nd_tpu import io as jio
+    from nd_tpu_torch import io as tio
+    a, b, files = _products(tmp_path)
+    if source == 'files':
+        jsrc, tsrc, names = files['j'], files['t'], ['%s_a', '%s_b']
+    else:
+        jsrc, tsrc, names = [a[0], b[0]], [a[1], b[1]], ['data0', 'data1']
+    J.align(jsrc, str(tmp_path / 'j_out'))
+    ndt.warp.Alignment(device='cpu').apply(tsrc, str(tmp_path / 't_out'))
+    grid = dict(extent=T.get_common_bounds([a[1], b[1]]),
+                res=T.get_common_resolution([a[1], b[1]]),
+                dst_crs=T.get_crs(a[1]))
+    for name, (_, t) in zip(names, (a, b)):
+        jname = name % 'j' if '%' in name else name
+        tname = name % 't' if '%' in name else name
+        got = tio.open_netcdf(str(tmp_path / 't_out' / (tname + '_aligned.nc')),
+                              device='cpu')
+        ref = jio.open_netcdf(str(tmp_path / 'j_out' / (jname + '_aligned.nc')))
+        _aligned_equal(got, ref, exact=False)
+        mem = ndt.Reprojection(**grid).apply(t)
+        for v in mem.data_vars:
+            np.testing.assert_array_equal(got[v].values, mem[v].values)
+
+
+def test_align_of_a_glob_and_of_nothing(tmp_path):
+    a, b, files = _products(tmp_path)
+    T.align(str(tmp_path / 't_*.nc'), str(tmp_path / 'out'), device='cpu')
+    assert sorted(os.listdir(str(tmp_path / 'out'))) == \
+        ['t_a_aligned.nc', 't_b_aligned.nc']
+    with pytest.raises(ValueError, match='nothing to align'):
+        T.align(str(tmp_path / 'none_*.nc'), str(tmp_path / 'out'))
 
 
 def test_plan_caches_are_keyed_by_device():
