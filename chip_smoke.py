@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
-training path, its dated-stack path and its I/O once on one CUDA device.
+training path, its dated-stack path, its I/O and its tiling once on one
+CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -227,6 +228,38 @@ exactly, and timed beside the card's name and power limit):
      ``Reprojection`` of the same products in memory bit for bit; the
      same ``align`` on the CPU within W2's rtol 1e-5, atol 1e-6 (the
      resampling's sums round in another order on the card).
+
+and lazy opens and tiling, from I1's and I3's files:
+
+ O1. ``open_dataset('stack.nc', chunks={})`` reads no variable (a read
+     counter on the lazy netCDF reader); a 256 x 256 ``isel`` reads its
+     four slabs only, onto the card, bit-equal to the eager open; a
+     window of I3's tiled deflate GeoTIFF through
+     ``open_rasterio(chunks={})`` equals the eager read;
+ O2. bench.py's tile_pipeline configuration: ``generate_test_dataset``
+     2048 x 2048 x 4 as float32 -> ``tile(chunks={'y': 512, 'x': 512},
+     buffer=1)`` -> ``map_over_tiles(BoxcarFilter(w=3).apply,
+     merge=True, max_workers=8)``: the merge bit-equal to the filter of
+     the whole cube on the card, the best of 3 in Mpix/s (pixels times
+     4 channels, as bench.py counts them), sepconv launched once a tile;
+ O3. ``tile('stack.nc', chunks={'y': 256, 'x': 256}, buffer=4)`` from
+     the path (its largest read one buffered tile) ->
+     ``map_over_tiles`` of the README chain (NLMeans, then the omnibus
+     test) -> ``auto_merge``: the filtered cube within NLMeans's
+     tolerance of phase 6's (the largest difference printed), the change
+     map with 0 mismatches against the plain scan of the merged cube
+     (its mismatches against phase 6's map printed); NLMeans, the round
+     kernel, sepconv and the rescan launched once a tile;
+ O4. a 4096 x 4096 x 12 x 4 float32 cube (3.2 GB; fewer rows, never
+     under 1024, where the disk is short) written by ``to_netcdf``, then
+     in a process of its own ``tile(path, chunks={'y': 256}, buffer=4,
+     max_workers=2)`` and ``map_over_tiles`` of the chain's change map
+     (``merge=False, max_workers=2``): 16 change-map tiles, the first
+     tile's core equal to the chain on its window read whole, the peak
+     RSS (``/proc/<pid>/statm`` sampled from this process every
+     millisecond, ``testing.run_sampling_rss``) less than half the
+     cube's bytes over its baseline after the imports and one warm tile,
+     the pass in MB/s; the files are deleted.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -1470,13 +1503,13 @@ def same_io(got, ref, what, device=None):
 
 
 def run_io_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts, cube,
-                  readme_change):
+                  readme_change, tmp):
     """I1-I4: the bench cube written to netCDF and read back onto the
     card, the quick start run from that file, a cut through GeoTIFF,
     zarr and ENVI, and ``align`` of two products written as files. Each
-    result is held against the same call on the CPU, exactly. Returns
-    the kernel launches of I2's quick start."""
-    import tempfile
+    result is held against the same call on the CPU, exactly. The files
+    stay in ``tmp`` (O1 and O3 read ``stack.nc`` and ``cut.tif``).
+    Returns the kernel launches of I2's quick start."""
     import torch
     from nd_tpu_torch import io as tio
     from nd_tpu_torch.io import envi, netcdf
@@ -1497,166 +1530,643 @@ def run_io_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts, cube,
     def mbs(nbytes, secs):
         return nbytes / secs / 1e6
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # ---- I1: the bench cube to netCDF and back onto the card ------------
-        ds = io_dataset(cube, NY, NX, device=dev)
-        nbytes = sum(v.data.numel() * v.data.element_size()
-                     for v in ds._variables.values())
-        path = os.path.join(tmp, 'stack.nc')
-        _, w_s = timed(lambda: ndt.to_netcdf(ds, path))
-        back, r_s = timed(lambda: ndt.open_dataset(path, as_complex=True))
-        host, h_s = timed(lambda: ndt.open_dataset(path, as_complex=True,
-                                                   device='cpu'))
-        _, h2d_s = timed(lambda: [v.data.to(dev) for v in
-                                  host._variables.values()])
-        same_io(back, ds, 'I1 card read', dev)
-        same_io(host, back, 'I1 CPU read')
-        phase('I1', 'bench cube %s as C11, C12 (complex64), C22 + time, '
-              'crs, transform -> %s: %s writer, %d MB file; write %.2f s '
-              '(%.0f MB/s from the card), read onto the card %.2f s (%.0f '
-              'MB/s), read onto the CPU %.2f s, the host-to-device copy of '
-              'its tensors %.3f s (%.1f%% of the card read); bit-equal, on '
-              'the card, equal to the CPU read | %s'
-              % (tuple(cube.shape), os.path.basename(path), netcdf.writer(),
-                 os.path.getsize(path) // 10 ** 6, w_s, mbs(nbytes, w_s),
-                 r_s, mbs(nbytes, r_s), h_s, h2d_s, 100.0 * h2d_s / r_s,
-                 card))
-        del host
+    # ---- I1: the bench cube to netCDF and back onto the card ------------
+    ds = io_dataset(cube, NY, NX, device=dev)
+    nbytes = sum(v.data.numel() * v.data.element_size()
+                 for v in ds._variables.values())
+    path = os.path.join(tmp, 'stack.nc')
+    _, w_s = timed(lambda: ndt.to_netcdf(ds, path))
+    back, r_s = timed(lambda: ndt.open_dataset(path, as_complex=True))
+    host, h_s = timed(lambda: ndt.open_dataset(path, as_complex=True,
+                                               device='cpu'))
+    _, h2d_s = timed(lambda: [v.data.to(dev) for v in
+                              host._variables.values()])
+    same_io(back, ds, 'I1 card read', dev)
+    same_io(host, back, 'I1 CPU read')
+    phase('I1', 'bench cube %s as C11, C12 (complex64), C22 + time, '
+          'crs, transform -> %s: %s writer, %d MB file; write %.2f s '
+          '(%.0f MB/s from the card), read onto the card %.2f s (%.0f '
+          'MB/s), read onto the CPU %.2f s, the host-to-device copy of '
+          'its tensors %.3f s (%.1f%% of the card read); bit-equal, on '
+          'the card, equal to the CPU read | %s'
+          % (tuple(cube.shape), os.path.basename(path), netcdf.writer(),
+             os.path.getsize(path) // 10 ** 6, w_s, mbs(nbytes, w_s),
+             r_s, mbs(nbytes, r_s), h_s, h2d_s, 100.0 * h2d_s / r_s,
+             card))
+    del host
 
-        # ---- I2: the quick start from the file, counted --------------------
-        reset_counts()
+    # ---- I2: the quick start from the file, counted --------------------
+    reset_counts()
 
-        def quick_start():
-            qs = ndt.open_dataset(path)
-            qs = qs.nd.as_complex()
-            flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
-                                    h=3).apply(qs)
-            change = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
-            return flt, change
-        (flt, change), qs_s = timed(quick_start)
-        counts = read_counts()
-        method, m_s = timed(lambda: ndt.open_dataset(path).filter.nlmeans(
-            r=2, f=1, sigma=2, h=3).nd.change_omnibus(ml=3))
-        box = _separable_factors(np.ones((3, 3)) / 9)
-        st = torch.stack([flt['C11'].data, flt['C12__re'].data,
-                          flt['C12__im'].data, flt['C22'].data])
-        looked = conv_cuda.sepconv2_plain(st, box[0], box[1])
-        plain = change_detection_plain(looked.permute(1, 2, 3, 0)
-                                       .contiguous(), 0.01, n=9)
-        mism = int((change.data != plain).sum())
-        check(mism == 0, 'I2 mismatches against the plain scan', mism)
-        check(change.dims == ('y', 'x', 'time')
-              and change.data.device == readme_change.device,
-              'I2 change map', change.dims, change.data.device)
-        check(torch.equal(change.data, readme_change),
-              'I2 change map differs from phase 6\'s')
-        check(torch.equal(method.data, change.data),
-              'I2 method-style line', method.dims)
-        check(all(counts[n] > 0 for n in ('nlmeans', 'omnibus', 'sepconv',
-                                          'omnibus_mixed')),
-              'I2 launches', counts)
-        phase('I2', 'quick start from %s: open_dataset -> as_complex -> '
-              'NLMeansFilter(r=2, f=1) -> OmnibusTest(ml=3, alpha=0.01) '
-              '%.3f s wall (the read included); %d mismatches vs the plain '
-              'scan of the same filtered data; the change map (%d changes) '
-              'equals phase 6\'s in-memory chain; README:94\'s method-style '
-              'line %.3f s, equal; launches %s | %s'
-              % (os.path.basename(path), qs_s, mism, int(change.data.sum()),
-                 m_s, json.dumps({k: v for k, v in counts.items() if v}),
-                 card))
-        del flt, change, method, st, looked, plain, back
+    def quick_start():
+        qs = ndt.open_dataset(path)
+        qs = qs.nd.as_complex()
+        flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
+                                h=3).apply(qs)
+        change = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+        return flt, change
+    (flt, change), qs_s = timed(quick_start)
+    counts = read_counts()
+    method, m_s = timed(lambda: ndt.open_dataset(path).filter.nlmeans(
+        r=2, f=1, sigma=2, h=3).nd.change_omnibus(ml=3))
+    box = _separable_factors(np.ones((3, 3)) / 9)
+    st = torch.stack([flt['C11'].data, flt['C12__re'].data,
+                      flt['C12__im'].data, flt['C22'].data])
+    looked = conv_cuda.sepconv2_plain(st, box[0], box[1])
+    plain = change_detection_plain(looked.permute(1, 2, 3, 0)
+                                   .contiguous(), 0.01, n=9)
+    mism = int((change.data != plain).sum())
+    check(mism == 0, 'I2 mismatches against the plain scan', mism)
+    check(change.dims == ('y', 'x', 'time')
+          and change.data.device == readme_change.device,
+          'I2 change map', change.dims, change.data.device)
+    check(torch.equal(change.data, readme_change),
+          'I2 change map differs from phase 6\'s')
+    check(torch.equal(method.data, change.data),
+          'I2 method-style line', method.dims)
+    check(all(counts[n] > 0 for n in ('nlmeans', 'omnibus', 'sepconv',
+                                      'omnibus_mixed')),
+          'I2 launches', counts)
+    phase('I2', 'quick start from %s: open_dataset -> as_complex -> '
+          'NLMeansFilter(r=2, f=1) -> OmnibusTest(ml=3, alpha=0.01) '
+          '%.3f s wall (the read included); %d mismatches vs the plain '
+          'scan of the same filtered data; the change map (%d changes) '
+          'equals phase 6\'s in-memory chain; README:94\'s method-style '
+          'line %.3f s, equal; launches %s | %s'
+          % (os.path.basename(path), qs_s, mism, int(change.data.sum()),
+             m_s, json.dumps({k: v for k, v in counts.items() if v}),
+             card))
+    del flt, change, method, st, looked, plain, back
 
-        # ---- I3: a cut through GeoTIFF, zarr and ENVI -------------------------
-        cut = io_dataset(cube, I_CUT, I_CUT, device=dev)
-        cut_cpu = io_dataset(cube.cpu(), I_CUT, I_CUT, device=cpu)
-        real = tio.disassemble_complex(cut)
-        bands = torch.cat([real[v].transpose('time', 'y', 'x').data
-                           for v in real.data_vars])      # to_geotiff's order
-        cut_bytes = bands.numel() * bands.element_size()
-        lines = []
-        for label, kw in (('GeoTIFF uncompressed strips',
-                           dict(compress=False)),
-                          ('GeoTIFF deflate 256-px tiles + 2x overview',
-                           dict(compress='deflate', tiled=True,
-                                tile_size=256, overviews=[2]))):
-            p = os.path.join(tmp, 'cut.tif')
-            _, w_s = timed(lambda: tio.to_geotiff(real, p, **kw))
-            da, r_s = timed(lambda: tio.open_rasterio(p))
-            da_cpu = tio.open_rasterio(p, device='cpu')
-            check(da.data.device == bands.device, label, da.data.device)
-            check(torch.equal(da.data, bands)
-                  and torch.equal(da_cpu.data, bands.cpu()), label)
-            if kw.get('overviews'):
-                ov = tio.open_rasterio(p, overview_level=0)
-                ov_cpu = tio.open_rasterio(p, overview_level=0, device='cpu')
-                check(tuple(ov.shape) == (bands.shape[0], I_CUT // 2,
-                                          I_CUT // 2)
-                      and torch.equal(ov.data.cpu(), ov_cpu.data),
-                      label, 'overview')
-            lines.append('%s: write %.0f MB/s, read %.0f MB/s (%.1f MB)'
-                         % (label, mbs(cut_bytes, w_s), mbs(cut_bytes, r_s),
-                            os.path.getsize(p) / 1e6))
-        p = os.path.join(tmp, 'cut.zarr')
-        _, w_s = timed(lambda: tio.to_zarr(cut, p))
-        z, r_s = timed(lambda: tio.open_zarr(p))
-        same_io(z, cut, 'I3 zarr', dev)
-        same_io(tio.open_zarr(p, device='cpu'), cut_cpu, 'I3 zarr CPU')
-        lines.append('zarr (zlib): write %.0f MB/s, read %.0f MB/s'
-                     % (mbs(cut_bytes, w_s), mbs(cut_bytes, r_s)))
-        p = os.path.join(tmp, 'cut')
-        bands.cpu().numpy().astype('>f4').tofile(p + '.img')
-        with open(p + '.hdr', 'w') as fh:
-            fh.write('ENVI\nsamples = %d\nlines = %d\nbands = %d\n'
-                     'data type = 4\ninterleave = bsq\nbyte order = 1\n'
-                     % (I_CUT, I_CUT, bands.shape[0]))
-        env, r_s = timed(lambda: torch.from_numpy(
-            envi.read_envi(p + '.img').astype(np.float32)).to(dev))
-        check(torch.equal(env, bands), 'I3 ENVI')
-        lines.append('ENVI (big-endian bsq) read onto the card %.0f MB/s'
-                     % mbs(cut_bytes, r_s))
-        phase('I3', '%s cut, %d bands, bit-equal on the card and the CPU: '
-              '%s | %s' % ((I_CUT, I_CUT, cube.shape[2]), bands.shape[0],
-                           '; '.join(lines), card))
-        del z, bands, real
+    # ---- I3: a cut through GeoTIFF, zarr and ENVI -------------------------
+    cut = io_dataset(cube, I_CUT, I_CUT, device=dev)
+    cut_cpu = io_dataset(cube.cpu(), I_CUT, I_CUT, device=cpu)
+    real = tio.disassemble_complex(cut)
+    bands = torch.cat([real[v].transpose('time', 'y', 'x').data
+                       for v in real.data_vars])      # to_geotiff's order
+    cut_bytes = bands.numel() * bands.element_size()
+    lines = []
+    for label, kw in (('GeoTIFF uncompressed strips',
+                       dict(compress=False)),
+                      ('GeoTIFF deflate 256-px tiles + 2x overview',
+                       dict(compress='deflate', tiled=True,
+                            tile_size=256, overviews=[2]))):
+        p = os.path.join(tmp, 'cut.tif')
+        _, w_s = timed(lambda: tio.to_geotiff(real, p, **kw))
+        da, r_s = timed(lambda: tio.open_rasterio(p))
+        da_cpu = tio.open_rasterio(p, device='cpu')
+        check(da.data.device == bands.device, label, da.data.device)
+        check(torch.equal(da.data, bands)
+              and torch.equal(da_cpu.data, bands.cpu()), label)
+        if kw.get('overviews'):
+            ov = tio.open_rasterio(p, overview_level=0)
+            ov_cpu = tio.open_rasterio(p, overview_level=0, device='cpu')
+            check(tuple(ov.shape) == (bands.shape[0], I_CUT // 2,
+                                      I_CUT // 2)
+                  and torch.equal(ov.data.cpu(), ov_cpu.data),
+                  label, 'overview')
+        lines.append('%s: write %.0f MB/s, read %.0f MB/s (%.1f MB)'
+                     % (label, mbs(cut_bytes, w_s), mbs(cut_bytes, r_s),
+                        os.path.getsize(p) / 1e6))
+    p = os.path.join(tmp, 'cut.zarr')
+    _, w_s = timed(lambda: tio.to_zarr(cut, p))
+    z, r_s = timed(lambda: tio.open_zarr(p))
+    same_io(z, cut, 'I3 zarr', dev)
+    same_io(tio.open_zarr(p, device='cpu'), cut_cpu, 'I3 zarr CPU')
+    lines.append('zarr (zlib): write %.0f MB/s, read %.0f MB/s'
+                 % (mbs(cut_bytes, w_s), mbs(cut_bytes, r_s)))
+    p = os.path.join(tmp, 'cut')
+    bands.cpu().numpy().astype('>f4').tofile(p + '.img')
+    with open(p + '.hdr', 'w') as fh:
+        fh.write('ENVI\nsamples = %d\nlines = %d\nbands = %d\n'
+                 'data type = 4\ninterleave = bsq\nbyte order = 1\n'
+                 % (I_CUT, I_CUT, bands.shape[0]))
+    env, r_s = timed(lambda: torch.from_numpy(
+        envi.read_envi(p + '.img').astype(np.float32)).to(dev))
+    check(torch.equal(env, bands), 'I3 ENVI')
+    lines.append('ENVI (big-endian bsq) read onto the card %.0f MB/s'
+                 % mbs(cut_bytes, r_s))
+    phase('I3', '%s cut, %d bands, bit-equal on the card and the CPU: '
+          '%s | %s' % ((I_CUT, I_CUT, cube.shape[2]), bands.shape[0],
+                       '; '.join(lines), card))
+    del z, bands, real
 
-        # ---- I4: align two products written as files ------------------------
-        shift = I_SHIFT * I_RES
-        paths = []
-        for name, x0, y0 in (('cube', 5e5, 4e6),
-                             ('shifted', 5e5 + shift, 4e6 - shift)):
-            paths.append(os.path.join(tmp, name + '.nc'))
-            ndt.to_netcdf(io_dataset(cube, I_CUT, I_CUT, x0, y0,
-                                     device=dev), paths[-1])
-        out_card, out_cpu = (os.path.join(tmp, 'aligned_card'),
-                             os.path.join(tmp, 'aligned_cpu'))
-        _, a_s = timed(lambda: ndt.warp.align(paths, out_card))
-        ndt.warp.Alignment(device='cpu').apply(paths, out_cpu)
-        opened = [ndt.open_dataset(p, as_complex=False) for p in paths]
-        grid = dict(extent=ndt.warp.get_common_bounds(opened),
-                    res=ndt.warp.get_common_resolution(opened),
-                    dst_crs=ndt.warp.get_crs(opened[0]))
-        worst = 0.0
-        for name, prod in zip(('cube', 'shifted'), opened):
-            got = ndt.open_dataset(os.path.join(out_card,
-                                                name + '_aligned.nc'))
-            mem = ndt.Reprojection(**grid).apply(prod)
-            same_io(got, mem, 'I4 %s against Reprojection in memory' % name,
-                    dev)
-            ref = ndt.open_dataset(os.path.join(out_cpu,
-                                                name + '_aligned.nc'),
-                                   device='cpu')
-            worst = max(worst, hold_datasets(got, ref, 1e-5, 1e-6,
-                                             'I4 %s against the CPU' % name))
-        phase('I4', 'align of two %d x %d x %d products written as files '
-              '(the second offset by %.2f px): %.2f s (reads, two '
-              'reprojections onto %s, writes); the _aligned.nc files read '
-              'back equal Reprojection of the same products in memory bit '
-              'for bit, and the CPU run within W2\'s rtol 1e-5, atol 1e-6 '
-              '(max abs diff %.3g) | %s'
-              % (I_CUT, I_CUT, cube.shape[2], I_SHIFT, a_s,
-                 dict(got.sizes), worst, card))
+    # ---- I4: align two products written as files ------------------------
+    shift = I_SHIFT * I_RES
+    paths = []
+    for name, x0, y0 in (('cube', 5e5, 4e6),
+                         ('shifted', 5e5 + shift, 4e6 - shift)):
+        paths.append(os.path.join(tmp, name + '.nc'))
+        ndt.to_netcdf(io_dataset(cube, I_CUT, I_CUT, x0, y0,
+                                 device=dev), paths[-1])
+    out_card, out_cpu = (os.path.join(tmp, 'aligned_card'),
+                         os.path.join(tmp, 'aligned_cpu'))
+    _, a_s = timed(lambda: ndt.warp.align(paths, out_card))
+    ndt.warp.Alignment(device='cpu').apply(paths, out_cpu)
+    opened = [ndt.open_dataset(p, as_complex=False) for p in paths]
+    grid = dict(extent=ndt.warp.get_common_bounds(opened),
+                res=ndt.warp.get_common_resolution(opened),
+                dst_crs=ndt.warp.get_crs(opened[0]))
+    worst = 0.0
+    for name, prod in zip(('cube', 'shifted'), opened):
+        got = ndt.open_dataset(os.path.join(out_card,
+                                            name + '_aligned.nc'))
+        mem = ndt.Reprojection(**grid).apply(prod)
+        same_io(got, mem, 'I4 %s against Reprojection in memory' % name,
+                dev)
+        ref = ndt.open_dataset(os.path.join(out_cpu,
+                                            name + '_aligned.nc'),
+                               device='cpu')
+        worst = max(worst, hold_datasets(got, ref, 1e-5, 1e-6,
+                                         'I4 %s against the CPU' % name))
+    phase('I4', 'align of two %d x %d x %d products written as files '
+          '(the second offset by %.2f px): %.2f s (reads, two '
+          'reprojections onto %s, writes); the _aligned.nc files read '
+          'back equal Reprojection of the same products in memory bit '
+          'for bit, and the CPU run within W2\'s rtol 1e-5, atol 1e-6 '
+          '(max abs diff %.3g) | %s'
+          % (I_CUT, I_CUT, cube.shape[2], I_SHIFT, a_s,
+             dict(got.sizes), worst, card))
     phase('I', 'I1-I4 ran %.1f s' % (time.perf_counter() - t_io))
     return counts
+
+
+# ---- O1-O4: lazy opens and tiling, the quick start through netCDF tiles ----
+
+O_NAMES = ('C11', 'C12__re', 'C12__im', 'C22')
+O_BUFFER = 4                # r + f + ml // 2 of the README chain
+O3_CHUNK = 256              # O3: 256 x 256 tiles of stack.nc
+O1_BAND = 128               # O1: rows a timed classic read takes
+O2_SIZE, O2_K, O2_CHUNK = 2048, 4, 512      # bench.py's tile_pipeline
+O4_NX = 4096                # O4: 4096 x 4096 x 12, 16x the bench cube's area
+O4_CHUNK = 256              # O4: tiles of 256 rows (16 of them)
+O4_MIN_ROWS = 1024          # 4096 wide: 805 MB, past the JAX test's 768 MB
+
+
+def readme_chain(ds):
+    """The README chain on one dataset: (filtered, change map)."""
+    import nd_tpu_torch as ndt
+    flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
+                            h=3).apply(ds)
+    return flt, ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+
+
+def readme_plain_change(filtered):
+    """The plain version of the README chain's OmnibusTest on a filtered
+    (y, x, time, 4) cube: the boxcar multilook, then the float64 scan."""
+    from nd_tpu_torch.ops import conv_cuda
+    from nd_tpu_torch.ops.change import change_detection_plain
+    from nd_tpu_torch.ops.conv import _separable_factors
+    taps = _separable_factors(np.ones((3, 3)) / 9)
+    looked = conv_cuda.sepconv2_plain(filtered.permute(3, 0, 1, 2)
+                                      .contiguous(), taps[0], taps[1])
+    return change_detection_plain(looked.permute(1, 2, 3, 0).contiguous(),
+                                  0.01, n=9)
+
+
+def excess_over(got, ref, rtol=1e-5, atol=1e-6):
+    """(max abs diff, the largest excess over atol + rtol * |ref|)."""
+    diff = (got - ref).abs()
+    return float(diff.max()), float((diff - (atol + rtol * ref.abs())).max())
+
+
+def make_vars(ny, nx, k, dev, seed=SEED, step=2.5):
+    """make_cube's covariance cube, drawn on ``dev`` from a torch
+    generator (a 3 GB cube from numpy's draws would take most of a
+    minute on the host), as four contiguous (y, x, time) variables."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(fn):
+        return fn((ny, nx, k), generator=g, device=dev)
+    c11 = (1.0 + 0.25 * draw(torch.randn)).abs_() + 0.3
+    c22 = (1.0 + 0.25 * draw(torch.randn)).abs_() + 0.3
+    mag = 0.4 * torch.sqrt(c11 * c22) * draw(torch.rand)
+    ph = (2 * np.pi) * draw(torch.rand)
+    c11[:, :, k // 2:] *= step
+    c22[:, :, k // 2:] *= step
+    return {'C11': c11, 'C12__re': mag * torch.cos(ph),
+            'C12__im': mag * torch.sin(ph), 'C22': c22}
+
+
+def o4_child(src, tiles, outs):
+    """O4's measured process: the first tile's window read and run
+    through the chain (the warm tile and the reference for the first
+    tile's core), then, once the parent that samples its resident set
+    answers the 'warm' line, ``tile`` straight from ``src`` and
+    ``map_over_tiles`` of the chain, its change maps written to
+    ``outs``. After the pass the window's filtered cube and the first
+    tile's change map are held against the chain's plain versions.
+    Prints one JSON line; the parent checks it."""
+    import glob
+    import torch
+    import nd_tpu_torch as ndt
+    from nd_tpu_torch.io.lazy import LazyNetCDFArray
+    from nd_tpu_torch.ops import (change_cuda, change_mixed_cuda, conv_cuda,
+                                  nlmeans_cuda)
+    from nd_tpu_torch.tiling import map_over_tiles, tile
+    mods = {'nlmeans': nlmeans_cuda, 'omnibus': change_cuda,
+            'sepconv': conv_cuda, 'omnibus_mixed': change_mixed_cuda}
+    reads = []
+    materialize = LazyNetCDFArray._materialize
+
+    def counted(self, key):
+        out = materialize(self, key)
+        reads.append(out.nbytes)
+        return out
+    LazyNetCDFArray._materialize = counted
+
+    lz = ndt.open_dataset(src, chunks={}, rename_latlon=False)
+    win = lz.isel(y=slice(0, O4_CHUNK + O_BUFFER))
+    x = torch.stack([win[n].data for n in O_NAMES], -1)   # onto the card
+    flt, change = readme_chain(win)
+    core = change.data[:O4_CHUNK].cpu().numpy()
+    filtered = torch.stack([flt[n].data for n in O_NAMES], -1)
+    del lz, win, flt, change
+    torch.cuda.synchronize()
+    print('warm', flush=True)
+    sys.stdin.readline()                      # the baseline is taken
+    for mod in mods.values():
+        mod.reset_launches()
+    reads.clear()
+    t0 = time.perf_counter()
+    tile(src, tiles, chunks={'y': O4_CHUNK}, buffer=O_BUFFER, max_workers=2)
+    t1 = time.perf_counter()
+    written = map_over_tiles(
+        os.path.join(tiles, '*.nc'),
+        lambda d: readme_chain(d)[1].to_dataset(name='change'), path=outs,
+        merge=False, max_workers=2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {n: m.launches for n, m in mods.items()}
+    first = ndt.open_dataset(
+        os.path.join(outs, 'part.y_0_%d.nc' % (O4_CHUNK + O_BUFFER)),
+        rename_latlon=False, device='cpu')['change'].transpose(
+            'y', 'x', 'time').values != 0
+    # the first tile is the window's bytes: the kernels' NLMeans of the
+    # window against the plain one, the tile's change map against the
+    # plain multilook and scan of that filtered window, at 4096-wide rows
+    ref_nl = nlmeans_cuda.nlmeans_spatial_plain(x, (2, 2), (1, 1), 2.0, 3.0)
+    nl_diff, nl_excess = excess_over(filtered, ref_nl)
+    plain = readme_plain_change(filtered)
+    print(json.dumps({
+        'tile_s': t1 - t0,
+        'map_s': t2 - t1, 'tiles': len(glob.glob(os.path.join(tiles,
+                                                                '*.nc'))),
+        'written': len(written), 'max_read': max(reads),
+        'first_core_equal': bool(np.array_equal(first[:O4_CHUNK], core)),
+        'nlmeans_max_diff': nl_diff, 'nlmeans_excess': nl_excess,
+        'plain_mismatches': int((torch.from_numpy(first).to(plain.device)
+                                 != plain).sum()),
+        'launches': launches}))
+    return 0
+
+
+def run_out_of_core_phases(ndt, dev, card, reset_counts, read_counts,
+                           readme_filtered, readme_change, tmp):
+    """O1-O4: lazy opens of I1's ``stack.nc`` and I3's tiled GeoTIFF,
+    bench.py's tile_pipeline configuration, the README chain through
+    netCDF tiles of ``stack.nc``, and a cube of 16 times its area
+    streamed through the chain in a process whose peak RSS is held.
+    Returns the kernel launches of O2, O3 and O4."""
+    import glob
+    import shutil
+    import torch
+    from nd_tpu_torch import io as tio
+    from nd_tpu_torch.io import netcdf
+    from nd_tpu_torch.io.lazy import LazyNetCDFArray
+    from nd_tpu_torch.ops import conv_cuda
+    from nd_tpu_torch.ops.conv import _separable_factors
+    from nd_tpu_torch.testing import generate_test_dataset, run_sampling_rss
+    from nd_tpu_torch.tiling import map_over_tiles, tile
+
+    t_o = time.perf_counter()
+    path = os.path.join(tmp, 'stack.nc')
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reads = []
+    materialize = LazyNetCDFArray._materialize
+
+    def counted(self, key):
+        out = materialize(self, key)
+        reads.append(out.nbytes)
+        return out
+    LazyNetCDFArray._materialize = counted
+    try:
+        # ---- O1: lazy opens read nothing until used, then only a slab ----
+        lz, open_s = timed(lambda: ndt.open_dataset(path, chunks={}))
+        check(all(lz._variables[n].is_lazy for n in O_NAMES) and not reads
+              and lz['C11'].dtype == torch.float32
+              and lz.nbytes == 4 * NY * NX * K * 4,
+              'O1 lazy open', reads, lz.nbytes)
+        win = dict(y=slice(NY * 3 // 8, NY * 3 // 8 + O3_CHUNK),
+                   x=slice(NX // 4, NX // 4 + O3_CHUNK))
+        sub = lz.isel(win)
+        check(not reads and sub._variables['C11'].is_lazy, 'O1 isel read')
+        slabs, slab_s = timed(lambda: [sub[n].data for n in O_NAMES])
+        eager = ndt.open_dataset(path)
+        for n, got in zip(O_NAMES, slabs):
+            check(got.device.type == dev.type
+                  and torch.equal(got, eager[n].isel(win).data),
+                  'O1 slab', n, got.device)
+        slab_bytes = O3_CHUNK * O3_CHUNK * K * 4
+        check(reads == [slab_bytes] * 4, 'O1 slab reads', reads)
+        tif = os.path.join(tmp, 'cut.tif')
+        lt = tio.open_rasterio(tif, chunks={})
+        check(lt.variable.is_lazy, 'O1 lazy GeoTIFF')
+        twin = dict(band=slice(5, 29), y=slice(I_CUT // 5, I_CUT * 7 // 10),
+                    x=slice(I_CUT // 14, I_CUT * 3 // 5))
+        got = lt.isel(twin).data
+        check(got.device.type == dev.type and torch.equal(
+            got, tio.open_rasterio(tif).isel(twin).data), 'O1 GeoTIFF window')
+        phase('O1', '%s opened with chunks={} in %.4f s reading no variable '
+              '(4 lazy, %.0f MB); a %d x %d isel read 4 slabs of %d bytes '
+              'onto the card in %.4f s, bit-equal to the eager open; a %s '
+              'window of I3\'s tiled deflate GeoTIFF through '
+              'open_rasterio(chunks={}) equals the eager read | %s'
+              % (os.path.basename(path), open_s, lz.nbytes / 1e6, O3_CHUNK,
+                 O3_CHUNK, slab_bytes, slab_s, tuple(got.shape), card))
+        del lz, sub, slabs, eager, lt, got
+
+        # the classic reader's two routes, one block of whole rows or a
+        # read a row from the window's first to its last column, each
+        # timed on a band of rows that nothing has read since the file
+        # was written: a tile's reads are first reads, and repeated reads
+        # of the same rows run warm and hide the cost of a read call
+        from scipy.io import netcdf_file
+        widths = (NX, NX // 2, NX // 4, NX // 8, NX // 16)
+        bands = iter(range(4 * len(widths)))        # 2 routes x 2 reads
+        data = np.random.default_rng(SEED).random(
+            (4 * len(widths) * O1_BAND, NX, K), dtype=np.float32)
+        rows_nc = os.path.join(tmp, 'rows.nc')
+        f = netcdf_file(rows_nc, 'w', version=2)
+        for d, n in zip(('y', 'x', 'time'), data.shape):
+            f.createDimension(d, n)
+        f.createVariable('v', 'f4', ('y', 'x', 'time'))[:] = data
+        f.close()
+        _, _, _, dtype, shape, begin, stride = \
+            netcdf._classic_layout(rows_nc)[2][0]
+        call_bytes = netcdf._READ_CALL_BYTES
+        timings = []
+        low, high = 0, float('inf')
+        try:
+            for i, cols in enumerate(widths):
+                best = {}
+                for rep in range(2):
+                    for forced in ((1 << 62, -1) if (i + rep) % 2 == 0
+                                   else (-1, 1 << 62)):
+                        netcdf._READ_CALL_BYTES = forced
+                        band = slice(next(bands) * O1_BAND, None)
+                        band = slice(band.start, band.start + O1_BAND)
+                        t0 = time.perf_counter()
+                        out = netcdf._read_classic_slab(
+                            rows_nc, begin, stride, shape, dtype,
+                            (band, slice(0, cols), slice(None)))
+                        secs = time.perf_counter() - t0
+                        check(np.array_equal(out, data[band, :cols]),
+                              'O1 classic read route', forced, cols)
+                        best[forced] = min(best.get(forced, secs), secs)
+                block_s, rows_s = best[1 << 62], best[-1]
+                timings.append((cols, block_s, rows_s))
+                per_call = O1_BAND * (NX - cols) * stride // NX \
+                    / (O1_BAND - 1)
+                if block_s <= rows_s:
+                    low = max(low, per_call)
+                else:
+                    high = min(high, per_call)
+        finally:
+            netcdf._READ_CALL_BYTES = call_bytes
+        os.remove(rows_nc)
+        del data, out
+        _, block_s, rows_s = timings[0]
+        call_s = (rows_s - block_s) / (O1_BAND - 1)
+        rate = O1_BAND * stride / (block_s - call_s)
+        phase('O1', 'classic slab reads of %d rows (%d bytes a row) on '
+              'first reads, the better of 2, ms as one block / a read a '
+              'row, by window width: %s; the faster routes fit a '
+              '_READ_CALL_BYTES from %.0f to %.0f bytes (the reader\'s: '
+              '%d); at full width a read call costs %.2f us, %.0f bytes at '
+              'the block rate of %.0f MB/s | %s'
+              % (O1_BAND, stride,
+                 ', '.join('%d cols %.3f / %.3f' % (c, b * 1e3, r * 1e3)
+                           for c, b, r in timings),
+                 low, high, call_bytes, call_s * 1e6, call_s * rate,
+                 rate / 1e6, card))
+
+        # ---- O2: bench.py's tile_pipeline configuration -----------------
+        tds = generate_test_dataset(dims={'y': O2_SIZE, 'x': O2_SIZE,
+                                          'time': O2_K}, device=dev)
+        for v in list(tds.data_vars):
+            tds[v] = (tds[v].dims, tds[v].data.float())
+        box = ndt.BoxcarFilter(w=3)
+        reset_counts()
+        whole = box.apply(tds)
+        per_apply = read_counts()['sepconv']
+        box_taps = _separable_factors(np.ones((3, 3)) / 9)
+        o2_diff = float((torch.stack([whole[v].transpose(*tds[v].dims).data
+                                      for v in tds.data_vars])
+                         - conv_cuda.sepconv2_plain(
+                             torch.stack([tds[v].data for v in tds.data_vars]),
+                             box_taps[0], box_taps[1])).abs().max())
+        check(o2_diff == 0, 'O2 whole cube against the plain sepconv',
+              o2_diff)
+        tdir = os.path.join(tmp, 'o2_tiles')
+        n_o2 = (O2_SIZE // O2_CHUNK) ** 2
+        reset_counts()
+        runs = []
+        for _ in range(3):
+            shutil.rmtree(tdir, ignore_errors=True)
+            os.makedirs(tdir)
+            os.sync()
+            merged, secs = timed(lambda: (
+                tile(tds, tdir, chunks={'y': O2_CHUNK, 'x': O2_CHUNK},
+                     buffer=1),
+                map_over_tiles(os.path.join(tdir, '*.nc'), box.apply,
+                               merge=True, compute=True, max_workers=8))[1])
+            runs.append(secs)
+        counts_o2 = read_counts()
+        for v in tds.data_vars:
+            check(torch.equal(merged[v].transpose(*tds[v].dims).data,
+                              whole[v].data), 'O2 merge', v)
+        check(counts_o2['sepconv'] == 3 * n_o2 * per_apply > 0,
+              'O2 launches', counts_o2['sepconv'], per_apply)
+        mpix = O2_SIZE * O2_SIZE * O2_K * 4 / 1e6
+        phase('O2', 'tile_pipeline: generate_test_dataset %d x %d x %d '
+              'float32 (%.0f MB) -> tile(chunks=%d x %d, buffer=1) -> '
+              'map_over_tiles(BoxcarFilter(w=3).apply, merge=True, '
+              'max_workers=8): %d tiles, best of 3 %.3f s (runs %s), %.2f '
+              'Mpix/s; the merge equals BoxcarFilter(w=3) of the whole cube '
+              'bit for bit, which equals the plain sepconv of the stacked '
+              'variables (max abs diff %g); sepconv launches %d (%d a tile) '
+              '| %s'
+              % (O2_SIZE, O2_SIZE, O2_K, mpix * 4, O2_CHUNK, O2_CHUNK, n_o2,
+                 min(runs), ', '.join('%.3f' % r for r in runs),
+                 mpix / min(runs), o2_diff, counts_o2['sepconv'], per_apply,
+                 card))
+        shutil.rmtree(tdir)
+        del tds, whole, merged
+
+        # ---- O3: the quick start per tile of stack.nc -------------------
+        o3_tiles = os.path.join(tmp, 'o3_tiles')
+        o3_out = os.path.join(tmp, 'o3_out')
+        reads.clear()
+        _, tile_s = timed(lambda: tile(path, o3_tiles,
+                                       chunks={'y': O3_CHUNK, 'x': O3_CHUNK},
+                                       buffer=O_BUFFER))
+        files = sorted(glob.glob(os.path.join(o3_tiles, '*.nc')))
+        n_o3 = (NY // O3_CHUNK) * (NX // O3_CHUNK)
+        largest = (O3_CHUNK + 2 * O_BUFFER) ** 2 * K * 4
+        check(len(files) == n_o3 and max(reads) == largest,
+              'O3 tiles and their reads', len(files), max(reads))
+        # tile's reads under its pool by route, the same tiles each time
+        # (block, rows, rows, block): the difference in time, less the
+        # block route's extra bytes at O1's block rate, over the extra
+        # read calls is what a read call costs there
+        sides = [min(NY, s + O3_CHUNK + O_BUFFER) - max(0, s - O_BUFFER)
+                 for s in range(0, NY, O3_CHUNK)]          # NY == NX
+        n_rows = len(O_NAMES) * len(sides) * sum(sides)
+        extra_calls = n_rows - len(O_NAMES) * len(sides) ** 2
+        extra_bytes = n_rows * NX * K * 4 \
+            - len(O_NAMES) * sum(sides) ** 2 * K * 4
+        call_bytes = netcdf._READ_CALL_BYTES
+        route_s = {1 << 62: [], -1: []}
+        o3_route = os.path.join(tmp, 'o3_route')
+        try:
+            for forced in (1 << 62, -1, -1, 1 << 62):
+                netcdf._READ_CALL_BYTES = forced
+                shutil.rmtree(o3_route, ignore_errors=True)
+                route_s[forced].append(timed(lambda: tile(
+                    path, o3_route, chunks={'y': O3_CHUNK, 'x': O3_CHUNK},
+                    buffer=O_BUFFER))[1])
+        finally:
+            netcdf._READ_CALL_BYTES = call_bytes
+        shutil.rmtree(o3_route)
+        in_pool = (min(route_s[-1]) - min(route_s[1 << 62])
+                   + extra_bytes / rate) / extra_calls
+        phase('O3', 'tile(stack.nc) under its pool (4 workers) with every '
+              'read one block of whole rows: %s s; a read a row (%d more '
+              'calls, %d fewer bytes): %s s; a read call there costs %.2f '
+              'us, %.0f bytes at O1\'s block rate (the reader\'s '
+              '_READ_CALL_BYTES: %d) | %s'
+              % (', '.join('%.3f' % t for t in route_s[1 << 62]),
+                 extra_calls, extra_bytes,
+                 ', '.join('%.3f' % t for t in route_s[-1]),
+                 in_pool * 1e6, in_pool * rate, call_bytes, card))
+        reset_counts()
+        readme_chain(ndt.open_dataset(files[0], rename_latlon=False))
+        per_chain = read_counts()
+
+        def chain(d):
+            flt, change = readme_chain(d)
+            flt['change'] = change
+            return flt
+        reset_counts()
+        merged, map_s = timed(lambda: map_over_tiles(
+            files, chain, path=o3_out, merge=True, max_workers=4))
+        counts_o3 = read_counts()
+        for n in ('nlmeans', 'omnibus', 'sepconv', 'omnibus_mixed'):
+            check(per_chain[n] > 0 and counts_o3[n] == n_o3 * per_chain[n],
+                  'O3 launches', n, counts_o3[n], per_chain[n])
+        got = torch.stack([merged[n].transpose('y', 'x', 'time').data
+                           for n in O_NAMES], -1)
+        check(got.shape == readme_filtered.shape, 'O3 merged shape',
+              tuple(got.shape))
+        diff, excess = excess_over(got, readme_filtered)
+        check(excess <= 0, 'O3 filtered cube against phase 6', diff)
+        change = merged['change'].transpose('y', 'x', 'time').data
+        plain = readme_plain_change(got)
+        mism = int((change != plain).sum())
+        check(change.dtype == torch.bool and mism == 0,
+              'O3 change map against the plain scan', change.dtype, mism)
+        vs6 = int((change != readme_change).sum())
+        phase('O3', 'tile(stack.nc, chunks=%d x %d, buffer=%d) from the path '
+              '%.2f s (%d tiles, the largest read %d bytes a variable) -> '
+              'map_over_tiles(NLMeansFilter(r=2, f=1) -> OmnibusTest(ml=3, '
+              'alpha=0.01), merge=True, max_workers=4) %.2f s: the merged '
+              'filtered cube within rtol 1e-5/atol 1e-6 of phase 6\'s (max '
+              'abs diff %.3g), the change map %d mismatches vs the plain '
+              'scan of the merged cube, %d vs phase 6\'s map; launches %s '
+              '(%s a tile) | %s'
+              % (O3_CHUNK, O3_CHUNK, O_BUFFER, tile_s, n_o3, max(reads),
+                 map_s, diff, mism, vs6,
+                 json.dumps({k: v for k, v in counts_o3.items() if v}),
+                 json.dumps({k: v for k, v in per_chain.items() if v}),
+                 card))
+        del merged, got, change, plain
+    finally:
+        LazyNetCDFArray._materialize = materialize
+
+    # ---- O4: out of core, peak RSS held in a process of its own ---------
+    o4 = os.path.join(tmp, 'o4')
+    os.makedirs(o4)
+    row_bytes = O4_NX * K * 4 * 4
+    free = shutil.disk_usage(o4).free
+    # the source, its tiles (8 rows of buffer each) and the change maps
+    rows = min(O4_NX, int(free / 2.3 / row_bytes) // O4_CHUNK * O4_CHUNK)
+    check(rows >= O4_MIN_ROWS, 'O4 disk space', free)
+    cube_bytes = rows * row_bytes
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(K) * np.timedelta64(12, 'D')
+    ds4 = ndt.Dataset(
+        {n: (('y', 'x', 'time'), v)
+         for n, v in make_vars(rows, O4_NX, K, dev).items()},
+        coords={'y': 4e6 - I_RES * (np.arange(rows) + 0.5),
+                'x': 5e5 + I_RES * (np.arange(O4_NX) + 0.5), 'time': times},
+        device=dev)
+    src = os.path.join(o4, 'big.nc')
+    _, write_s = timed(lambda: ndt.to_netcdf(ds4, src))
+    del ds4
+    torch.cuda.empty_cache()
+    code = ('import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; '
+            'sys.exit(chip_smoke.o4_child(*sys.argv[2:]))')
+    root = os.path.dirname(os.path.abspath(__file__))
+    rc, out, err, rss_base, rss_peak = run_sampling_rss(
+        [sys.executable, '-c', code, root, src, os.path.join(o4, 'tiles'),
+         os.path.join(o4, 'out')], timeout=900)
+    check(rc == 0 and rss_base > 0, 'O4 process', rc, err[-3000:])
+    res = json.loads(out.strip().splitlines()[-1])
+    n_o4 = rows // O4_CHUNK
+    growth = rss_peak - rss_base
+    check(res['tiles'] == n_o4 and res['written'] == n_o4,
+          'O4 tiles', res['tiles'], res['written'])
+    check(growth < cube_bytes / 2, 'O4 peak RSS growth', growth, cube_bytes)
+    check(res['nlmeans_excess'] <= 0, 'O4 first tile\'s NLMeans against '
+          'the plain version', res['nlmeans_max_diff'])
+    check(res['plain_mismatches'] == 0, 'O4 first tile\'s change map '
+          'against the plain scan', res['plain_mismatches'])
+    check(res['first_core_equal'], 'O4 first tile against its eager window')
+    check(all(res['launches'][n] == n_o4 * per_chain[n]
+              for n in res['launches']), 'O4 launches', res['launches'])
+    pass_s = res['tile_s'] + res['map_s']
+    phase('O4', '%d x %d x %d x 4 float32 cube (%.2f GB, %d MB free) written '
+          'by to_netcdf (%s) %.2f s; a process of its own: tile(path, '
+          'chunks={y: %d}, buffer=%d, max_workers=2) %.2f s + '
+          'map_over_tiles(the README chain, merge=False, max_workers=2) '
+          '%.2f s = %.0f MB/s, %d change-map tiles; peak RSS %.0f MB over '
+          'a baseline of %.0f MB after the imports and one warm tile '
+          '(/proc/<pid>/statm sampled every millisecond from here): +%.0f '
+          'MB (limit %.0f MB, half the cube); the largest read %d bytes; '
+          'the first tile: NLMeans within rtol 1e-5/atol 1e-6 of the plain '
+          'version (max abs diff %.3g), its change map %d mismatches vs '
+          'the plain multilook and scan, its core equal to the chain on '
+          'its window read whole; launches %s | %s'
+          % (rows, O4_NX, K, cube_bytes / 1e9, free // 10 ** 6,
+             netcdf.writer(), write_s, O4_CHUNK, O_BUFFER, res['tile_s'],
+             res['map_s'], cube_bytes / pass_s / 1e6, res['written'],
+             rss_peak / 1e6, rss_base / 1e6, growth / 1e6,
+             cube_bytes / 2e6, res['max_read'], res['nlmeans_max_diff'],
+             res['plain_mismatches'], json.dumps(res['launches']), card))
+    shutil.rmtree(o4)
+    counts_o4 = {name: res['launches'].get(name, 0) for name in KERNELS}
+    phase('O', 'O1-O4 ran %.1f s' % (time.perf_counter() - t_o))
+    return counts_o2, counts_o3, counts_o4
 
 
 def main():
@@ -1972,6 +2482,7 @@ def main():
           change.dims, change.data.device)
     check(mism == 0, 'README omnibus mismatches', mism)
     readme_change = change.data              # I2 reads the same map
+    readme_filtered = stacked                # O3 reads the same cube
     phase(6, 'README chain: NLMeans within rtol 1e-5/atol 1e-6 of plain; '
           'OmnibusTest %d mismatches vs plain scan of the same filtered '
           'data; %d changes' % (mism, int(change.data.sum())))
@@ -2610,14 +3121,20 @@ def main():
                                  read_counts, cube, stack, box_taps, row_ms,
                                  err)
 
-    # ---- I1-I4. the I/O layer: the quick start from a file, counted
-    counts_i2 = run_io_phases(ndt, dev, card, cuda_ms, reset_counts,
-                              read_counts, cube, readme_change)
+    # ---- I1-I4. the I/O layer: the quick start from a file, counted;
+    # O1-O4. lazy opens and tiling of I1's and I3's files, counted
+    import tempfile
+    with tempfile.TemporaryDirectory() as io_tmp:
+        counts_i2 = run_io_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                  read_counts, cube, readme_change, io_tmp)
+        counts_o = run_out_of_core_phases(ndt, dev, card, reset_counts,
+                                          read_counts, readme_filtered,
+                                          readme_change, io_tmp)
 
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5, counts_t1,
-                                          counts_i2) + counts_s)
+                                          counts_i2) + counts_s + counts_o)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

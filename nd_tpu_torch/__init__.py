@@ -7,7 +7,9 @@ accessors), the flagship model's training step, the classifiers
 (scikit-learn bridge and ``TorchClassifier``) and checkpoints
 (``nd_tpu_torch.models.checkpoint``), and the I/O (netCDF, GeoTIFF,
 ENVI, zarr, BEAM-DIMAP: ``open_dataset``, ``to_netcdf``,
-``nd_tpu_torch.io``).
+``nd_tpu_torch.io``) with lazy opens (``chunks=``), and tiling for
+cubes larger than memory (``nd_tpu_torch.tiling``: ``ds.nd.tile``,
+``map_over_tiles``, ``auto_merge``).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
@@ -28,6 +30,8 @@ from .io import (assemble_complex, disassemble_complex, open_dataset,
 from .models import SARChangePipeline, change_features, multilook
 from .warp import (Coregistration, Reprojection, Resample, coregister,
                    reproject, resample)
+from . import tiling  # noqa: F401
+from .tiling import auto_merge
 from . import accessors  # noqa: E402,F401  (attaches .nd / .filter)
 
 __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
@@ -39,4 +43,4 @@ __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
            'TorchClassifier', 'class_mean', 'assemble_complex',
            'disassemble_complex', 'SARChangePipeline', 'multilook',
            'change_features', 'Reprojection', 'Resample', 'Coregistration',
-           'reproject', 'resample', 'coregister']
+           'reproject', 'resample', 'coregister', 'auto_merge']

@@ -124,7 +124,8 @@ class NDAccessor:
         return to_netcdf(self._obj, path, *args, **kwargs)
 
     def tile(self, path, *args, **kwargs):
-        _not_ported('nd.tile (tiling)', 17)
+        from .tiling import tile
+        return tile(self._obj, path, *args, **kwargs)
 
     def classify(self, clf, labels=None, **kwargs):
         from .classify import Classifier

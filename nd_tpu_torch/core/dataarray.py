@@ -123,12 +123,12 @@ def _device_of(obj):
     tables = [getattr(obj, '_coords', {})]
     if isinstance(obj, Dataset):
         tables.insert(0, obj._variables)
-    elif isinstance(getattr(obj, 'data', None), torch.Tensor):
-        return obj.data.device
+    elif isinstance(obj, DataArray) and obj.variable.device is not None:
+        return obj.variable.device
     for table in tables:
         for v in table.values():
-            if isinstance(v.data, torch.Tensor):
-                return v.data.device
+            if v.device is not None:
+                return v.device
     return None
 
 
@@ -604,7 +604,7 @@ class DataArray(_NDOpsMixin):
             dims = tuple('dim_%d' % i for i in range(data.ndim))
         if isinstance(dims, str):
             dims = (dims,)
-        self.variable = Variable(tuple(dims), data)
+        self.variable = Variable(tuple(dims), data, device=device)
         self._coords = {}
         self.attrs = dict(attrs) if attrs else {}
         self.name = name
@@ -672,9 +672,7 @@ class DataArray(_NDOpsMixin):
 
     @property
     def nbytes(self):
-        data = self.data
-        return data.numel() * data.element_size() \
-            if isinstance(data, torch.Tensor) else data.nbytes
+        return self.variable.nbytes
 
     @property
     def dtype(self):
@@ -2012,7 +2010,8 @@ class Dataset(_NDOpsMixin):
         if device is None:
             device = _device_of(self)
         if isinstance(value, DataArray):
-            var = Variable(value.dims, value.data, value.attrs)
+            src = value.variable                 # a lazy view stays lazy
+            var = Variable(value.dims, src._data, value.attrs, src._device)
             for ck, cv in value._coords.items():
                 self._coords.setdefault(ck, cv)
         elif isinstance(value, Variable):

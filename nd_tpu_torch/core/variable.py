@@ -7,6 +7,12 @@ as the JAX package puts such input on its default device, the
 accelerator; non-numeric coordinate arrays (datetimes, strings) stay
 numpy. A tensor stays on the device its caller put it on, and
 ``.values`` is the only API that copies to the host.
+
+A lazily read file view (``io.lazy.LazyArray``, from an open with
+``chunks=``) stays a view: ``isel``, ``shape``, ``dtype``, ``sizes`` and
+``nbytes`` read nothing, ``.values`` reads the selected slab into host
+numpy, and the first access to ``.data`` (any computation) reads it onto
+the variable's device, where the variable keeps it.
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['Variable', 'as_array', 'as_tensor', 'torch_dtype']
+__all__ = ['Variable', 'as_array', 'as_tensor', 'torch_dtype',
+           'is_lazy_array']
 
 DEFAULT_DEVICE = 'cuda'
 
@@ -43,11 +50,20 @@ def as_tensor(data, device=None):
     return torch.as_tensor(np.asarray(data), device=device)
 
 
+def is_lazy_array(x):
+    """True for a lazily read file view (kept as it is, so that indexing
+    reads only the slab it touches)."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return False
+    from ..io.lazy import LazyArray
+    return isinstance(x, LazyArray)
+
+
 def as_array(data, device=None):
     """Coerce input to a tensor (numeric data, on ``device``: see
     :func:`as_tensor`) or a numpy array (other data), without copying
-    tensors."""
-    if isinstance(data, torch.Tensor):
+    tensors. A lazy file view stays a view."""
+    if isinstance(data, torch.Tensor) or is_lazy_array(data):
         return data
     if isinstance(data, Variable):
         return data.data
@@ -96,13 +112,14 @@ class Variable:
     Parameters
     ----------
     dims : tuple of str
-    data : torch.Tensor or array-like
+    data : torch.Tensor, array-like or a lazy file view
     attrs : dict, optional
     device : torch.device or str, optional
-        Where numeric non-tensor ``data`` lands (default ``cuda``).
+        Where numeric non-tensor ``data`` lands (default ``cuda``); for a
+        lazy view, where it lands when it is read.
     """
 
-    __slots__ = ('dims', 'data', 'attrs')
+    __slots__ = ('dims', '_data', 'attrs', '_device')
 
     def __init__(self, dims, data, attrs=None, device=None):
         if isinstance(dims, str):
@@ -113,24 +130,62 @@ class Variable:
             raise ValueError('dimensions %r do not match array of shape %r'
                              % (dims, tuple(data.shape)))
         self.dims = dims
-        self.data = data
+        self._data = data
+        self._device = device
         self.attrs = dict(attrs) if attrs else {}
 
     @property
+    def data(self):
+        """The payload; a lazy view is read onto the variable's device
+        here, once, and kept."""
+        data = self._data
+        if is_lazy_array(data):
+            data = as_array(data.values, self._device)
+            self._data = data
+        return data
+
+    @property
+    def is_lazy(self):
+        """True while the payload is a lazy file view not yet read."""
+        return is_lazy_array(self._data)
+
+    @property
+    def device(self):
+        """The device of a tensor payload, or the one a lazy numeric
+        view will be read onto; None for host numpy."""
+        data = self._data
+        if isinstance(data, torch.Tensor):
+            return data.device
+        if is_lazy_array(data) and data.dtype.kind in 'biufc':
+            return torch.device(DEFAULT_DEVICE if self._device is None
+                                else self._device)
+        return None
+
+    @property
     def shape(self):
-        return tuple(self.data.shape)
+        return tuple(self._data.shape)
 
     @property
     def ndim(self):
-        return self.data.ndim
+        return self._data.ndim
 
     @property
     def dtype(self):
-        return self.data.dtype
+        data = self._data
+        if is_lazy_array(data) and data.dtype.kind in 'biufc':
+            return torch_dtype(data.dtype)       # the dtype once read
+        return data.dtype
 
     @property
     def size(self):
         return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def nbytes(self):
+        data = self._data
+        if isinstance(data, torch.Tensor):
+            return data.numel() * data.element_size()
+        return data.nbytes
 
     @property
     def sizes(self):
@@ -138,7 +193,10 @@ class Variable:
 
     @property
     def values(self):
-        """Host numpy copy of the data."""
+        """Host numpy copy of the data (a lazy view reads its slab into
+        host memory, never through the device)."""
+        if is_lazy_array(self._data):
+            return self._data.values
         return to_numpy(self.data)
 
     def astype(self, dtype):
@@ -146,11 +204,11 @@ class Variable:
                         self.attrs)
 
     def copy(self, deep=True):
-        data = self.data
-        if deep:
+        data = self._data
+        if deep and not is_lazy_array(data):        # views are read-only
             data = data.clone() if isinstance(data, torch.Tensor) \
                 else data.copy()
-        return Variable(self.dims, data, dict(self.attrs))
+        return Variable(self.dims, data, dict(self.attrs), self._device)
 
     def transpose(self, *dims):
         if not dims:
@@ -206,7 +264,9 @@ class Variable:
         if len(adv) > 1:
             raise NotImplementedError(
                 'fancy indexing over multiple dims is not supported')
-        data = self.data[tuple(key)]
+        data = self._data[tuple(key)]       # a lazy view stays lazy
+        if adv and is_lazy_array(data):
+            data = as_array(data.values, self._device)
         for d, idx in adv.items():
             axis = new_dims.index(d)
             if isinstance(data, torch.Tensor):
@@ -214,11 +274,11 @@ class Variable:
                     axis, torch.as_tensor(idx, device=data.device))
             else:
                 data = np.take(data, idx, axis=axis)
-        return Variable(tuple(new_dims), data, self.attrs)
+        return Variable(tuple(new_dims), data, self.attrs, self._device)
 
     def rename_dims(self, mapping):
         return Variable(tuple(mapping.get(d, d) for d in self.dims),
-                        self.data, self.attrs)
+                        self._data, self.attrs, self._device)
 
     def squeeze(self, dim=None):
         if dim is not None and dim not in self.dims:

@@ -6,8 +6,10 @@ host-side numpy, as in the JAX package: a reader puts numeric data on
 ``device`` (``cuda`` unless the caller names another), a writer copies
 each variable of a CUDA dataset to the host once. netCDF-4 needs
 ``h5py``; without it netCDF classic is read and written
-(:mod:`.netcdf`). Not ported yet: the lazy opens (``chunks=``, ROADMAP
-item 19) and JPEG 2000 with the Sentinel-2 granule reader (item 18).
+(:mod:`.netcdf`). ``chunks=`` opens netCDF and GeoTIFF files lazily
+(:mod:`.lazy`): nothing is read until it is used, and a slab read onto
+the card or written to another file reads only itself. Not ported yet:
+JPEG 2000 with the Sentinel-2 granule reader (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -41,12 +43,21 @@ def disassemble_complex(ds, inplace=False):
     new_ds = ds if inplace else ds.copy(deep=False)
     for vn in list(new_ds._variables):
         var = new_ds._variables[vn]
-        if not (isinstance(var.data, torch.Tensor) and var.data.is_complex()):
+        if not (isinstance(var.dtype, torch.dtype) and var.dtype.is_complex):
             continue
-        new_ds._variables[vn + '__re'] = Variable(
-            var.dims, var.data.real.contiguous(), dict(var.attrs))
-        new_ds._variables[vn + '__im'] = Variable(
-            var.dims, var.data.imag.contiguous(), dict(var.attrs))
+        if var.is_lazy:
+            # split on the host: a lazy view written to a file is never
+            # read onto the card
+            vals = var.values
+            parts = (np.ascontiguousarray(vals.real),
+                     np.ascontiguousarray(vals.imag))
+            device = 'cpu'
+        else:
+            parts = (var.data.real.contiguous(), var.data.imag.contiguous())
+            device = None
+        for suffix, part in zip(('__re', '__im'), parts):
+            new_ds._variables[vn + suffix] = Variable(
+                var.dims, part, dict(var.attrs), device)
         del new_ds._variables[vn]
     if not inplace:
         return new_ds
@@ -101,13 +112,6 @@ def add_time(ds, inplace=False):
         return result
 
 
-def _no_lazy(chunks):
-    if chunks is not None:
-        raise NotImplementedError(
-            'chunks= (a lazy open) is not ported yet: the lazy views come '
-            'with tiling (ROADMAP item 19)')
-
-
 # -------------
 # OPEN DATASETS
 # -------------
@@ -159,13 +163,18 @@ def open_netcdf(path, as_complex=False, rename_latlon=True, *args,
 
     lat/lon dimensions are renamed to y/x (keeping lat/lon coords); pass
     ``rename_latlon=False`` for a verbatim read, ``decode_cf=False`` to
-    keep the stored values. ``chunks=`` (a lazy open) raises until
-    ROADMAP item 19.
+    keep the stored values.
+
+    Pass ``chunks`` (any value, e.g. ``{}``) for a lazy open: data
+    variables are read per ``isel`` slab on first use (onto ``device``
+    for a computation, into host memory for ``.values`` or a write), so
+    a file larger than memory streams through ``tiling.tile`` and
+    ``map_over_tiles`` without ever being read whole.
     """
     from .netcdf import open_netcdf_file
-    _no_lazy(kwargs.get('chunks'))
     ds = open_netcdf_file(path, decode_cf=kwargs.get('decode_cf', True),
-                          device=kwargs.get('device'))
+                          device=kwargs.get('device'),
+                          chunks=kwargs.get('chunks'))
     if as_complex:
         ds = assemble_complex(ds)
     if rename_latlon and 'lon' in ds.sizes and 'lat' in ds.sizes:
@@ -281,8 +290,10 @@ def _raster_dataarray(data, transform, crs, nodata, is_tiled, device=None):
     if nodata is not None:
         attrs['nodatavals'] = (nodata,) * nbands
     attrs['is_tiled'] = int(is_tiled)
-    return DataArray(np.ascontiguousarray(data), dims=('band', 'y', 'x'),
-                     coords=coords, attrs=attrs, device=device)
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data)
+    return DataArray(data, dims=('band', 'y', 'x'), coords=coords,
+                     attrs=attrs, device=device)
 
 
 def open_rasterio(path, chunks=None, overview_level=None, device=None,
@@ -294,11 +305,14 @@ def open_rasterio(path, chunks=None, overview_level=None, device=None,
     attrs carry transform/crs/res/nodatavals. ``overview_level`` selects
     a reduced-resolution overview IFD (0 = first/largest): the raster
     decodes at that decimation and the transform/coords scale to match.
-    ``chunks=`` (a lazy open, item 19) and JPEG 2000 (item 18) raise
-    until their ROADMAP items.
+
+    With ``chunks`` not None (e.g. ``chunks={}``) the payload is a lazy
+    windowed view (:class:`~nd_tpu_torch.io.lazy.LazyGeoTIFFArray`):
+    nothing is decoded at open time, and a slice decodes only the strips
+    or tiles its window touches. Plain images decode eagerly (they have
+    no windowed layout). JPEG 2000 raises until ROADMAP item 18.
     """
     from .geotiff import TiffFile
-    _no_lazy(chunks)
     ext = os.path.splitext(str(path))[1].lower()
     if ext in _PLAIN_IMAGE_EXTS:
         return _open_plain_image(path, overview_level=overview_level,
@@ -307,10 +321,18 @@ def open_rasterio(path, chunks=None, overview_level=None, device=None,
         raise NotImplementedError(
             'JPEG 2000 (%s) is not ported yet: the decoder comes with the '
             'Sentinel-2 granule reader (ROADMAP item 18)' % ext)
+    if chunks is not None and overview_level is not None:
+        raise ValueError(
+            'pass either chunks= (lazy full-resolution view) or '
+            'overview_level= (eager decimated read), not both')
     with TiffFile(str(path)) as t:
         width, height = t.width, t.height
         if overview_level is not None:
             data = t.read_overview(int(overview_level))
+        elif chunks is not None:
+            from .lazy import LazyGeoTIFFArray
+            data = LazyGeoTIFFArray.from_file(
+                str(path), (t.nbands, height, width), t.band_dtype)
         else:
             data = t.read()
         transform = t.transform

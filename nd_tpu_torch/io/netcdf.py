@@ -1,13 +1,15 @@
-"""netCDF read and write: netCDF-4 (HDF5) through ``h5py``, netCDF
-classic through ``scipy.io.netcdf_file``.
+"""netCDF read and write: netCDF-4 (HDF5) through ``h5py``; netCDF
+classic read here and written through ``scipy.io.netcdf_file``.
 
 Counterpart of ``nd_tpu/io/netcdf.py``, on the port's data model:
 numeric variables land on ``device`` (``cuda`` unless the caller names
 another), datetimes and strings stay numpy, and a CUDA dataset is
 written with one host copy per variable.
 
-  - Reading: a classic file (magic ``CDF``) reads through scipy, any
-    other through ``h5py`` (dimension scales, phony dims, ``_FillValue``,
+  - Reading: a classic file (magic ``CDF``, versions 1 and 2) reads
+    through the header parser and positional reads here
+    (:func:`_classic_layout`, :func:`_read_classic_slab`), any other
+    through ``h5py`` (dimension scales, phony dims, ``_FillValue``,
     ``missing_value``, scale and offset, gzip, bool stored as int8, 2-D
     and scalar coordinates). ``h5py`` is imported where it is used, so a
     machine without it still reads and writes classic files.
@@ -17,12 +19,17 @@ written with one host copy per variable.
     :func:`writer` says which. Both write to ``<path>.part`` and rename.
   - CF time is decoded without pandas, on numpy ``datetime64[ns]``, with
     pandas' rounding of float offsets (:func:`_decode_cf_time`).
+  - A lazy open (``chunks=``) makes the numeric data variables
+    :class:`~nd_tpu_torch.io.lazy.LazyNetCDFArray` views on either route;
+    each slab read runs the same CF decode. Classic slabs are read at
+    their offsets, never through a memory mapping.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import struct
 
 import numpy as np
 
@@ -283,16 +290,46 @@ def _dataset(variables, coords, attrs, device):
     return ds
 
 
-def open_netcdf_file(path, decode_cf=True, device=None):
+def _lazy_view(path, name, shape, stored_dtype, decode, where=None):
+    """A lazy view of one variable (``where``: a classic variable's
+    ``(begin, stride, shape, dtype)``); the decode is dtype-stable, so one
+    synthetic element gives every slab's dtype without a read."""
+    from .lazy import LazyNetCDFArray
+    stored_dtype = np.dtype(stored_dtype).newbyteorder('=')
+    dtype = stored_dtype if decode is None \
+        else decode(np.ones(1, stored_dtype)).dtype
+    return LazyNetCDFArray(str(path), name, shape, dtype, decode=decode,
+                           classic=where)
+
+
+def _promote_coords(variables, coords, names):
+    """Move the variables named as CF coordinates to ``coords``, read:
+    coordinates stay eager (they index everything else)."""
+    for cname in names:
+        if cname in variables:
+            d, v, a = variables.pop(cname)
+            coords[cname] = (d, np.asarray(v), a)
+    for _, _, a in variables.values():
+        a.pop('coordinates', None)
+
+
+def open_netcdf_file(path, decode_cf=True, device=None, chunks=None):
     """Read a netCDF file (netCDF-4/HDF5 or classic) into a Dataset with
-    its numeric data on ``device`` (default ``cuda``)."""
+    its numeric data on ``device`` (default ``cuda``).
+
+    With ``chunks`` (any value, ``{}`` included) the data variables that
+    are not coordinates, have at least one dimension and a numeric type
+    become lazy views (:class:`~nd_tpu_torch.io.lazy.LazyNetCDFArray`):
+    nothing of them is read until they are used, and an ``isel`` reads
+    only its own slab. Coordinates and strings stay eager."""
     with open(path, 'rb') as fh:
         magic = fh.read(3)
     if magic == b'CDF':
-        # netCDF classic (versions 1/2/5) is not an HDF5 container;
-        # scipy's reader covers it without h5py
+        # netCDF classic is not an HDF5 container: CDF-1/2 files are read
+        # here without h5py (_classic_layout, _read_classic_slab), CDF-5
+        # raises
         return _open_netcdf_classic(path, decode_cf=decode_cf,
-                                    device=device)
+                                    device=device, chunks=chunks)
     h5py = _h5py()
     if h5py is None:
         raise ImportError('h5py is required to read netCDF-4 (HDF5) files '
@@ -357,20 +394,25 @@ def open_netcdf_file(path, decode_cf=True, device=None):
                                   'REFERENCE_LIST', '_Netcdf4Dimid',
                                   '_Netcdf4Coordinates')}
             dims = dims_for(obj, name)
-            data = obj[()]
-            if isinstance(data, (bytes, str)):
-                # scalar variable-length string datasets come back
-                # as plain python objects with no .dtype
-                data = np.asarray(data)
-            if decode_cf:
-                decode = _cf_decode_for(attrs, obj.dtype.kind)
+            decode = _cf_decode_for(attrs, obj.dtype.kind) \
+                if decode_cf else None
+            if (chunks is not None and name not in coord_like
+                    and obj.ndim >= 1 and obj.dtype.kind in 'iufc'):
+                data = _lazy_view(path, obj.name, obj.shape, obj.dtype,
+                                  decode)
+            else:
+                data = obj[()]
+                if isinstance(data, (bytes, str)):
+                    # scalar variable-length string datasets come back
+                    # as plain python objects with no .dtype
+                    data = np.asarray(data)
                 if decode is not None:
                     data = decode(np.asarray(data))
-            if data.dtype.kind in ('S', 'O'):
-                try:
-                    data = np.char.decode(data.astype('S'), 'utf-8')
-                except (UnicodeDecodeError, TypeError, ValueError):
-                    pass        # not text: keep the stored bytes
+                if data.dtype.kind in ('S', 'O'):
+                    try:
+                        data = np.char.decode(data.astype('S'), 'utf-8')
+                    except (UnicodeDecodeError, TypeError, ValueError):
+                        pass        # not text: keep the stored bytes
 
             if name in coord_like:
                 coords[name] = (dims, data, attrs)
@@ -385,66 +427,229 @@ def open_netcdf_file(path, decode_cf=True, device=None):
         group_coords = f.attrs.get('_nd_tpu_coordinates')
         if group_coords is not None:
             extra_coord_names.update(_decode_attr(group_coords).split())
-        for cname in list(extra_coord_names):
-            if cname in variables:
-                coords[cname] = variables.pop(cname)
-        for _, _, a in variables.values():
-            a.pop('coordinates', None)
+        _promote_coords(variables, coords, extra_coord_names)
         gattrs = {k: _decode_attr(v) for k, v in f.attrs.items()
                   if not str(k).startswith('_nd_tpu')}
     return _dataset(variables, coords, gattrs, device)
 
 
-def _open_netcdf_classic(path, decode_cf=True, device=None):
-    """Read a netCDF classic (CDF-1/2/5) file through scipy's reader, with
-    the same CF conventions as the HDF5 path: fill / missing_value
-    masking, scale/offset unpacking, standard-calendar time decode,
-    dimension-named variables as coordinates, and CF ``coordinates``
-    attribute promotion. A bool stored as int8 stays int8 (with its
-    ``dtype`` attr), as in the JAX package."""
-    from scipy.io import netcdf_file
-    f = netcdf_file(str(path), 'r', mmap=False)
-    try:
-        dim_sizes = dict(f.dimensions)
-        variables = {}
-        coords = {}
-        extra_coord_names = set()
-        for name, v in f.variables.items():
-            attrs = {k: _decode_attr(val)
-                     for k, val in (v._attributes or {}).items()}
-            dims = tuple(v.dimensions)
-            data = np.asarray(v.data)
-            # scipy returns record (unlimited) dims with the real size
-            for d, s in zip(dims, data.shape):
-                if dim_sizes.get(d) in (None, 0):
-                    dim_sizes[d] = s
+def _open_netcdf_classic(path, decode_cf=True, device=None, chunks=None):
+    """Read a netCDF classic (CDF-1/2) file, with the same CF conventions
+    as the HDF5 path: fill / missing_value masking, scale/offset
+    unpacking, standard-calendar time decode, dimension-named variables
+    as coordinates, and CF ``coordinates`` attribute promotion. A bool
+    stored as int8 stays int8 (with its ``dtype`` attr), as in the JAX
+    package. With ``chunks`` the numeric data variables are lazy views
+    that read their slabs at their offsets."""
+    dim_sizes, gattrs, layout = _classic_layout(path)
+    variables = {}
+    coords = {}
+    extra_coord_names = set()
+    for name, dims, raw_attrs, dtype, shape, begin, stride in layout:
+        attrs = {k: _decode_attr(val) for k, val in raw_attrs.items()}
+        # a record (unlimited) dim takes its size from the records
+        for d, n in zip(dims, shape):
+            if dim_sizes.get(d) in (None, 0):
+                dim_sizes[d] = n
+        is_coord = name in dim_sizes and dims == (name,)
+        decode = _cf_decode_for(attrs, dtype.kind, with_bool=False) \
+            if decode_cf else None
+        where = (begin, stride, shape, dtype)
+        if chunks is not None and not is_coord and shape \
+                and dtype.kind in 'iufc':
+            data = _lazy_view(path, name, shape, dtype, decode, where)
+        else:
+            data = _read_classic_slab(path, *where,
+                                      tuple(slice(0, n) for n in shape))
             if data.dtype.kind == 'S' and data.ndim >= 1:
                 try:
                     data = np.char.decode(data, 'utf-8')
                 except UnicodeDecodeError:
                     pass        # not text: keep the stored bytes
-            if decode_cf:
-                decode = _cf_decode_for(attrs, data.dtype.kind,
-                                        with_bool=False)
-                if decode is not None:
-                    data = decode(data)
-            if name in dim_sizes and dims == (name,):
-                coords[name] = (dims, data, attrs)
-            else:
-                cattr = attrs.get('coordinates')
-                if cattr:
-                    extra_coord_names.update(str(cattr).split())
-                variables[name] = (dims, data, attrs)
-        for cname in list(extra_coord_names):
-            if cname in variables:
-                coords[cname] = variables.pop(cname)
-        for _, _, a in variables.values():
-            a.pop('coordinates', None)
-        gattrs = {k: _decode_attr(val)
-                  for k, val in (f._attributes or {}).items()}
-    finally:
-        f.close()
+            if decode is not None:
+                data = decode(data)
+        if is_coord:
+            coords[name] = (dims, data, attrs)
+        else:
+            cattr = attrs.get('coordinates')
+            if cattr:
+                extra_coord_names.update(str(cattr).split())
+            variables[name] = (dims, data, attrs)
+    _promote_coords(variables, coords, extra_coord_names)
+    gattrs = {k: _decode_attr(val) for k, val in gattrs.items()}
     return _dataset(variables, coords, gattrs, device)
+
+
+# The classic slab reader reads one block of whole rows where the bytes it
+# reads beyond what a read per row would read cost less time than the row
+# reads it saves: one read call costs about the time of reading, swapping
+# and copying this many bytes. chip_smoke.py times both routes: O1 alone
+# on first reads by window width, O3 in tile()'s thread pool, where a
+# read call costs several times more; the constant follows the pool's
+# cost, and PERF.md keeps the numbers.
+_READ_CALL_BYTES = 100 << 10
+
+# netCDF classic's external types (CDF-1 and CDF-2)
+_CLASSIC_NC_TYPES = {1: np.dtype('>i1'), 2: np.dtype('S1'),
+                     3: np.dtype('>i2'), 4: np.dtype('>i4'),
+                     5: np.dtype('>f4'), 6: np.dtype('>f8')}
+
+
+def _classic_layout(path):
+    """The header of a netCDF classic file (CDF-1 or CDF-2), read without
+    its data: ``(dims, global attrs, variables)``; dims map names to sizes
+    (0 for the record dimension), each variable is ``(name, dims, attrs,
+    stored dtype, shape, begin, stride)``, its data starting at byte
+    ``begin`` with its first axis' elements ``stride`` bytes apart.
+    Attribute values are what ``scipy.io.netcdf_file`` gives (numbers as
+    big-endian arrays, one as a scalar; text as bytes)."""
+    with open(path, 'rb') as fh:
+        def read(n):
+            raw = fh.read(n)
+            if len(raw) != n:
+                raise ValueError('%s: truncated netCDF classic header'
+                                 % path)
+            return raw
+
+        def integer():
+            return struct.unpack('>i', read(4))[0]
+
+        def name():
+            n = integer()
+            raw = read(n)
+            read(-n % 4)
+            return raw.rstrip(b'\0').decode('latin1')
+
+        def count(tag):
+            if read(4) not in (b'\0\0\0\0', tag):
+                raise ValueError('%s: not a netCDF classic header' % path)
+            return integer()
+
+        def nc_type():
+            t = integer()
+            if t not in _CLASSIC_NC_TYPES:
+                raise ValueError('%s: netCDF type %d is not a CDF-1/2 type'
+                                 % (path, t))
+            return _CLASSIC_NC_TYPES[t]
+
+        def attributes():
+            out = {}
+            for _ in range(count(b'\0\0\0\x0c')):
+                key, dtype, n = name(), nc_type(), integer()
+                raw = read(n * dtype.itemsize)
+                read(-(n * dtype.itemsize) % 4)
+                if dtype.kind == 'S':
+                    out[key] = raw.rstrip(b'\0')
+                else:
+                    val = np.frombuffer(raw, dtype).copy()
+                    out[key] = val[0] if val.shape == (1,) else val
+            return out
+
+        if read(3) != b'CDF':
+            raise ValueError('%s is not a netCDF classic file' % path)
+        version = read(1)[0]
+        if version not in (1, 2):
+            raise ValueError('%s: netCDF classic version %d is not read '
+                             '(1 and 2 are)' % (path, version))
+        numrecs = integer()
+        dims = [(name(), integer()) for _ in range(count(b'\0\0\0\x0a'))]
+        gattrs = attributes()
+        variables = []
+        for _ in range(count(b'\0\0\0\x0b')):
+            vname = name()
+            ids = [integer() for _ in range(integer())]
+            vattrs = attributes()
+            dtype = nc_type()
+            vsize = integer()
+            begin = struct.unpack('>i' if version == 1 else '>q',
+                                  read(4 if version == 1 else 8))[0]
+            record = bool(ids) and dims[ids[0]][1] == 0
+            shape = tuple(numrecs if record and j == 0 else dims[i][1]
+                          for j, i in enumerate(ids))
+            variables.append((vname, tuple(dims[i][0] for i in ids), vattrs,
+                              dtype, shape, begin, record, vsize))
+    # a record holds every record variable's slab in turn, each padded to
+    # 4 bytes, but for a lone record variable, unpadded
+    recs = [v for v in variables if v[6]]
+    if len(recs) == 1:
+        recsize = int(np.prod(recs[0][4][1:], dtype=np.int64)) \
+            * recs[0][3].itemsize
+    else:
+        recsize = sum(v[7] for v in recs)
+    layout = [(vname, vdims, vattrs, dtype, shape, begin,
+               recsize if record else
+               int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize)
+              for vname, vdims, vattrs, dtype, shape, begin, record, _
+              in variables]
+    return dict(dims), gattrs, layout
+
+
+def _read_classic_slab(path, begin, stride, shape, dtype, key):
+    """The slab ``key`` (one int or slice with a non-negative step per
+    axis) of a classic variable, read at its offsets into the machine's
+    byte order. Its first-axis elements ("rows") start ``stride`` bytes
+    apart. Each row the key touches is read from the first to the last
+    element its key touches on the second axis, unless the rows are
+    contiguous and reading the block from the first to the last of them
+    in one go costs less (:data:`_READ_CALL_BYTES`); record variables
+    are always read a row at a time. Nothing is memory-mapped: where a
+    mapping counts as resident whole (gVisor sandboxes), a slab read
+    would pin the file."""
+    if not shape:
+        with open(path, 'rb', buffering=0) as fh:
+            buf = np.empty(dtype.itemsize, np.uint8)
+            _read_into(fh, begin, buf)
+        return buf.view(dtype).astype(dtype.newbyteorder('=')).reshape(())
+    k0 = key[0]
+    rows = range(k0, k0 + 1) if isinstance(k0, int) \
+        else range(*k0.indices(shape[0]))
+    n1 = shape[1] if len(shape) > 1 else 1
+    k1 = key[1] if len(shape) > 1 else slice(None)
+    cols = range(k1, k1 + 1) if isinstance(k1, int) \
+        else range(*k1.indices(n1))
+    inner = int(np.prod(shape[2:], dtype=np.int64)) * dtype.itemsize
+    row_bytes = n1 * inner
+    c0 = cols[0] if len(cols) else 0
+    width = cols[-1] + 1 - c0 if len(cols) else 0
+    first = rows[0] if len(rows) else 0
+    block = (rows[-1] - first + 1) * row_bytes if len(rows) else 0
+    excess = block - len(rows) * width * inner
+    with open(path, 'rb', buffering=0) as fh:
+        if stride == row_bytes \
+                and excess <= (len(rows) - 1) * _READ_CALL_BYTES:
+            buf = np.empty(block, np.uint8)
+            _read_into(fh, begin + first * stride, buf)
+            out = buf.view(dtype).reshape((-1,) + tuple(shape[1:]))
+            rel = (k0 - first if isinstance(k0, int)
+                   else slice(0, len(out), rows.step),) + tuple(key[1:])
+        else:
+            buf = np.empty((len(rows), width * inner), np.uint8)
+            for j, i in enumerate(rows):
+                _read_into(fh, begin + i * stride + c0 * inner, buf[j])
+            out = buf.reshape(-1).view(dtype).reshape(
+                (len(rows),) + ((width,) if len(shape) > 1 else ())
+                + tuple(shape[2:]))
+            rel = (0 if isinstance(k0, int) else slice(None),)
+            if len(shape) > 1:
+                rel += (k1 - c0 if isinstance(k1, int)
+                        else slice(0, width, cols.step),)
+            rel += tuple(key[2:])
+    if not dtype.isnative:
+        out = out.byteswap(inplace=True).view(dtype.newbyteorder('='))
+    return np.require(out[rel], requirements='C')     # 0-d stays 0-d
+
+
+def _read_into(fh, offset, view):
+    """Fill the uint8 array ``view`` from ``fh`` at ``offset``."""
+    fh.seek(offset)
+    mem = memoryview(view)
+    done = 0
+    while done < len(mem):
+        n = fh.readinto(mem[done:])
+        if not n:
+            raise ValueError('%s ends before a variable\'s data does'
+                             % fh.name)
+        done += n
 
 
 # ---------------------------------------------------------------------------
@@ -660,9 +865,12 @@ def _write_netcdf_classic(ds, path):
         for d, size in ds.sizes.items():
             f.createDimension(d, size)
         for k, v, _ in items:
-            data, attrs = payloads[k]
+            # popped: scipy keeps its own big-endian copy until close(),
+            # so a slab read for this write (a lazy view's) is freed now
+            data, attrs = payloads.pop(k)
             nv = f.createVariable(k, data.dtype, v.dims)
             nv[...] = data
+            del data
             for a, val in attrs.items():
                 setattr(nv, a, val)
         for a, val in gattrs.items():

@@ -6,7 +6,8 @@ gives the same cube (values, coordinates and geo metadata) in both
 packages. The numeric arrays land on ``device`` (default ``cuda``, as
 everywhere in the port). ``create_mock_classes`` builds the two-class
 cube of the classifier tests. The polygon helpers wait for the vector
-module (ROADMAP item 12).
+module (ROADMAP item 12). ``run_sampling_rss`` runs a process and
+samples its resident set from outside (the out-of-core checks).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from .core import DataArray, Dataset
 from .crs import CRS, Affine
 
 __all__ = ['generate_test_dataset', 'generate_test_dataarray',
-           'create_mock_classes', 'assert_equal_data', 'assert_equal_crs']
+           'create_mock_classes', 'assert_equal_data', 'assert_equal_crs',
+           'run_sampling_rss']
 
 
 def _geo_attrs(extent, nx, ny, crs):
@@ -144,3 +146,68 @@ def assert_equal_crs(crs1, crs2):
     c1 = CRS.from_user_input(crs1)
     c2 = CRS.from_user_input(crs2)
     assert c1 == c2, '%r != %r' % (c1, c2)
+
+
+def _resident(pid):
+    """Resident bytes of process ``pid`` (``/proc/<pid>/statm``)."""
+    import os
+    with open('/proc/%d/statm' % pid) as fh:
+        return int(fh.read().split()[1]) * os.sysconf('SC_PAGE_SIZE')
+
+
+def run_sampling_rss(args, marker='warm', timeout=900, env=None, cwd=None):
+    """Run ``args`` and sample its resident set from this process about
+    every millisecond. The child prints ``marker`` on a line of its own
+    once it has its baseline (after its imports and a warm-up) and then
+    waits for a line on its standard input; the baseline is the peak
+    sampled until then. Sampling from outside needs neither ``VmHWM``
+    (missing in some sandboxes' ``/proc``) nor ``ru_maxrss`` (which
+    carries the parent's peak across fork and exec).
+
+    Returns ``(returncode, stdout, stderr, baseline, peak)``, bytes.
+    """
+    import subprocess
+    import threading
+    import time
+    proc = subprocess.Popen(args, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=cwd)
+    lines, errors = [], []
+    warm = threading.Event()
+
+    def pump_out():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.strip() == marker:
+                warm.set()
+
+    readers = [threading.Thread(target=pump_out),
+               threading.Thread(target=lambda: errors.append(
+                   proc.stderr.read()))]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + timeout
+    base = peak = 0
+    released = False
+    try:
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(args, timeout)
+            try:
+                peak = max(peak, _resident(proc.pid))
+            except (FileNotFoundError, ProcessLookupError):
+                break                           # it has just exited
+            if warm.is_set() and not released:
+                base = peak                     # the child waits here
+                proc.stdin.write('go\n')
+                proc.stdin.flush()
+                released = True
+            time.sleep(0.001)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        proc.stdin.close()
+        for t in readers:
+            t.join()
+    return proc.returncode, ''.join(lines), ''.join(errors), base, peak

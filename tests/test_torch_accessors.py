@@ -157,8 +157,7 @@ def test_methods_carry_the_functional_signatures():
 
 
 @pytest.mark.parametrize('method,item', [
-    ('tile', 17), ('to_rgb', 15),
-    ('to_video', 15), ('plot_map', 15),
+    ('to_rgb', 15), ('to_video', 15), ('plot_map', 15),
 ])
 def test_unported_methods_raise_naming_their_item(method, item):
     _, t = _pair()

@@ -1482,3 +1482,80 @@ def test_quick_start_from_a_file_on_the_card_equals_the_cpu(cuda, tmp_path):
     moved = Dataset({v: (flt['cuda'][v].dims, flt['cuda'][v].data.cpu())
                      for v in flt['cuda'].data_vars})
     assert torch.equal(change.data.cpu(), omn.apply(moved).data)
+
+
+def _lazy_cube_file(tmp_path, classic, monkeypatch):
+    from nd_tpu_torch.io import netcdf
+    if classic:
+        monkeypatch.setattr(netcdf, '_h5py', lambda: None)
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(12) * np.timedelta64(12, 'D')
+    ds = _on(torch.from_numpy(sar_cube(40, 36, 12, seed=74,
+                                       special=False)), times, 'cpu')
+    p = str(tmp_path / 'lazy.nc')
+    ndt.to_netcdf(ds, p)
+    return p, ds
+
+
+@pytest.mark.parametrize('classic', [False, True])
+def test_lazy_slab_lands_on_the_card(cuda, tmp_path, monkeypatch, classic):
+    if not classic:
+        pytest.importorskip('h5py')
+    p, ds = _lazy_cube_file(tmp_path, classic, monkeypatch)
+    lz = ndt.open_dataset(p, chunks={})
+    sub = lz.isel(y=slice(5, 29, 2), x=3, time=slice(1, 9))
+    assert sub._variables['C11'].is_lazy
+    got = sub['C11'].data
+    assert got.device.type == 'cuda'
+    assert not sub._variables['C11'].is_lazy
+    want = ds['C11'].data[5:29:2, 3, 1:9]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize('classic', [False, True])
+def test_to_netcdf_of_a_lazy_variable_never_touches_the_card(
+        cuda, tmp_path, monkeypatch, classic):
+    if not classic:
+        pytest.importorskip('h5py')
+    p, ds = _lazy_cube_file(tmp_path, classic, monkeypatch)
+    lz = ndt.open_dataset(p, chunks={}).isel(y=slice(0, 20))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    q = str(tmp_path / 'copy.nc')
+    ndt.to_netcdf(lz, q)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert all(v.is_lazy for v in lz._variables.values())
+    back = ndt.open_dataset(q, device='cpu')
+    ds = ndt.io.disassemble_complex(ds)
+    assert set(back.data_vars) == set(ds.data_vars)
+    for v in ds.data_vars:
+        assert torch.equal(back[v].data, ds[v].data[:20]), v
+
+
+def test_map_over_tiles_workers_give_the_same_bytes(cuda, tmp_path):
+    from nd_tpu_torch.tiling import map_over_tiles, tile
+    times = np.datetime64('2023-01-03', 'ns') \
+        + np.arange(12) * np.timedelta64(12, 'D')
+    ds = _on(torch.from_numpy(sar_cube(48, 40, 12, seed=75,
+                                       special=False)), times, cuda)
+    ds = ndt.io.disassemble_complex(ds)
+    tile(ds, str(tmp_path / 'tiles'), chunks={'y': 16, 'x': 16}, buffer=4)
+
+    def chain(d):
+        flt = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2,
+                                h=3).apply(d)
+        flt['change'] = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+        return flt
+    out = {}
+    for workers in (1, 4):
+        out[workers] = map_over_tiles(
+            str(tmp_path / 'tiles' / '*.nc'), chain,
+            path=str(tmp_path / ('out%d' % workers)), max_workers=workers)
+    assert out[1]['C11'].data.device.type == 'cuda'
+    _bit_equal(out[4], out[1])
+    names = sorted(os.listdir(tmp_path / 'out1'))
+    assert names == sorted(os.listdir(tmp_path / 'out4')) and len(names) == 9
+    for name in names:
+        _bit_equal(*(ndt.open_dataset(str(tmp_path / d / name), device='cpu')
+                     for d in ('out4', 'out1')))

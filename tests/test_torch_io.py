@@ -393,17 +393,6 @@ def test_open_netcdf_renames_lat_lon(tmp_path):
                      jio.open_netcdf(p, rename_latlon=rename))
 
 
-def test_lazy_open_raises_naming_its_item(tmp_path):
-    _, t = twins(_no_coord)
-    p = str(tmp_path / 'n.nc')
-    tio.to_netcdf(t, p)
-    for call in (lambda: tio.open_netcdf(p, chunks={}),
-                 lambda: tio.open_dataset(p, chunks={}),
-                 lambda: tio.open_rasterio(p, chunks={})):
-        with pytest.raises(NotImplementedError, match='ROADMAP item 19'):
-            call()
-
-
 def test_jp2_raises_naming_its_item(tmp_path):
     p = str(tmp_path / 'b.jp2')
     with open(p, 'wb') as fh:
@@ -464,6 +453,19 @@ BLOCKED = textwrap.dedent('''
                  'data type = 4\\ninterleave = bsq\\nbyte order = 1\\n')
     assert np.array_equal(envi.read_envi(os.path.join(out, 'e.img')), cube)
     d = tio.open_beam_dimap(dimap, device='cpu')
+    from nd_tpu_torch.tiling import auto_merge, map_over_tiles, tile
+    lazy = ndt.open_dataset(p, chunks={}, device='cpu')
+    assert lazy._variables['C11'].is_lazy
+    assert np.array_equal(lazy.isel(y=slice(1, 3))['C11'].values,
+                          ds['C11'].values[1:3])
+    tiles = os.path.join(out, 'tiles')
+    tile(p, tiles, chunks={'y': 2, 'x': 3}, buffer=1)
+    assert len(os.listdir(tiles)) == 4
+    merged = map_over_tiles(os.path.join(tiles, '*.nc'), lambda t: t * 2.0,
+                            path=os.path.join(out, 'doubled'), device='cpu')
+    assert np.array_equal(merged['C11'].values, ds['C11'].values * 2)
+    again = auto_merge(os.path.join(out, 'doubled', '*.nc'), device='cpu')
+    assert np.array_equal(again['C12__im'].values, c12.imag * 2)
     print('ok', sorted(d.data_vars), str(d['time'].values[0]))
 ''')
 

@@ -28,7 +28,8 @@ def test_import_loads_no_jax():
             'nd_tpu_torch.ops.interp, nd_tpu_torch.ops.fft, '
             'nd_tpu_torch.testing, nd_tpu_torch.io.netcdf, '
             'nd_tpu_torch.io.geotiff, nd_tpu_torch.io.envi, '
-            'nd_tpu_torch.io.zarr, nd_tpu_torch.io.beam_dimap; '
+            'nd_tpu_torch.io.zarr, nd_tpu_torch.io.beam_dimap, '
+            'nd_tpu_torch.io.lazy, nd_tpu_torch.tiling; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')
