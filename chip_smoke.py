@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
-training path, its dated-stack path, its I/O and its tiling once on one
-CUDA device.
+training path, its dated-stack path, its I/O, its tiling and its
+Sentinel-2 granule and vector path once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -260,6 +260,37 @@ and lazy opens and tiling, from I1's and I3's files:
      millisecond, ``testing.run_sampling_rss``) less than half the
      cube's bytes over its baseline after the imports and one warm tile,
      the pass in MB/s; the files are deleted.
+
+and a Sentinel-2 granule classified on rasterized parcels (the
+committed fixture ``tests/data/torch_s2``: an L1C granule of a tenth of
+tile T33UUP's extent in seven JPEG 2000 bands, and a parcel shapefile;
+no kernel of the port runs on this path, and none may launch):
+
+ J1. ``open_sentinel2_granule`` at 10, 20 and 60 m with the native
+     Tier-1 decoder (``nd_tpu_torch/native``, built with g++ at first
+     use; its build time printed): every band's sha256 equal to
+     ``MANIFEST.json``, on the card; per band the decode time, the
+     Tier-1 code-blocks per second and what that rate makes of a full
+     10 m band (labelled extrapolated); the native Tier-1 output (vals
+     and lastp) bit-equal to the port's Python ``_T1Decoder`` on 10
+     seeded code-blocks of every band;
+ J2. ``overview_level`` 0 and 1 of the granule at 10 and 20 m, equal to
+     ``MANIFEST.json`` at reduce 1 and 2, the grid's resolution and
+     first centre scaled;
+ J3. ``read_shapefile`` of the parcels and ``rasterize_values`` of their
+     ``class`` (fill 0) on the 10 m grid, on the card, bit-equal to the
+     CPU route; then 2,000 ``generate_test_polygons`` on the full tile's
+     10980 x 10980 10 m grid at T33UUP's origin: per-polygon pixel counts,
+     16 windows and the whole raster equal to the CPU route; the time by
+     CUDA events and by the host clock, and the device-busy share under
+     ``torch.profiler``;
+ J4. ``TorchClassifier(hidden=(16,), epochs=150, lr=0.05)`` fitted on the
+     four 10 m bands (float32) with J3's labels (0 unlabelled, dropped):
+     at 10 epochs its parameters within 1e-4 of each tensor's largest
+     magnitude (plus 1e-6) of a CPU fit from the same seed, at 150 epochs
+     its predictions of the whole grid on the card equal to the CPU
+     fit's on >= 99.9% of pixels; the accuracy on the labelled pixels,
+     the fit and predict times.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -2169,6 +2200,293 @@ def run_out_of_core_phases(ndt, dev, card, reset_counts, read_counts,
     return counts_o2, counts_o3, counts_o4
 
 
+# ---- J1-J4: a Sentinel-2 granule classified on rasterized parcels -----------
+
+J_FIXTURE = os.path.join('tests', 'data', 'torch_s2')
+J_ULX, J_ULY = 300000.0, 5500020.0          # tile T33UUP's north-west corner
+J_TILE = 10980                              # a tile's 10 m grid, a side
+J_PARCELS = 2000                            # J3's polygons on the full grid
+J_CHECK_BLOCKS = 10                         # J1: code-blocks a band, Python
+J_WINDOWS = 16                              # J3: windows held to the CPU
+J_FEATURES = ('B02', 'B03', 'B04', 'B08')
+
+
+def sha256(arr):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def run_granule_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                       root):
+    """J1-J4: decode the committed granule onto the card, rasterize the
+    parcels (and 2,000 polygons on a full tile's grid) on the card, fit
+    and apply a classifier on the bands; every result held to
+    MANIFEST.json or to the same port call on the CPU. No kernel of the
+    port runs on this path: returns the launches counted over J1-J4
+    (all 0)."""
+    import torch
+    from nd_tpu_torch import native
+    from nd_tpu_torch.breakdown import profiled
+    from nd_tpu_torch.classify import TorchClassifier
+    from nd_tpu_torch.core import DataArray, Dataset
+    from nd_tpu_torch.io import jp2, open_sentinel2_granule
+    from nd_tpu_torch.ops.rasterize import rasterize_values
+    from nd_tpu_torch.testing import generate_test_polygons
+    from nd_tpu_torch.vector import read_shapefile
+
+    cpu = torch.device('cpu')
+    fixture = os.path.join(root, J_FIXTURE)
+    with open(os.path.join(fixture, 'MANIFEST.json')) as fh:
+        manifest = json.load(fh)
+    gdir = os.path.join(fixture, manifest['granule'])
+    bands = manifest['bands']
+    t_j = time.perf_counter()
+    reset_counts()
+
+    # ---- J1: decode ---------------------------------------------------------
+    gxx = subprocess.run([native.CXX, '--version'], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    info = native.build_info()
+    phase('J1', 'host Tier-1 decoder %s (%s, %s): built=%s in %.2f s'
+          % (os.path.basename(info['path']), gxx,
+             ' '.join(native.CXX_FLAGS), info['built'], info['seconds']))
+    grids = {}
+    for res in (10, 20, 60):
+        t0 = time.perf_counter()
+        ds = open_sentinel2_granule(gdir, resolution=res)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        names = sorted(ds.data_vars)
+        check(names == sorted(b for b, e in bands.items()
+                              if e['resolution'] == res), 'J1 bands', res,
+              names)
+        for b in names:
+            check(ds[b].data.device.type == 'cuda', 'J1 on the card', b)
+            got = sha256(ds[b].values)
+            check(got == bands[b]['reduce']['0']['sha256'], 'J1 sha256', b)
+        grids[res] = ds
+        phase('J1', 'open_sentinel2_granule(resolution=%d) -> %s %s on the '
+              'card in %.3f s (every JP2 of the granule decoded, as the grid '
+              'check needs): sha256 equal to MANIFEST.json'
+              % (res, names, tuple(ds[names[0]].shape), open_s))
+    rng = np.random.RandomState(SEED)
+    py_blocks, py_s, rates = 0, 0.0, {}
+    paths = {os.path.splitext(f)[0].split('_')[-1]:
+             os.path.join(gdir, 'IMG_DATA', f)
+             for f in os.listdir(os.path.join(gdir, 'IMG_DATA'))}
+    for b in sorted(bands):
+        path = paths[b]
+        for _ in range(2):                     # the second call is timed
+            t0 = time.perf_counter()
+            arr = jp2.decode_jp2(path)
+            dec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jobs = jp2.codeblock_jobs(path)
+        t2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native_out = jp2._t1_decode_many(jobs, 'native')
+        t1_s = time.perf_counter() - t0
+        rates[b] = len(jobs) / t1_s
+        pick = rng.choice(len(jobs), min(J_CHECK_BLOCKS, len(jobs)),
+                          replace=False)
+        t0 = time.perf_counter()
+        python_out = jp2._t1_decode_many([jobs[i] for i in pick], 'python')
+        py_s += time.perf_counter() - t0
+        py_blocks += len(pick)
+        for i, (pv, pl) in zip(pick, python_out):
+            nv, nl = native_out[i]
+            check(np.array_equal(nv, pv) and np.array_equal(nl, pl)
+                  and nv.dtype == pv.dtype and nl.dtype == pl.dtype,
+                  'J1 native against Python Tier-1', b, int(i))
+        check(sha256(arr) == bands[b]['reduce']['0']['sha256'], 'J1', b)
+        phase('J1', '%s %s %s (%s, %d bytes): decode %.4f s (host); Tier-2 '
+              '%.4f s; Tier-1 %d code-blocks in %.4f s native = %.0f '
+              'blocks/s (%d threads); %d of them bit-equal (vals, lastp) to '
+              '_T1Decoder' % (b, arr.shape, arr.dtype,
+                              'reversible 5/3' if bands[b]['reversible']
+                              else 'irreversible 9/7', bands[b]['bytes'],
+                              dec_s, t2_s, len(jobs), t1_s, rates[b],
+                              os.cpu_count() or 1, len(pick)))
+    r10 = [rates[b] for b in bands if bands[b]['resolution'] == 10]
+    full_blocks = 29000
+    phase('J1', 'native Tier-1 on the 10 m bands %.0f-%.0f blocks/s; '
+          'extrapolated (not measured): a full 10 m band of about %d '
+          'code-blocks would take %.2f-%.2f s of Tier-1 on this host; the '
+          'Python _T1Decoder ran %d blocks at %.1f blocks/s (%.0fx slower '
+          'than the slowest native band)'
+          % (min(r10), max(r10), full_blocks, full_blocks / max(r10),
+             full_blocks / min(r10), py_blocks, py_blocks / py_s,
+             min(rates.values()) / (py_blocks / py_s)))
+
+    phase('J1', 'ran %.1f s' % (time.perf_counter() - t_j))
+
+    # ---- J2: overviews ------------------------------------------------------
+    t_p = time.perf_counter()
+    for level in (0, 1):
+        for res in (10, 20):
+            ov = open_sentinel2_granule(
+                gdir, resolution=res, overview_level=level,
+                bands=[b for b in bands if bands[b]['resolution'] == res])
+            scale = res * 2 ** (level + 1)
+            x0 = float(ov['x'].values[0])
+            y0 = float(ov['y'].values[0])
+            check(ov.attrs['res'] == (float(scale), float(scale))
+                  and x0 == J_ULX + scale / 2 and y0 == J_ULY - scale / 2,
+                  'J2 grid', level, res, ov.attrs['res'], x0, y0)
+            for b in ov.data_vars:
+                row = bands[b]['reduce'][str(level + 1)]
+                check(list(ov[b].shape) == row['shape']
+                      and sha256(ov[b].values) == row['sha256']
+                      and ov[b].data.device.type == 'cuda',
+                      'J2 sha256', b, level)
+            phase('J2', 'overview_level=%d at %d m: %s %s, %g m pixels, '
+                  'first centre (%.1f, %.1f): equal to MANIFEST.json at '
+                  'reduce %d' % (level, res, sorted(ov.data_vars),
+                                 tuple(ov[b].shape), scale, x0, y0,
+                                 level + 1))
+
+    phase('J2', 'ran %.1f s' % (time.perf_counter() - t_p))
+
+    # ---- J3: rasterize --------------------------------------------------------
+    t_p = time.perf_counter()
+    ds10 = grids[10]
+    xs = np.asarray(ds10['x'].values)
+    ys = np.asarray(ds10['y'].values)
+    geoms, records, _ = read_shapefile(os.path.join(fixture,
+                                                    manifest['parcels']))
+    pairs = [(g, r['class']) for g, r in zip(geoms, records)]
+    labels = rasterize_values(pairs, xs, ys, fill=0, device=dev)
+    torch.cuda.synchronize()
+    labels_cpu = rasterize_values(pairs, xs, ys, fill=0, device=cpu)
+    check(labels.device.type == 'cuda' and torch.equal(labels.cpu(),
+                                                       labels_cpu),
+          'J3 parcels against the CPU')
+    small_ms = cuda_ms(lambda: rasterize_values(pairs, xs, ys, fill=0,
+                                                device=dev), reps=3,
+                       warmup=1)
+    counts = torch.bincount(labels_cpu.flatten(), minlength=5).tolist()
+    phase('J3', '%d parcels (%d multipart, %d with holes) rasterized onto '
+          'the %d x %d 10 m grid on the card in %.3f ms (median of 3): '
+          'bit-equal to the CPU route; pixels by class 0-4 %s'
+          % (len(geoms), sum(g.geom_type == 'MultiPolygon' for g in geoms),
+             sum(bool(getattr(g, 'interiors', [])) for g in geoms),
+             len(ys), len(xs), small_ms, counts))
+    tx = J_ULX + (np.arange(J_TILE) + 0.5) * 10.0
+    ty = J_ULY - (np.arange(J_TILE) + 0.5) * 10.0
+    polys = generate_test_polygons(J_PARCELS, extent=(
+        J_ULX, J_ULY - J_TILE * 10.0, J_ULX + J_TILE * 10.0, J_ULY),
+        random_seed=SEED)
+    ids = [(p, i + 1) for i, p in enumerate(polys)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    big = rasterize_values(ids, tx, ty, fill=0, dtype=np.int32, device=dev)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    big_cpu = rasterize_values(ids, tx, ty, fill=0, dtype=np.int32,
+                               device=cpu)
+    cpu_s = time.perf_counter() - t0
+    per_poly = torch.bincount(big.flatten().long(), minlength=J_PARCELS + 1)
+    per_poly_cpu = torch.bincount(big_cpu.flatten().long(),
+                                  minlength=J_PARCELS + 1)
+    check(torch.equal(per_poly.cpu(), per_poly_cpu),
+          'J3 per-polygon pixel counts against the CPU')
+    wrng = np.random.RandomState(SEED + 1)
+    for _ in range(J_WINDOWS):
+        i, j = wrng.randint(0, J_TILE - 512, 2)
+        check(torch.equal(big[i:i + 512, j:j + 512].cpu(),
+                          big_cpu[i:i + 512, j:j + 512]), 'J3 window', i, j)
+    check(torch.equal(big.cpu(), big_cpu), 'J3 whole raster')
+    wall, busy, events, top = profiled(
+        lambda: rasterize_values(ids, tx, ty, fill=0, dtype=np.int32,
+                                 device=dev))
+    burned = per_poly_cpu[1:]
+    phase('J3', '%d generate_test_polygons on the %d x %d 10 m grid of '
+          'T33UUP (%.0f-%.0f pixels a polygon, %d burned): %.1f ms by CUDA '
+          'events, %.1f ms by the host clock (one call); the CPU route '
+          '%.2f s; per-polygon counts, %d windows of 512 x 512 and the '
+          'whole int32 raster equal to the CPU route | under '
+          'torch.profiler wall %.1f ms, device busy %.1f ms (%.1f%%; the '
+          'host share %.1f%%), %d device events; top %s | %s'
+          % (J_PARCELS, J_TILE, J_TILE, float(burned.min()),
+             float(burned.max()), int(burned.sum()), event_ms, host_ms,
+             cpu_s, J_WINDOWS, wall, busy, 100.0 * busy / wall,
+             100.0 - 100.0 * busy / wall, events,
+             ', '.join('%s %.3f ms' % kv for kv in top), card))
+    del big, big_cpu
+
+    phase('J3', 'ran %.1f s' % (time.perf_counter() - t_p))
+
+    # ---- J4: classify -------------------------------------------------------
+    t_p = time.perf_counter()
+    coords = {'y': ys, 'x': xs}
+    feats = Dataset({b: (('y', 'x'), ds10[b].data.to(torch.float32))
+                     for b in J_FEATURES}, coords=coords, device=dev)
+    lab = DataArray(labels, dims=('y', 'x'), coords=coords, device=dev)
+    feats_cpu = Dataset({b: (('y', 'x'), feats[b].data.cpu())
+                         for b in J_FEATURES}, coords=coords, device=cpu)
+    lab_cpu = DataArray(labels_cpu, dims=('y', 'x'), coords=coords,
+                        device=cpu)
+    short = TorchClassifier(hidden=(16,), epochs=T2_CHECK_EPOCHS,
+                            lr=0.05).fit(feats, lab)
+    short_cpu = TorchClassifier(hidden=(16,), epochs=T2_CHECK_EPOCHS,
+                                lr=0.05).fit(feats_cpu, lab_cpu)
+    short_rel = 0.0
+    for pair, pair_cpu in zip(short.params, short_cpu.params):
+        for a, b in zip(pair, pair_cpu):
+            top_d = float((a.cpu() - b).abs().max())
+            scale = float(b.abs().max())
+            check(top_d <= 1e-4 * scale + 1e-6 and a.device.type == 'cuda',
+                  'J4 params at %d epochs' % T2_CHECK_EPOCHS, top_d, scale)
+            short_rel = max(short_rel, top_d / scale)
+    clf = TorchClassifier(hidden=(16,), epochs=T2_EPOCHS, lr=0.05)
+    clf.fit(feats, lab)
+    pred = clf.predict(feats)
+    torch.cuda.synchronize()
+    clf_cpu = TorchClassifier(hidden=(16,), epochs=T2_EPOCHS,
+                              lr=0.05).fit(feats_cpu, lab_cpu)
+    pred_cpu = clf_cpu.predict(feats_cpu)
+    full_rel = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                   for pair, pair_cpu in zip(clf.params, clf_cpu.params)
+                   for a, b in zip(pair, pair_cpu))
+    check(pred.data.device.type == 'cuda' and pred.dims == ('y', 'x'),
+          'J4 predictions', pred.data.device, pred.dims)
+    agree = float((pred.data.cpu() == pred_cpu.data).double().mean())
+    check(agree >= 0.999, 'J4 predictions against the CPU', agree)
+    known = labels > 0
+    accuracy = float((pred.data[known] == labels[known]).double().mean())
+    check(accuracy >= 0.9, 'J4 accuracy', accuracy)
+    fit_ms = cuda_ms(lambda: TorchClassifier(
+        hidden=(16,), epochs=T2_EPOCHS, lr=0.05).fit(feats, lab), reps=3,
+        warmup=1)
+    predict_ms = cuda_ms(lambda: clf.predict(feats))
+    cb = classifier_bound(int(known.sum()), len(J_FEATURES), (16,), 4,
+                          T2_EPOCHS)
+    phase('J4', 'TorchClassifier(hidden=(16,), epochs=%d, lr=0.05) on %s '
+          '(float32, %d x %d) with J3\'s labels (%d labelled pixels, 0 '
+          'dropped): at %d epochs params within %.3g of each tensor\'s '
+          'largest magnitude of the CPU fit (<= 1e-4, plus 1e-6); at %d '
+          'epochs %.3g, predictions of the whole grid equal to the CPU '
+          'fit\'s on %.5f%% of pixels (>= 99.9%%); accuracy on the labelled '
+          'pixels %.4f' % (T2_EPOCHS, list(J_FEATURES), len(ys), len(xs),
+                           int(known.sum()), T2_CHECK_EPOCHS, short_rel,
+                           T2_EPOCHS, full_rel, 100.0 * agree, accuracy))
+    phase('J4', 'fit %.3f ms (median of 3 after 1 warm-up), predict %.3f ms '
+          '(median of 7 after 2) | fit bound %.3f ms (%s), %.1f%% of it | %s'
+          % (fit_ms, predict_ms, cb[0], cb[1], 100.0 * cb[0] / fit_ms, card))
+    counts_j = read_counts()
+    check(not any(counts_j.values()), 'J1-J4 launched a kernel', counts_j)
+    phase('J4', 'ran %.1f s' % (time.perf_counter() - t_p))
+    phase('J', 'J1-J4 ran %.1f s, no kernel launched' % (
+        time.perf_counter() - t_j))
+    return counts_j
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -3131,10 +3449,15 @@ def main():
                                           read_counts, readme_filtered,
                                           readme_change, io_tmp)
 
+    # ---- J1-J4. a Sentinel-2 granule classified on rasterized parcels
+    counts_j = run_granule_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                  read_counts, root)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5, counts_t1,
-                                          counts_i2) + counts_s + counts_o)
+                                          counts_i2, counts_j) + counts_s
+                                         + counts_o)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

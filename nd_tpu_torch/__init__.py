@@ -5,16 +5,19 @@ series, and the georeferencing layer in front of them (CRS, reprojection,
 resampling and coregistration, with the ``ds.nd.*`` / ``ds.filter.*``
 accessors), the flagship model's training step, the classifiers
 (scikit-learn bridge and ``TorchClassifier``) and checkpoints
-(``nd_tpu_torch.models.checkpoint``), and the I/O (netCDF, GeoTIFF,
-ENVI, zarr, BEAM-DIMAP: ``open_dataset``, ``to_netcdf``,
-``nd_tpu_torch.io``) with lazy opens (``chunks=``), and tiling for
-cubes larger than memory (``nd_tpu_torch.tiling``: ``ds.nd.tile``,
-``map_over_tiles``, ``auto_merge``).
+(``nd_tpu_torch.models.checkpoint``), the I/O (netCDF, GeoTIFF,
+ENVI, zarr, BEAM-DIMAP, JPEG 2000 and Sentinel-2 granules:
+``open_dataset``, ``to_netcdf``, ``nd_tpu_torch.io``) with lazy opens
+(``chunks=``), tiling for cubes larger than memory
+(``nd_tpu_torch.tiling``: ``ds.nd.tile``, ``map_over_tiles``,
+``auto_merge``), and vector data rasterized onto a grid
+(``nd_tpu_torch.vector``, ``nd_tpu_torch.ops.rasterize``).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
 ``csrc/*.cu`` with nvcc at first use) or raises; on a CPU tensor it runs
-the kernel's plain PyTorch version.
+the kernel's plain PyTorch version. The JPEG 2000 decoder's Tier-1 is
+host C++ (``native/jp2_t1.cpp``), built with g++ at first use.
 """
 
 from .algorithm import Algorithm, parallelize, wrap_algorithm

@@ -8,8 +8,11 @@ each variable of a CUDA dataset to the host once. netCDF-4 needs
 ``h5py``; without it netCDF classic is read and written
 (:mod:`.netcdf`). ``chunks=`` opens netCDF and GeoTIFF files lazily
 (:mod:`.lazy`): nothing is read until it is used, and a slab read onto
-the card or written to another file reads only itself. Not ported yet:
-JPEG 2000 with the Sentinel-2 granule reader (ROADMAP item 18).
+the card or written to another file reads only itself. JPEG 2000
+(:mod:`.jp2`, with GeoJP2 georeferencing) opens through
+:func:`open_rasterio`, and a Sentinel-2 L1C granule (``MTD_TL.xml`` and
+``IMG_DATA/*.jp2``) through :func:`open_sentinel2_granule`; the decoder
+is host numpy with a native Tier-1 (:mod:`nd_tpu_torch.native`).
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ from ..core.variable import Variable
 from .zarr import open_zarr, to_zarr
 
 __all__ = ['open_dataset', 'open_netcdf', 'open_beam_dimap',
-           'open_rasterio', 'to_netcdf', 'to_geotiff', 'to_zarr',
-           'open_zarr', 'assemble_complex', 'disassemble_complex',
-           'add_time']
+           'open_rasterio', 'open_sentinel2_granule', 'to_netcdf',
+           'to_geotiff', 'to_zarr', 'open_zarr', 'assemble_complex',
+           'disassemble_complex', 'add_time']
 
 
 # --------------------
@@ -296,6 +299,190 @@ def _raster_dataarray(data, transform, crs, nodata, is_tiled, device=None):
                      attrs=attrs, device=device)
 
 
+# GeoJP2: a uuid box whose payload is a degenerate GeoTIFF carrying the
+# affine transform and the CRS (the convention GDAL writes and every
+# Sentinel-2 granule uses)
+_GEOJP2_UUID = bytes([0xb1, 0x4b, 0xf8, 0xbd, 0x08, 0x3d, 0x4b, 0x43,
+                      0xa5, 0xae, 0x8c, 0xd7, 0xd5, 0xa6, 0xce, 0x03])
+
+
+def _jp2_geo_box(path):
+    """(transform, crs) from a JP2's GeoJP2 uuid box, or (None, None)
+    where it has none or its GeoTIFF does not parse (the caller then
+    reads the world file and ``.prj``, as ``nd_tpu`` does)."""
+    import struct
+    import tempfile
+    from .geotiff import TiffFile
+    with open(path, 'rb') as fh:
+        buf = fh.read()
+    if buf[4:8] != b'jP  ':
+        return None, None
+    pos = 0
+    payload = None
+    while pos + 8 <= len(buf):
+        (lbox,) = struct.unpack('>I', buf[pos:pos + 4])
+        tbox = buf[pos + 4:pos + 8]
+        hdr = 8
+        if lbox == 1:
+            (lbox,) = struct.unpack('>Q', buf[pos + 8:pos + 16])
+            hdr = 16
+        elif lbox == 0:
+            lbox = len(buf) - pos
+        if tbox == b'uuid' \
+                and buf[pos + hdr:pos + hdr + 16] == _GEOJP2_UUID:
+            payload = buf[pos + hdr + 16:pos + lbox]
+            break
+        pos += lbox
+    if payload is None:
+        return None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        carrier = os.path.join(tmp, 'geojp2.tif')
+        with open(carrier, 'wb') as fh:
+            fh.write(payload)
+        try:
+            with TiffFile(carrier) as t:
+                return t.transform, t.crs
+        except (OSError, ValueError, struct.error):
+            return None, None
+
+
+def _open_jp2(path, overview_level=None, device=None):
+    """JPEG 2000 rasters through the built-in decoder (5/3 lossless and
+    9/7 lossy, :mod:`.jp2`), with GeoJP2 / world-file / .prj
+    georeferencing. ``overview_level`` k decodes the k-th dyadic
+    overview (half resolution at 0, the GeoTIFF reader's first-overview
+    convention): the DWT pyramid is the overview chain, so the decoder
+    stops the synthesis and skips Tier-1 for the dropped resolutions."""
+    from ..crs import Affine
+    from .jp2 import decode_jp2
+    reduce = 0 if overview_level is None else int(overview_level) + 1
+    arr = decode_jp2(str(path), reduce=reduce)
+    data = arr[None] if arr.ndim == 2 else np.moveaxis(arr, 2, 0)
+    transform, crs = _jp2_geo_box(path)
+    if transform is None:
+        transform = _read_world_file(path)
+    if crs is None:
+        crs = _read_prj_file(path)
+    if reduce and transform is not None:
+        s = float(1 << reduce)
+        t = transform
+        transform = Affine(t.a * s, t.b * s, t.c, t.d * s, t.e * s, t.f)
+    return _raster_dataarray(np.ascontiguousarray(data), transform, crs,
+                             nodata=None, is_tiled=0, device=device)
+
+
+def open_sentinel2_granule(path, resolution=None, bands=None,
+                           overview_level=None, device=None):
+    """Open a Sentinel-2 SAFE granule (the directory holding
+    ``MTD_TL.xml`` + ``IMG_DATA/``) as a Dataset on ``device`` (default
+    ``cuda``).
+
+    The granule XML supplies the geolocation (``Tile_Geocoding``: EPSG
+    code, per-resolution ULX/ULY/XDIM/YDIM and NROWS/NCOLS; parsed with
+    ElementTree) and the band JP2s decode through the built-in JPEG 2000
+    reader. A band's id is the last ``_`` field of its file stem.
+
+    Parameters
+    ----------
+    path : str
+        Granule directory, or the ``MTD_TL.xml`` path itself.
+    resolution : int, optional
+        Grid to load (10/20/60 m). Default: the finest present.
+    bands : list of str, optional
+        Band ids (e.g. ``['B02', 'B03']``). Default: every JP2 whose
+        shape matches the chosen grid; a named band of another shape
+        raises.
+    overview_level : int, optional
+        Dyadic overview to decode (0 = half resolution): the band JP2s'
+        DWT pyramids stop early and the grid scales to match.
+    """
+    import glob
+    import xml.etree.ElementTree as ET
+    from ..crs import CRS
+    from .jp2 import decode_jp2
+
+    path = str(path)
+    if os.path.isdir(path):
+        cands = sorted(glob.glob(os.path.join(path, 'MTD_TL.xml'))) \
+            or sorted(glob.glob(os.path.join(path, '*.xml')))
+        if not cands:
+            raise IOError('no granule XML found in %s' % path)
+        xml_path = cands[0]
+        gdir = path
+    else:
+        xml_path = path
+        gdir = os.path.dirname(path)
+
+    root = ET.parse(xml_path).getroot()
+
+    def _findall(tag):
+        return [e for e in root.iter() if e.tag.split('}')[-1] == tag]
+
+    epsg = None
+    for e in _findall('HORIZONTAL_CS_CODE'):
+        epsg = e.text.strip()
+        break
+    geo = {}
+    for e in _findall('Geoposition'):
+        geo[int(e.get('resolution'))] = {
+            c.tag.split('}')[-1]: float(c.text) for c in e}
+    sizes = {}
+    for e in _findall('Size'):
+        sizes[int(e.get('resolution'))] = {
+            c.tag.split('}')[-1]: int(c.text) for c in e}
+    if not geo:
+        raise IOError('granule XML carries no Geoposition')
+    if resolution is None:
+        resolution = min(geo)
+    if resolution not in geo:
+        raise ValueError('resolution %r not in granule (has %s)'
+                         % (resolution, sorted(geo)))
+    g = geo[resolution]
+    ulx, uly = g['ULX'], g['ULY']
+    xdim, ydim = g['XDIM'], g['YDIM']
+    reduce = 0 if overview_level is None else int(overview_level) + 1
+    if reduce:
+        xdim *= float(1 << reduce)
+        ydim *= float(1 << reduce)
+
+    jp2s = sorted(glob.glob(os.path.join(gdir, 'IMG_DATA', '*.jp2'))
+                  + glob.glob(os.path.join(gdir, 'IMG_DATA', '*', '*.jp2')))
+    if not jp2s:
+        raise IOError('no IMG_DATA JP2 bands under %s' % gdir)
+    exp = sizes.get(resolution)
+    if exp:
+        rd = 1 << reduce
+        exp = (-(-exp['NROWS'] // rd), -(-exp['NCOLS'] // rd))
+    data_vars = {}
+    ny = nx = None
+    want = set(bands) if bands is not None else None
+    for f in jp2s:
+        band_id = os.path.splitext(os.path.basename(f))[0].split('_')[-1]
+        if want is not None and band_id not in want:
+            continue
+        arr = decode_jp2(f, reduce=reduce)
+        if arr.ndim != 2:
+            continue
+        if exp and arr.shape != exp:
+            if want is not None:
+                raise ValueError('band %s is %r, not the %d m grid %r'
+                                 % (band_id, arr.shape, resolution, exp))
+            continue
+        data_vars[band_id] = (('y', 'x'), arr)
+        ny, nx = arr.shape
+    if not data_vars:
+        raise IOError('no bands matched the %d m grid' % resolution)
+
+    x = ulx + (np.arange(nx) + 0.5) * xdim
+    y = uly + (np.arange(ny) + 0.5) * ydim
+    attrs = {'transform': (xdim, 0.0, ulx, 0.0, ydim, uly),
+             'res': (abs(xdim), abs(ydim))}
+    if epsg:
+        attrs['crs'] = CRS.from_user_input(epsg).to_proj4()
+    return Dataset(data_vars, coords={'y': y, 'x': x}, attrs=attrs,
+                   device=device)
+
+
 def open_rasterio(path, chunks=None, overview_level=None, device=None,
                   *args, **kwargs):
     """Read a raster (GeoTIFF, or PNG/JPEG/BMP with world-file sidecars)
@@ -310,7 +497,9 @@ def open_rasterio(path, chunks=None, overview_level=None, device=None,
     windowed view (:class:`~nd_tpu_torch.io.lazy.LazyGeoTIFFArray`):
     nothing is decoded at open time, and a slice decodes only the strips
     or tiles its window touches. Plain images decode eagerly (they have
-    no windowed layout). JPEG 2000 raises until ROADMAP item 18.
+    no windowed layout). JPEG 2000 (``.jp2``, ``.j2k``, ``.jpc``,
+    ``.jpx``) decodes eagerly too and ignores ``chunks``; its
+    ``overview_level`` is a dyadic level of the wavelet pyramid.
     """
     from .geotiff import TiffFile
     ext = os.path.splitext(str(path))[1].lower()
@@ -318,9 +507,7 @@ def open_rasterio(path, chunks=None, overview_level=None, device=None,
         return _open_plain_image(path, overview_level=overview_level,
                                  device=device)
     if ext in _JP2_EXTS:
-        raise NotImplementedError(
-            'JPEG 2000 (%s) is not ported yet: the decoder comes with the '
-            'Sentinel-2 granule reader (ROADMAP item 18)' % ext)
+        return _open_jp2(path, overview_level=overview_level, device=device)
     if chunks is not None and overview_level is not None:
         raise ValueError(
             'pass either chunks= (lazy full-resolution view) or '

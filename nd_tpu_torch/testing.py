@@ -5,8 +5,10 @@ the same ``np.random.RandomState`` draws in the same order, so one seed
 gives the same cube (values, coordinates and geo metadata) in both
 packages. The numeric arrays land on ``device`` (default ``cuda``, as
 everywhere in the port). ``create_mock_classes`` builds the two-class
-cube of the classifier tests. The polygon helpers wait for the vector
-module (ROADMAP item 12). ``run_sampling_rss`` runs a process and
+cube of the classifier tests. ``random_polygon``,
+``generate_test_polygons`` and ``generate_test_geodataframe`` draw the
+same polygons (and, with pandas, the same table) from one seed as the
+JAX package's. ``run_sampling_rss`` runs a process and
 samples its resident set from outside (the out-of-core checks).
 """
 
@@ -19,8 +21,9 @@ from .core import DataArray, Dataset
 from .crs import CRS, Affine
 
 __all__ = ['generate_test_dataset', 'generate_test_dataarray',
-           'create_mock_classes', 'assert_equal_data', 'assert_equal_crs',
-           'run_sampling_rss']
+           'create_mock_classes', 'random_polygon', 'generate_test_polygons',
+           'generate_test_geodataframe', 'assert_equal_data',
+           'assert_equal_crs', 'run_sampling_rss']
 
 
 def _geo_attrs(extent, nx, ny, crs):
@@ -123,6 +126,59 @@ def create_mock_classes(dims={'y': 50, 'x': 50, 'time': 10},
         data[upper] += 10
         ds[v] = (ds[v].dims, data)
     return ds, labels
+
+
+def random_polygon(x=0, y=0, radius=1, irregularity=0.5, n=10,
+                   random_seed=None):
+    """A random simple polygon around (x, y)."""
+    rng = np.random.RandomState(random_seed)
+    angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+    radii = radius * (1 + irregularity * (rng.uniform(size=n) - 0.5))
+    xs = x + radii * np.cos(angles)
+    ys = y + radii * np.sin(angles)
+    from .vector.geometry import Polygon
+    return Polygon(zip(xs, ys))
+
+
+def generate_test_polygons(n=10, extent=(-10.0, 50.0, 0.0, 60.0),
+                           random_seed=None):
+    """Random, pairwise non-overlapping polygons inside ``extent``: one
+    in each of ``n`` cells of a jittered grid."""
+    rng = np.random.RandomState(random_seed)
+    lon_min, lat_min, lon_max, lat_max = extent
+    grid = int(np.ceil(np.sqrt(n)))
+    cw = (lon_max - lon_min) / grid
+    ch = (lat_max - lat_min) / grid
+    polys = []
+    cells = [(i, j) for i in range(grid) for j in range(grid)]
+    rng.shuffle(cells)
+    for (i, j) in cells[:n]:
+        cx = lon_min + (j + 0.5) * cw
+        cy = lat_min + (i + 0.5) * ch
+        polys.append(random_polygon(
+            cx, cy, radius=0.35 * min(cw, ch), n=8,
+            random_seed=rng.randint(2 ** 31)))
+    return polys
+
+
+def generate_test_geodataframe(n=10, extent=(-10.0, 50.0, 0.0, 60.0),
+                               crs='epsg:4326', random_seed=None):
+    """A random polygon table (pandas) with categorical/float/int/date
+    columns and its CRS in ``df.attrs['crs']``."""
+    import pandas as pd
+    rng = np.random.RandomState(random_seed)
+    polys = generate_test_polygons(n=n, extent=extent,
+                                   random_seed=random_seed)
+    df = pd.DataFrame({
+        'category': rng.choice(['forest', 'water', 'urban'], n),
+        'float': rng.uniform(0, 1, n),
+        'integer': rng.randint(0, 100, n),
+        'date': pd.to_datetime('2020-01-01')
+        + pd.to_timedelta(rng.randint(0, 3, n), unit='D'),
+    })
+    df['geometry'] = polys
+    df.attrs['crs'] = CRS.from_user_input(crs)
+    return df
 
 
 def assert_equal_data(ds1, ds2, rtol=1e-7, atol=0):

@@ -10,8 +10,8 @@ Catmull-Rom translation (``ops.fft``). The grid convention: the
 coordinate of pixel (row, col) is ``transform * (col, row)``.
 
 ``Alignment`` reprojects products onto one shared grid and writes each
-to netCDF (``io.to_netcdf``). ``get_geometry`` (it builds vector
-geometry) waits for ROADMAP item 12 and raises.
+to netCDF (``io.to_netcdf``). ``get_geometry`` gives the grid's
+bounding box as a polygon of :mod:`nd_tpu_torch.vector`.
 """
 
 from __future__ import annotations
@@ -196,13 +196,17 @@ def get_extent(ds):
 
 
 def get_geometry(ds, crs={'init': 'epsg:4326'}):
-    """Bounding-box polygon of the dataset in the given CRS.
+    """Bounding-box polygon of the dataset in the given CRS."""
+    from .vector.geometry import box, transform_geom
+    src_geometry = box(*get_bounds(ds))
+    src_crs = get_crs(ds)
+    dst_crs = _parse_crs(crs)
 
-    Not ported yet: it builds a polygon with the vector module, ROADMAP
-    item 12."""
-    raise NotImplementedError(
-        'get_geometry needs the vector module, which is not ported yet '
-        '(ROADMAP item 12); get_bounds and transform_bounds give the box')
+    def project(xs, ys):
+        return transform_coords(src_crs, dst_crs, np.asarray(xs),
+                                np.asarray(ys), xp=np)
+
+    return transform_geom(project, src_geometry)
 
 
 # ---------------------------------------

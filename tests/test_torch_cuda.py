@@ -1559,3 +1559,75 @@ def test_map_over_tiles_workers_give_the_same_bytes(cuda, tmp_path):
     for name in names:
         _bit_equal(*(ndt.open_dataset(str(tmp_path / d / name), device='cpu')
                      for d in ('out4', 'out1')))
+
+
+# ---- the granule and the vector layer ----------------------------------------
+
+def _fixture_grid():
+    from torch_s2_fixture import grid
+    return grid(10)
+
+
+def test_polygon_masks_on_the_card_equal_the_cpu(cuda):
+    """Seeded polygons, one with a hole, a multipolygon and one with its
+    vertices on pixel centres, over a descending-y UTM grid: the card's
+    masks bit-equal to the CPU's, on the card."""
+    from nd_tpu_torch.ops.rasterize import polygon_mask
+    from nd_tpu_torch.testing import generate_test_polygons
+    from nd_tpu_torch.vector.geometry import MultiPolygon, Polygon
+    xs, ys = _fixture_grid()
+    xs, ys = xs[:400], ys[:300]
+    extent = (xs[0], ys[-1], xs[-1], ys[0])
+    polys = generate_test_polygons(30, extent=extent, random_seed=11)
+    a, b = polys[0], polys[1]
+    polys.append(Polygon(a.exterior.coords,
+                         [[(x * 0.5 + 0.5 * a.centroid.x,
+                            y * 0.5 + 0.5 * a.centroid.y)
+                           for x, y in a.exterior.coords[::-1]]]))
+    polys.append(MultiPolygon([a, b]))
+    polys.append(Polygon([(xs[10], ys[10]), (xs[90], ys[10]),
+                          (xs[50], ys[80])]))
+    for geom in polys:
+        got = polygon_mask(geom, xs, ys, device=cuda)
+        assert got.device.type == 'cuda' and got.dtype == torch.bool
+        want = polygon_mask(geom, xs, ys, device='cpu')
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(polygon_mask(geom, torch.as_tensor(xs,
+                                        device=cuda), ys).cpu(), want)
+
+
+def test_rasterize_values_on_the_card_equals_the_cpu(cuda):
+    """The committed parcels' classes burned on the fixture's 10 m grid:
+    the card's raster bit-equal to the CPU's; vector.rasterize of the
+    shapefile onto a granule opened on the card likewise."""
+    from torch_s2_fixture import GRANULE, OUT
+    from nd_tpu_torch.io import open_sentinel2_granule
+    from nd_tpu_torch.ops.rasterize import rasterize_values
+    from nd_tpu_torch.vector import read_shapefile
+    geoms, records, _ = read_shapefile(os.path.join(OUT, 'parcels.shp'))
+    pairs = [(g, r['class']) for g, r in zip(geoms, records)]
+    xs, ys = _fixture_grid()
+    got = rasterize_values(pairs, xs, ys, fill=0, device=cuda)
+    want = rasterize_values(pairs, xs, ys, fill=0, device='cpu')
+    assert got.device.type == 'cuda' and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want) and int(want.max()) == 4
+    got_f = rasterize_values(pairs, xs, ys, fill=np.nan, device=cuda)
+    want_f = rasterize_values(pairs, xs, ys, fill=np.nan, device='cpu')
+    assert torch.equal(got_f.cpu().isnan(), want_f.isnan())
+    assert torch.equal(torch.nan_to_num(got_f.cpu()),
+                       torch.nan_to_num(want_f))
+    g = open_sentinel2_granule(os.path.join(OUT, GRANULE), bands=['B04'])
+    assert g['B04'].data.device.type == 'cuda'
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        return                    # vector.rasterize builds a DataFrame
+    from nd_tpu_torch.vector import rasterize
+    layer = rasterize(os.path.join(OUT, 'parcels.shp'), g,
+                      columns=['class'])
+    assert layer['class'].data.device.type == 'cuda'
+    on_cpu = rasterize(os.path.join(OUT, 'parcels.shp'),
+                       open_sentinel2_granule(os.path.join(OUT, GRANULE),
+                                              bands=['B04'], device='cpu'),
+                       columns=['class'])
+    assert torch.equal(layer['class'].data.cpu(), on_cpu['class'].data)

@@ -393,19 +393,46 @@ def test_open_netcdf_renames_lat_lon(tmp_path):
                      jio.open_netcdf(p, rename_latlon=rename))
 
 
-def test_jp2_raises_naming_its_item(tmp_path):
+def test_jp2_non_jpeg2000_raises_decoder_error(tmp_path):
+    """A .jp2 that is no JPEG 2000 raises the decoder's own error, as in
+    nd_tpu (open_dataset wraps it in an IOError)."""
+    from nd_tpu.io.jp2 import Jp2Error as JErr
+    from nd_tpu_torch.io.jp2 import Jp2Error
     p = str(tmp_path / 'b.jp2')
     with open(p, 'wb') as fh:
         fh.write(b'\0' * 16)
-    with pytest.raises(NotImplementedError, match='ROADMAP item 18'):
-        tio.open_rasterio(p)
-    with pytest.raises(IOError, match='ROADMAP item 18'):
-        tio.open_dataset(p)
+    with pytest.raises(Jp2Error, match='not a JP2 file') as got:
+        tio.open_rasterio(p, device='cpu')
+    with pytest.raises(JErr) as want:
+        jio.open_rasterio(p)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(IOError, match='not a JP2 file'):
+        tio.open_dataset(p, device='cpu')
+
+
+def test_open_rasterio_jp2_equals_nd_tpu(tmp_path):
+    """open_rasterio opens a .jp2 (reversible, world file and .prj
+    sidecars) equal to nd_tpu's, at full resolution and as an
+    overview."""
+    pil = pytest.importorskip('PIL.Image')
+    rng = np.random.RandomState(7)
+    a = rng.randint(0, 4096, (40, 52), dtype=np.uint16)
+    p = str(tmp_path / 'scene.jp2')
+    pil.fromarray(a).save(p, irreversible=False)
+    with open(str(tmp_path / 'scene.j2w'), 'w') as fh:
+        fh.write('10.0\n0.0\n0.0\n-10.0\n300005.0\n5500015.0\n')
+    with open(str(tmp_path / 'scene.prj'), 'w') as fh:
+        fh.write(ndt.CRS.from_epsg(32633).to_wkt())
+    for level in (None, 0):
+        got = tio.open_rasterio(p, overview_level=level, device='cpu')
+        same_dataset(got, jio.open_rasterio(p, overview_level=level))
+    np.testing.assert_array_equal(
+        tio.open_rasterio(p, device='cpu').values[0], a)
 
 
 BLOCKED = textwrap.dedent('''
     import sys
-    for name in ('h5py', 'pandas', 'lxml', 'cv2', 'zstandard'):
+    for name in ('h5py', 'pandas', 'lxml', 'cv2', 'zstandard', 'PIL'):
         sys.modules[name] = None          # the card's machine has none
     import importlib, os, pkgutil
     import numpy as np
@@ -466,18 +493,43 @@ BLOCKED = textwrap.dedent('''
     assert np.array_equal(merged['C11'].values, ds['C11'].values * 2)
     again = auto_merge(os.path.join(out, 'doubled', '*.nc'), device='cpu')
     assert np.array_equal(again['C12__im'].values, c12.imag * 2)
-    print('ok', sorted(d.data_vars), str(d['time'].values[0]))
+    import json
+    from nd_tpu_torch.io import open_sentinel2_granule
+    from nd_tpu_torch.ops.rasterize import rasterize_values
+    import nd_tpu_torch.vector as vector
+    s2 = sys.argv[3]
+    with open(os.path.join(s2, 'MANIFEST.json')) as fh:
+        manifest = json.load(fh)
+    g = open_sentinel2_granule(os.path.join(s2, manifest['granule']),
+                               device='cpu')
+    import hashlib
+    for b in g.data_vars:
+        assert hashlib.sha256(np.ascontiguousarray(g[b].values).tobytes()
+                              ).hexdigest() == \
+            manifest['bands'][b]['reduce']['0']['sha256'], b
+    geoms, records, _ = vector.read_shapefile(
+        os.path.join(s2, manifest['parcels']))
+    labels = rasterize_values(
+        [(geom, r['class']) for geom, r in zip(geoms, records)],
+        g['x'].values, g['y'].values, device='cpu')
+    assert labels.shape == (1098, 1098) and int(labels.max()) == 4
+    print('ok', sorted(d.data_vars), str(d['time'].values[0]),
+          sorted(g.data_vars), int((labels > 0).sum()))
 ''')
 
 
 def test_io_runs_without_h5py_pandas_lxml_cv2_zstandard(tmp_path):
+    """The card machine's modules: the I/O, the lazy opens and tiling,
+    and (with PIL blocked too) the committed Sentinel-2 granule, the
+    vector module's import, read_shapefile and rasterize_values."""
     from test_torch_dimap import write_dimap
+    from torch_s2_fixture import OUT as s2
     dimap = write_dimap(tmp_path / 'product', tie_points=False)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + os.environ.get('PYTHONPATH', '').split(os.pathsep)))
     proc = subprocess.run([sys.executable, '-c', BLOCKED, str(tmp_path),
-                           dimap], capture_output=True, text=True, env=env,
+                           dimap, s2], capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith('ok'), proc.stdout

@@ -329,10 +329,15 @@ def test_getters_match_jax():
     assert tuple(got[0]) == tuple(want[0]) and got[1:] == want[1:]
 
 
-def test_get_geometry_raises_naming_its_item():
-    _, t = _pair()
-    with pytest.raises(NotImplementedError, match='ROADMAP item 12'):
-        T.get_geometry(t)
+def test_get_geometry_matches_jax():
+    """get_geometry is the grid's box as nd_tpu builds it."""
+    from nd_tpu.vector.geometry import mapping as jmapping
+    from nd_tpu_torch.vector.geometry import mapping as tmapping
+    j, t = _pair()
+    for crs in ({'init': 'epsg:4326'}, 'epsg:3035'):
+        got, want = T.get_geometry(t, crs=crs), J.get_geometry(j, crs=crs)
+        assert got.geom_type == want.geom_type == 'Polygon'
+        assert tmapping(got) == jmapping(want)
 
 
 def _products(tmp_path):
