@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
-training path, its dated-stack path, its I/O, its tiling and its
-Sentinel-2 granule and vector path once on one CUDA device.
+training path, its dated-stack path, its I/O, its tiling, its device
+mesh and its Sentinel-2 granule and vector path once on one CUDA
+device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -260,6 +261,48 @@ and lazy opens and tiling, from I1's and I3's files:
      millisecond, ``testing.run_sampling_rss``) less than half the
      cube's bytes over its baseline after the imports and one warm tile,
      the pass in MB/s; the files are deleted.
+
+and the device mesh (``nd_tpu_torch.parallel``), a (2, 2) mesh that
+names the card four times (a mesh may name a device more than once),
+after O1-O4 in their temporary directory:
+
+ P1. ``apply_sharded`` against the unsharded apply on the bench cube's
+     Dataset: BoxcarFilter(w=3), GaussianFilter(sigma=1.5), a random
+     3 x 3 ConvolutionFilter (the stencil), NLMeansFilter(r=2, f=1,
+     sigma=2, h=3); the halo modes reflect (mirror), edge (nearest),
+     constant with cval 1.5 and wrap (w=5, 1024 divides the mesh); the
+     boxcar, the stencil and NLMeans on a 1023 x 1021 cut that divides
+     neither axis; ``shard_apply`` of the multilook. Convolutions max
+     abs diff 0, NLMeans within rtol 1e-5, atol 1e-6 (its largest
+     difference printed); four times the unsharded call's launches, one
+     a block; the halo bytes exchanged; sharded and unsharded times
+     (CUDA events, median of 7);
+ P2. the README chain sharded: ``apply_sharded(NLMeansFilter(r=2, f=1,
+     sigma=2, h=3))`` then ``sharded_change_detection(alpha=0.01, ml=3)``
+     on the (2, 2) mesh and on ``get_mesh()`` (1 x 1, the card), counted:
+     0 mismatches to the serial ``OmnibusTest(ml=3, alpha=0.01)`` of the
+     same filtered cube and to phase 6's map; timed beside the unsharded
+     chain;
+ P3. path A's 3-D NLMeans, ``NLMeansFilter(dims=('y','x','time'), r=(2,
+     2,1), f=1)``, sharded over the whole long stack (not cut), counted:
+     within rtol 1e-5, atol 1e-6 of the unsharded apply, timed beside it;
+ P4. ``SARChangePipeline.train_step(mesh=...)`` and ``make_sharded_step``
+     on the bench cube with T1's labels: loss within rtol 1e-6 and
+     parameters within rtol 1e-5 / atol 1e-7 of the one-device step
+     (``tests/test_models.py``'s tolerances), one sepconv launch a block
+     and no other kernel; three steps, each held the same way; the
+     sharded step's time beside the one-device step's;
+ P5. two processes on the card (``sys.executable``, ``chip_smoke.p5_worker``,
+     300 s for both), a gloo group on 127.0.0.1 (NCCL takes no two ranks
+     on one card): ``initialize``, ``global_mesh()`` of (2, 1), each rank
+     reads only its half of I1's ``stack.nc`` (``chunks={}`` and an
+     ``isel``; the bytes read counted), ``cube_from_process_tiles``, the
+     cube's sum through ``all_reduce_sum`` against the whole cube's (rtol
+     1e-9), then ``shard_apply`` of the multilook (sepconv) and of NLMeans
+     r=2/f=1 with the halo rows sent between the processes through host
+     memory: each rank's block equal to the single process's multilook
+     (max abs diff 0) and within rtol 1e-5, atol 1e-6 of its NLMeans. A
+     failed or timed-out worker fails the phase.
 
 and a Sentinel-2 granule classified on rasterized parcels (the
 committed fixture ``tests/data/torch_s2``: an L1C granule of a tenth of
@@ -2487,6 +2530,351 @@ def run_granule_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return counts_j
 
 
+P_MESH = (2, 2)             # P1-P4: the mesh, every position on the card
+P_ODD = (1023, 1021)        # P1: the grid that divides neither mesh axis
+P_TIMEOUT = 300             # P5: seconds both worker processes may take
+
+
+def p5_worker(rank, port, path, out_dir):
+    """One of P5's two processes: a gloo group on 127.0.0.1, both on the
+    card. Reads only this process's half of ``path`` (a lazy open and an
+    ``isel``), holds it as its mesh position's block, sums the cube
+    across the processes, runs the multilook (sepconv) and NLMeans r=2,
+    f=1 through ``shard_apply`` with the halo rows sent between the
+    processes, saves its blocks to ``out_dir`` and prints a JSON line."""
+    import torch
+    import nd_tpu_torch as ndt
+    from nd_tpu_torch.io.lazy import LazyNetCDFArray
+    from nd_tpu_torch.ops import conv_cuda, nlmeans_cuda
+    from nd_tpu_torch.ops.nlmeans import nlmeans
+    from nd_tpu_torch.parallel import distributed, halo, shard_apply
+
+    rank = int(rank)
+    dev = torch.device(DEVICE)
+    distributed.initialize('127.0.0.1:' + port, num_processes=2,
+                           process_id=rank, backend='gloo',
+                           local_devices=[dev])
+    mesh = distributed.global_mesh()
+    check(dict(mesh.shape) == {'y': 2, 'x': 1}, 'P5 mesh', mesh.shape)
+    shape = (NY, NX, K, 4)
+    sl = distributed.host_local_slices(mesh, shape)
+    reads = []
+    materialize = LazyNetCDFArray._materialize
+
+    def counted(self, key):
+        out = materialize(self, key)
+        reads.append(out.nbytes)
+        return out
+    LazyNetCDFArray._materialize = counted
+    part = ndt.open_dataset(path, chunks={}).isel(y=sl['y'], x=sl['x'])
+    tile = torch.stack([part[n].data for n in O_NAMES], -1)
+    LazyNetCDFArray._materialize = materialize
+    cube = distributed.cube_from_process_tiles(tile, mesh, shape)
+    total = distributed.all_reduce_sum(torch.stack(
+        [b.double().sum() for b in cube.blocks.values()]).sum().reshape(1))
+    conv_cuda.reset_launches()
+    nlmeans_cuda.reset_launches()
+    halo.reset_halo_bytes()
+    looked = shard_apply(lambda x: ndt.multilook(x, 3), cube, mesh,
+                         {'y': (0, 1), 'x': (1, 1)}, mode='symmetric')
+    filtered = shard_apply(
+        lambda x: nlmeans(x, (2, 2, 0), (1, 1, 0), 2.0, 3.0), cube, mesh,
+        {'y': (0, 3), 'x': (1, 3)}, mode='reflect')
+    torch.cuda.synchronize()
+    launches = {'sepconv': conv_cuda.launches,
+                'nlmeans': nlmeans_cuda.launches}
+    exchanged = halo.halo_bytes
+    (shard,) = looked.addressable_shards
+    (nl_shard,) = filtered.addressable_shards
+    np.save(os.path.join(out_dir, 'ml_%d.npy' % rank), shard.data.cpu().numpy())
+    np.save(os.path.join(out_dir, 'nl_%d.npy' % rank),
+            nl_shard.data.cpu().numpy())
+    torch.distributed.destroy_process_group()
+    print(json.dumps({
+        'rank': rank, 'rows': [shard.index[0].start, shard.index[0].stop],
+        'slices': {k: [v.start, v.stop] for k, v in sl.items()},
+        'read_bytes': sum(reads), 'sum': float(total[0]),
+        'launches': launches, 'halo_bytes': exchanged}), flush=True)
+    return 0
+
+
+def run_sharded_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                       cube, stack, labels, readme_change, tmp):
+    """P1-P5: the device mesh on the card. P1 ``shard_apply`` and
+    ``apply_sharded`` on a (2, 2) mesh of the card against the unsharded
+    calls, P2 the sharded README chain, P3 path A's 3-D NLMeans sharded
+    over the long stack, P4 the sharded training step, P5 two processes
+    on the card sharing the quick start's file through gloo. Returns the
+    launches of P1-P5."""
+    import socket
+    import torch
+    from nd_tpu_torch.core import Dataset
+    from nd_tpu_torch.ops import nlmeans_cuda
+    from nd_tpu_torch.parallel import (apply_sharded, get_mesh, halo,
+                                       shard_apply, sharded_change_detection)
+
+    t_p = time.perf_counter()
+    mesh = get_mesh(P_MESH, devices=[dev] * int(np.prod(P_MESH)))
+    one = get_mesh()
+    check(set(mesh.devices.reshape(-1)) == {dev} and one.size
+          == torch.cuda.device_count(), 'P meshes', mesh, one)
+    names = O_NAMES
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(names)})
+    counts = []
+
+    def max_diff(got, ref):
+        if isinstance(ref, torch.Tensor):
+            return float((got - ref).abs().max())
+        return max(float((got[v].data - ref[v].data).abs().max())
+                   for v in ref.data_vars)
+
+    # ---- P1: shard_apply and apply_sharded against the unsharded calls ----
+    rng = np.random.RandomState(SEED)
+    k33 = rng.rand(3, 3)                      # rank 3: the stencil kernel
+    odd = ds.isel(y=slice(0, P_ODD[0]), x=slice(0, P_ODD[1]))
+    cases = [
+        ('boxcar w=3', ndt.BoxcarFilter(w=3), ds),
+        ('gaussian sigma=1.5', ndt.GaussianFilter(sigma=1.5), ds),
+        ('convolution 3x3', ndt.ConvolutionFilter(kernel=k33), ds),
+        ('nlmeans r=2 f=1', ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3), ds),
+        ('boxcar mirror (halo reflect)', ndt.BoxcarFilter(w=3, mode='mirror'),
+         ds),
+        ('boxcar nearest (halo edge)', ndt.BoxcarFilter(w=3, mode='nearest'),
+         ds),
+        ('boxcar constant cval=1.5',
+         ndt.BoxcarFilter(w=3, mode='constant', cval=1.5), ds),
+        ('boxcar wrap', ndt.BoxcarFilter(w=5, mode='wrap'), ds),
+        ('boxcar w=3 %dx%d' % P_ODD, ndt.BoxcarFilter(w=3), odd),
+        ('convolution 3x3 %dx%d' % P_ODD, ndt.ConvolutionFilter(kernel=k33),
+         odd),
+        ('nlmeans r=2 f=1 %dx%d' % P_ODD,
+         ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3), odd),
+    ]
+    p1 = {name: 0 for name in KERNELS}
+    for label, algo, src in cases:
+        reset_counts()
+        ref = algo.apply(src)
+        torch.cuda.synchronize()
+        serial = read_counts()
+        reset_counts()
+        halo.reset_halo_bytes()
+        got = apply_sharded(algo, src, mesh)
+        torch.cuda.synchronize()
+        sharded = read_counts()
+        for name in KERNELS:
+            p1[name] += sharded[name]
+        ran = {n: c for n, c in sharded.items() if c}
+        check(ran and all(sharded[n] == 4 * serial[n] for n in KERNELS),
+              'P1 a launch a block', label, serial, sharded)
+        diff = max_diff(got, ref)
+        check(diff == 0, 'P1 sharded != unsharded', label, diff)
+        phase('P1', 'apply_sharded %s on %s: max abs diff %.3g to the '
+              'unsharded apply; launches %s (4 x the unsharded); halo bytes '
+              '%d' % (label, dict(src.sizes), diff, json.dumps(ran),
+                      halo.halo_bytes))
+    reset_counts()
+    halo.reset_halo_bytes()
+    ml_axes = {'y': (0, 1), 'x': (1, 1)}
+    got = shard_apply(lambda x: ndt.multilook(x, 3), cube, mesh, ml_axes)
+    torch.cuda.synchronize()
+    ran = read_counts()
+    for name in KERNELS:
+        p1[name] += ran[name]
+    diff = max_diff(got, ndt.multilook(cube, 3))
+    check(diff == 0 and ran['sepconv'] == 4, 'P1 shard_apply multilook',
+          diff, ran)
+    phase('P1', 'shard_apply(multilook) of the bench cube %s: max abs diff '
+          '%.3g, %d sepconv launches, halo bytes %d'
+          % (tuple(cube.shape), diff, ran['sepconv'], halo.halo_bytes))
+    counts.append(p1)
+    for label, algo, src in cases[:4]:
+        s_ms = cuda_ms(lambda: apply_sharded(algo, src, mesh))
+        u_ms = cuda_ms(lambda: algo.apply(src))
+        phase('P1', '%s: sharded %.3f ms, unsharded %.3f ms (x%.2f; CUDA '
+              'events, median of 7) | %s' % (label, s_ms, u_ms, s_ms / u_ms,
+                                             card))
+    s_ms = cuda_ms(lambda: shard_apply(lambda x: ndt.multilook(x, 3), cube,
+                                       mesh, ml_axes))
+    u_ms = cuda_ms(lambda: ndt.multilook(cube, 3))
+    phase('P1', 'multilook: shard_apply %.3f ms, unsharded %.3f ms (x%.2f) '
+          '| %s' % (s_ms, u_ms, s_ms / u_ms, card))
+
+    # ---- P2: the README chain sharded, counted -----------------------------
+    nlm = ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.01)
+    reset_counts()
+    halo.reset_halo_bytes()
+    flt_s = apply_sharded(nlm, ds, mesh)
+    ch22 = sharded_change_detection(flt_s, alpha=0.01, ml=3, mesh=mesh)
+    torch.cuda.synchronize()
+    p2 = read_counts()
+    exchanged = halo.halo_bytes
+    check(all(p2[n] > 0 for n in ('nlmeans', 'sepconv', 'omnibus',
+                                  'omnibus_mixed')), 'P2 kernels', p2)
+    counts.append(p2)
+    ch11 = sharded_change_detection(flt_s, alpha=0.01, ml=3, mesh=one)
+    serial = omn.apply(flt_s)
+    flt_u = nlm.apply(ds)
+    for label, got in (('(2, 2) mesh', ch22), ('get_mesh() %s'
+                                               % dict(one.shape), ch11)):
+        m_serial = int((got.data != serial.data).sum())
+        m_six = int((got.data != readme_change).sum())
+        check(got.dims == ('y', 'x', 'time') and got.data.device == cube.device
+              and m_serial == 0 and m_six == 0, 'P2 change map', label,
+              m_serial, m_six)
+        phase('P2', 'sharded_change_detection on the %s: %d mismatches to '
+              'the serial OmnibusTest, %d to phase 6\'s map; %d changes'
+              % (label, m_serial, m_six, int(got.data.sum())))
+    phase('P2', 'the sharded NLMeans against phase 6\'s: max abs diff %.3g; '
+          'launches %s; halo bytes %d' % (max_diff(flt_s, flt_u),
+                                          json.dumps(p2), exchanged))
+    s_ms = cuda_ms(lambda: sharded_change_detection(
+        apply_sharded(nlm, ds, mesh), alpha=0.01, ml=3, mesh=mesh))
+    u_ms = cuda_ms(lambda: omn.apply(nlm.apply(ds)))
+    phase('P2', 'README chain sharded %.3f ms, unsharded %.3f ms (x%.2f; '
+          'CUDA events, median of 7) | %s' % (s_ms, u_ms, s_ms / u_ms, card))
+    del flt_s, flt_u, ch22, ch11, serial
+
+    # ---- P3: path A's 3-D NLMeans sharded over the long stack -------------
+    ds_long = Dataset({v: (('y', 'x', 'time'), stack[..., i])
+                       for i, v in enumerate(names)})
+    nlm3 = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1,
+                             sigma=2, h=3)
+    ref = nlm3.apply(ds_long)
+    reset_counts()
+    halo.reset_halo_bytes()
+    got = apply_sharded(nlm3, ds_long, mesh)
+    torch.cuda.synchronize()
+    p3 = read_counts()
+    check(p3['nlmeans_3d'] == 4, 'P3 launches', p3)
+    counts.append(p3)
+    diff = max_diff(got, ref)
+    check(diff == 0, 'P3 sharded != unsharded', diff)
+    phase('P3', 'apply_sharded(NLMeansFilter(dims=(y, x, time), r=(2, 2, '
+          '1), f=1)) on the long stack %s (not cut): max abs diff %.3g to '
+          'the unsharded apply; launches %s; '
+          'halo bytes %d' % (tuple(stack.shape), diff, json.dumps(
+              {n: c for n, c in p3.items() if c}), halo.halo_bytes))
+    del got, ref
+    s_ms = cuda_ms(lambda: apply_sharded(nlm3, ds_long, mesh), 3, 1)
+    u_ms = cuda_ms(lambda: nlm3.apply(ds_long), 3, 1)
+    phase('P3', 'sharded %.3f ms, unsharded %.3f ms (x%.2f; CUDA events, '
+          'median of 3) | %s' % (s_ms, u_ms, s_ms / u_ms, card))
+    del ds_long
+
+    # ---- P4: the sharded training step --------------------------------------
+    model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9)
+    p0 = model.init_params(seed=0)
+    ref_p, ref_l = model.train_step(p0, cube, labels)
+    reset_counts()
+    got_p, got_l = model.train_step(p0, cube, labels, mesh=mesh)
+    step, data_sh, label_sh = model.make_sharded_step(mesh, shape=(NY, NX))
+    vals_s, labs_s = data_sh.place(cube), label_sh.place(labels)
+    st_p, st_l = step(p0, vals_s, labs_s)
+    torch.cuda.synchronize()
+    p4 = read_counts()
+    check(p4['sepconv'] == 8 and sum(p4.values()) == 8, 'P4 launches', p4)
+    counts.append(p4)
+
+    def hold(label, p, loss, rp, rl):
+        l_rel = abs(float(loss) - float(rl)) / abs(float(rl))
+        p_ok = all(allclose(p[k], rp[k], 1e-5, 1e-7)[0]
+                   for k in ('w', 'b'))
+        check(l_rel <= 1e-6 and p_ok, 'P4', label, l_rel)
+        return l_rel, max(float((p[k] - rp[k]).abs().max())
+                          for k in ('w', 'b'))
+    for label, p, loss in (('train_step(mesh=)', got_p, got_l),
+                           ('make_sharded_step', st_p, st_l)):
+        l_rel, p_abs = hold(label, p, loss, ref_p, ref_l)
+        phase('P4', '%s on the (2, 2) mesh: loss %.7f (one device %.7f, '
+              'rel diff %.3g <= 1e-6), params max abs diff %.3g (rtol 1e-5, '
+              'atol 1e-7 held)' % (label, float(loss), float(ref_l), l_rel,
+                                   p_abs))
+    ps, pu = p0, p0
+    for i in range(3):
+        ps, ls = step(ps, vals_s, labs_s)
+        pu, lu = model.train_step(pu, cube, labels)
+        l_rel, p_abs = hold('step %d' % (i + 1), ps, ls, pu, lu)
+        phase('P4', 'step %d: loss %.7f sharded, %.7f one device (rel diff '
+              '%.3g), params max abs diff %.3g' % (i + 1, float(ls),
+                                                   float(lu), l_rel, p_abs))
+    s_ms = cuda_ms(lambda: step(p0, vals_s, labs_s))
+    u_ms = cuda_ms(lambda: model.train_step(p0, cube, labels))
+    phase('P4', 'sharded step %.3f ms, one-device step (T1\'s call) %.3f ms '
+          '(x%.2f; CUDA events, median of 7) | %s'
+          % (s_ms, u_ms, s_ms / u_ms, card))
+    del vals_s, labs_s
+
+    # ---- P5: two processes on the card, gloo ---------------------------------
+    path = os.path.join(tmp, 'stack.nc')
+    out_dir = os.path.join(tmp, 'p5')
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = str(s.getsockname()[1])
+    code = ('import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; '
+            'sys.exit(chip_smoke.p5_worker(*sys.argv[2:]))')
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, '-c', code, root, str(r), port,
+                               path, out_dir], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, P_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                outs.append(p.communicate(timeout=left))
+            except subprocess.TimeoutExpired:
+                outs.append(('', 'timed out after %d s' % P_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, 'P5 worker', r, p.returncode, err[-3000:])
+    res = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    want = float(cube.double().sum())
+    ref_ml = ndt.multilook(cube, 3)
+    ref_nl = nlmeans_cuda.nlmeans_spatial(cube, (2, 2), (1, 1), 2.0, 3.0)
+    half = 4 * (NY // 2) * NX * K * 4
+    p5 = {name: 0 for name in KERNELS}
+    for r in res:
+        rows = slice(*r['rows'])
+        ml = torch.from_numpy(np.load(os.path.join(out_dir, 'ml_%d.npy'
+                                                   % r['rank']))).to(dev)
+        nl = torch.from_numpy(np.load(os.path.join(out_dir, 'nl_%d.npy'
+                                                   % r['rank']))).to(dev)
+        ml_diff = max_diff(ml, ref_ml[rows])
+        nl_d = max_diff(nl, ref_nl[rows])
+        check(r['read_bytes'] == half and ml_diff == 0 and nl_d == 0
+              and abs(r['sum'] - want) <= 1e-9 * abs(want)
+              and r['launches']['sepconv'] >= 1
+              and r['launches']['nlmeans'] >= 1, 'P5 rank', r, ml_diff, nl_d)
+        for name, c in r['launches'].items():
+            p5[name] += c
+        phase('P5', 'rank %d: rows %s of stack.nc read lazily (%d bytes, '
+              'half the cube), sum over both processes %.6f (the whole '
+              'cube\'s %.6f); its block of shard_apply: multilook max abs '
+              'diff %.3g, NLMeans r=2 f=1 %.3g to the single process; '
+              'launches %s; halo bytes received '
+              'through gloo %d' % (r['rank'], r['rows'], r['read_bytes'],
+                                   r['sum'], want, ml_diff, nl_d,
+                                   json.dumps(r['launches']),
+                                   r['halo_bytes']))
+    check(res[0]['sum'] == res[1]['sum'], 'P5 sums differ')
+    counts.append(p5)
+    phase('P5', 'two processes on the card (gloo, tcp://127.0.0.1), both '
+          'finished in %.1f s of wall time, imports and CUDA start-up '
+          'included' % wall)
+    phase('P', 'P1-P5 took %.1f s' % (time.perf_counter() - t_p))
+    return tuple(counts)
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -3448,6 +3836,12 @@ def main():
         counts_o = run_out_of_core_phases(ndt, dev, card, reset_counts,
                                           read_counts, readme_filtered,
                                           readme_change, io_tmp)
+        # ---- P1-P5. the device mesh: the quick start, path A's NLMeans and
+        # the training step sharded, two processes on the card; counted
+        counts_mesh = run_sharded_phases(ndt, dev, card, cuda_ms,
+                                         reset_counts, read_counts, cube,
+                                         stack, t_labels, readme_change,
+                                         io_tmp)
 
     # ---- J1-J4. a Sentinel-2 granule classified on rasterized parcels
     counts_j = run_granule_phases(ndt, dev, card, cuda_ms, reset_counts,
@@ -3457,7 +3851,7 @@ def main():
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5, counts_t1,
                                           counts_i2, counts_j) + counts_s
-                                         + counts_o)
+                                         + counts_o + counts_mesh)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -89,7 +89,19 @@ class Filter(Algorithm):
         if inplace:
             raise NotImplementedError('Inplace filtering is not '
                                       'implemented.')
+        return self._apply_layout(ds, self._run)
 
+    def _run(self, arr, dims):
+        """Filter ``arr``, whose axes are named ``dims``, along
+        ``self.dims``."""
+        return self._filter(arr, tuple(dims.index(d) for d in self.dims))
+
+    def _apply_layout(self, ds, run):
+        """The layout of ``apply``: the tensors of ``ds`` are brought into
+        the filter's layout and each goes through ``run(arr, dims)``
+        (``dims`` names ``arr``'s axes; a stacking axis is named None).
+        ``parallel.apply_sharded`` passes a runner that shards the call,
+        so both paths give each kernel the same layout."""
         orig_dims = tuple(ds.sizes)
         ordered_dims = self.dims + tuple(d for d in orig_dims
                                          if d not in self.dims)
@@ -99,16 +111,14 @@ class Filter(Algorithm):
 
         if isinstance(ds, DataArray):
             if self.per_variable:
-                axes = tuple(ds.dims.index(d) for d in self.dims)
                 result = ds.copy(deep=False)
-                result.data = self._filter(ds.data, axes)
+                result.data = run(ds.data, ds.dims)
             else:
                 # joint-weight filters take the canonical layout
                 # (filter dims..., extra dims..., variable)
                 da_ordered = ds.transpose(*ordered_dims)
-                axes = tuple(range(len(self.dims)))
-                filtered = self._filter(da_ordered.data[..., None],
-                                        axes)[..., 0]
+                filtered = run(da_ordered.data[..., None],
+                               da_ordered.dims + ('variable',))[..., 0]
                 result = da_ordered._replace(filtered).transpose(*ds.dims)
             return result
 
@@ -123,14 +133,12 @@ class Filter(Algorithm):
                 groups.setdefault((ds[v].dims, ds[v].dtype), []).append(v)
             for (vdims, _), vs in groups.items():
                 if len(vs) == 1:
-                    axes = tuple(vdims.index(d) for d in self.dims)
-                    filtered = self._filter(ds[vs[0]].data, axes)
+                    filtered = run(ds[vs[0]].data, vdims)
                     result._variables[vs[0]] = Variable(
                         vdims, filtered, ds[vs[0]].attrs)
                     continue
-                axes = tuple(vdims.index(d) + 1 for d in self.dims)
                 stacked = torch.stack([ds[v].data for v in vs])
-                filtered = self._filter(stacked, axes)
+                filtered = run(stacked, (None,) + tuple(vdims))
                 for i, v in enumerate(vs):
                     result._variables[v] = Variable(vdims, filtered[i],
                                                     ds[v].attrs)
@@ -139,8 +147,7 @@ class Filter(Algorithm):
         # variables form an extra axis; weights are joint
         joint_dims = ordered_dims + ('variable',)
         da_ordered = ds[variables].to_array().transpose(*joint_dims)
-        axes = tuple(da_ordered.dims.index(d) for d in self.dims)
-        filtered = self._filter(da_ordered.data, axes)
+        filtered = run(da_ordered.data, da_ordered.dims)
         result = expand_variables(da_ordered._replace(filtered))
         for v in list(result._variables):
             have = result._variables[v].dims

@@ -3,11 +3,17 @@ detection, change features and a classifier head.
 
 Counterpart of ``nd_tpu/models/pipeline.py``. ``forward`` is the
 inference path; ``loss`` and ``train_step`` train the head (a linear
-layer over the seven change features) by SGD on one device. The
-features do not depend on the head's parameters, so they are computed
-without autograd and only the head is differentiated. The sharded step
-(``train_step(mesh=...)``, ``make_sharded_step``) waits for
-``parallel/`` (ROADMAP item 14).
+layer over the seven change features) by SGD. The features do not
+depend on the head's parameters, so they are computed without autograd
+and only the head is differentiated.
+
+The step shards over a device mesh (``train_step(mesh=...)``,
+``make_sharded_step``): the multilook runs through
+``parallel.halo.shard_apply`` with halos from the neighbouring blocks,
+and the features, the loss and its gradient are data-parallel over the
+(y, x) blocks. The loss is the sum of the blocks' masked
+log-likelihoods over the sum of their masks, and the blocks' gradients
+are summed (``torch.distributed`` all-reduces both across processes).
 """
 
 from __future__ import annotations
@@ -164,6 +170,13 @@ class SARChangePipeline(nn.Module):
         """Masked cross-entropy of the head over ``feats`` (y, x, 7);
         ``labels`` (y, x) of class ids, -1 masked. Differentiable in
         ``params``."""
+        ll, mask = self._head_ll(params, feats, labels)
+        return -ll / torch.clamp_min(mask, 1.0)
+
+    def _head_ll(self, params, feats, labels):
+        """The head's masked log-likelihood summed over the pixels, and
+        the count of labelled pixels (the loss is ``-ll / max(count,
+        1)``)."""
         labels = as_tensor(labels, feats.device)
         # float32 logits from features of any float type, as
         # jnp.dot(..., preferred_element_type=float32)
@@ -177,7 +190,7 @@ class SARChangePipeline(nn.Module):
         onehot = (labels[..., None] == classes).to(logits.dtype)
         mask = (labels >= 0).to(logits.dtype)
         ll = torch.sum(logp * onehot, dim=-1) * mask
-        return -torch.sum(ll) / torch.clamp_min(torch.sum(mask), 1.0)
+        return torch.sum(ll), torch.sum(mask)
 
     def head_step(self, params, feats, labels):
         """One SGD step of the head on fixed features: ``(params,
@@ -204,16 +217,132 @@ class SARChangePipeline(nn.Module):
         sepconv kernel on the card), change features, the head's loss,
         its gradient and the SGD update. Returns ``(params, loss)``.
 
-        Only ``mesh=None`` (one device) is ported.
+        With ``mesh`` (a ``parallel.mesh.Mesh``) the step is sharded over
+        the mesh's (y, x) positions: ``values`` and ``labels`` are the
+        global tensors, or ShardedArrays placed by
+        :meth:`make_sharded_step`'s placements. The new parameters and
+        the loss land on ``params``' device.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                'train_step(mesh=...) needs parallel/ (ROADMAP item 14)')
-        with torch.no_grad():
-            looked = multilook(as_tensor(values), self.ml)
-        return self.head_step(params, self.features(looked), labels)
+        if mesh is None:
+            with torch.no_grad():
+                looked = multilook(as_tensor(values), self.ml)
+            return self.head_step(params, self.features(looked), labels)
+        from ..parallel.distributed import all_reduce_sum
+        from ..parallel.halo import ShardedArray, on_device
+        home = params['w'].device
+        if not isinstance(labels, ShardedArray):
+            labels = as_tensor(labels)
 
+        def label_block(pos, index, device):
+            if isinstance(labels, ShardedArray):
+                return labels.blocks[pos].to(device)
+            return labels[index].to(device)
+        with torch.no_grad():
+            looked = self._sharded_multilook(values, mesh)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        ll = torch.zeros((), dtype=torch.float32, device=home)
+        count = torch.zeros((), dtype=torch.float32, device=home)
+        with torch.enable_grad():
+            for pos, block in looked.blocks.items():
+                index = looked.index(pos)
+                if block.shape[0] == 0 or block.shape[1] == 0:
+                    continue
+                with on_device(block.device):
+                    feats = self.features(block)
+                    part, n = self._head_ll(
+                        {k: v.to(block.device) for k, v in leaves.items()},
+                        feats, label_block(pos, index[:2], block.device))
+                ll = ll + part.to(home)
+                count = count + n.to(home)
+            # a process whose blocks are all empty adds zeros
+            grads = torch.autograd.grad(ll, [leaves['w'], leaves['b']]) \
+                if ll.requires_grad \
+                else [torch.zeros_like(leaves[k]) for k in ('w', 'b')]
+        with torch.no_grad():
+            # one all-reduce of (ll, count, gradients) across processes
+            packed = all_reduce_sum(torch.cat(
+                [ll.detach().reshape(1), count.reshape(1)]
+                + [g.reshape(-1) for g in grads]))
+            ll, count = packed[0], packed[1]
+            denom = torch.clamp_min(count, 1.0)
+            w_size = leaves['w'].numel()
+            g_w = packed[2:2 + w_size].reshape(leaves['w'].shape)
+            g_b = packed[2 + w_size:].reshape(leaves['b'].shape)
+            new = {'w': leaves['w'] - self.lr * (-g_w / denom),
+                   'b': leaves['b'] - self.lr * (-g_b / denom)}
+        return {k: v.detach() for k, v in new.items()}, -ll / denom
+
+    def _sharded_multilook(self, values, mesh):
+        """Multilook with halos from the neighbouring blocks, through the
+        shared ``parallel.halo`` engine (which also handles pixel grids
+        that don't divide the mesh). The block kernel IS
+        :func:`multilook`: one definition for the single-device and
+        sharded paths, so they cannot diverge. Returns the multilooked
+        cube as a ShardedArray of this process's (y, x) blocks."""
+        from ..parallel.halo import ShardedArray, shard_blocks
+        if not isinstance(values, ShardedArray):
+            values = as_tensor(values)
+        halo = self.ml // 2
+        return shard_blocks(lambda x: multilook(x, self.ml), values, mesh,
+                            {'y': (0, halo), 'x': (1, halo)},
+                            mode='symmetric')
+
+    # -- full sharded step -----------------------------------------------------
     def make_sharded_step(self, mesh, shape=None):
-        """The sharded training step: not ported (ROADMAP item 14)."""
-        raise NotImplementedError(
-            'make_sharded_step needs parallel/ (ROADMAP item 14)')
+        """A training step with mesh-sharded inputs.
+
+        Returns ``(step, data_sharding, label_sharding)``:
+        ``step(params, values, labels)`` is :meth:`train_step` on the
+        mesh, and the two placements put the global values
+        ``(y, x, time, 4)`` and labels ``(y, x)`` on the mesh
+        (``data_sharding.place(values)``), the counterparts of the JAX
+        package's NamedShardings P('y', 'x', None, None) and P('y', 'x').
+        Parameters stay on their device.
+
+        ``shape`` (ny, nx), when given, shrinks each mesh axis to the
+        largest count that DIVIDES the pixel grid: a placement needs
+        blocks of equal size, so without the fit a 17 x 19 grid on a
+        2 x 4 mesh is refused (``train_step(mesh=)`` on the global
+        tensors pads instead).
+        """
+        if shape is not None:
+            from ..parallel.mesh import _largest_divisor
+            ny_n = _largest_divisor(mesh.shape['y'], shape[0])
+            nx_n = _largest_divisor(mesh.shape['x'], shape[1])
+            if (ny_n, nx_n) != (mesh.shape['y'], mesh.shape['x']):
+                mesh = mesh.reshaped((ny_n, nx_n))
+        data_sharding = Placement(mesh, ('y', 'x', None, None))
+        label_sharding = Placement(mesh, ('y', 'x'))
+
+        def step(params, values, labels):
+            return self.train_step(params, values, labels, mesh=mesh)
+        return step, data_sharding, label_sharding
+
+
+class Placement:
+    """Where a sharded step's argument lives: one block per mesh
+    position, split along the array axes named in ``spec`` (the JAX
+    package's NamedSharding)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def place(self, arr):
+        """The global ``arr`` (a tensor, or numpy from the host) as a
+        ShardedArray: its blocks copied to their positions' devices."""
+        from ..parallel.halo import place
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        chunks = list(arr.shape)
+        for axis, name in enumerate(self.spec):
+            if name is not None:
+                n = self.mesh.shape[name]
+                if arr.shape[axis] % n:
+                    raise ValueError(
+                        'axis %d (%d) does not divide the mesh axis %r (%d); '
+                        'make_sharded_step(mesh, shape=...) fits the mesh'
+                        % (axis, arr.shape[axis], name, n))
+                chunks[axis] = arr.shape[axis] // n
+        return place(arr, self.mesh, self.spec, tuple(chunks))

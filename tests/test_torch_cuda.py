@@ -38,7 +38,11 @@ within rtol 1e-6, atol 1e-6 of the CPU's; ``apply``'s vmap route within
 rtol 1e-12 of the CPU's; the I/O's reads onto the card bit-equal to what
 was written and to the same read onto the CPU, and the quick start from
 a file: NLMeans rtol 1e-5, atol 1e-6 of the CPU's, the change map equal
-to the CPU's omnibus of the card's filtered values.
+to the CPU's omnibus of the card's filtered values; the device mesh (a
+(2, 2) mesh naming the card four times): sharded convolutions equal to
+the unsharded apply, NLMeans rtol 1e-5, atol 1e-6, change maps equal,
+the sharded training step's loss rtol 1e-6 and parameters rtol 1e-5 /
+atol 1e-7 of the one-device step.
 """
 
 import ctypes
@@ -1631,3 +1635,111 @@ def test_rasterize_values_on_the_card_equals_the_cpu(cuda):
                                               bands=['B04'], device='cpu'),
                        columns=['class'])
     assert torch.equal(layer['class'].data.cpu(), on_cpu['class'].data)
+
+
+# ---- the device mesh on the card (chip_smoke.py P1-P4 at small sizes) ----
+
+def _mesh22(cuda):
+    from nd_tpu_torch.parallel import get_mesh
+    return get_mesh((2, 2), devices=[cuda] * 4)
+
+
+def _mesh_ds(cuda, ny=130, nx=98, k=6, seed=71):
+    cube = torch.from_numpy(sar_cube(ny, nx, k, seed=seed,
+                                     special=False)).to(cuda)
+    names = ('C11', 'C12__re', 'C12__im', 'C22')
+    return cube, Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                          for i, v in enumerate(names)})
+
+
+_MESH_FILTERS = {
+    'boxcar': lambda: ndt.BoxcarFilter(w=3),
+    'gaussian': lambda: ndt.GaussianFilter(sigma=1.5),
+    'convolution': lambda: ndt.ConvolutionFilter(
+        kernel=np.random.RandomState(0).rand(3, 3)),
+    'nlmeans': lambda: ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3),
+    'mirror': lambda: ndt.BoxcarFilter(w=3, mode='mirror'),
+    'nearest': lambda: ndt.BoxcarFilter(w=3, mode='nearest'),
+    'constant': lambda: ndt.BoxcarFilter(w=3, mode='constant', cval=1.5),
+    'wrap': lambda: ndt.BoxcarFilter(w=5, mode='wrap'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(_MESH_FILTERS))
+def test_apply_sharded_on_the_card_equals_unsharded(cuda, name):
+    """A (2, 2) mesh naming the card four times, on a grid that divides
+    one axis (wrap) or neither: bit-equal to the unsharded apply, with
+    four times the unsharded call's launches (one a block)."""
+    from nd_tpu_torch.parallel import apply_sharded
+    from nd_tpu_torch.ops import stencil_cuda
+    mods = (conv_cuda, nlmeans_cuda, stencil_cuda)
+    _, ds = _mesh_ds(cuda, nx=98 if name == 'wrap' else 97)
+    algo = _MESH_FILTERS[name]()
+    before = [m.launches for m in mods]
+    ref = algo.apply(ds)
+    mid = [m.launches for m in mods]
+    got = apply_sharded(algo, ds, _mesh22(cuda))
+    torch.cuda.synchronize()
+    after = [m.launches for m in mods]
+    serial = [b - a for a, b in zip(before, mid)]
+    sharded = [b - a for a, b in zip(mid, after)]
+    assert sum(serial) > 0 and sharded == [4 * n for n in serial]
+    for v in ref.data_vars:
+        assert got[v].data.device == ref[v].data.device
+        assert torch.equal(got[v].data, ref[v].data), v
+
+
+def test_shard_apply_multilook_and_3d_nlmeans_on_the_card(cuda):
+    from nd_tpu_torch.parallel import apply_sharded, shard_apply
+    cube, ds = _mesh_ds(cuda, ny=66, nx=50, k=14)
+    mesh = _mesh22(cuda)
+    got = shard_apply(lambda x: ndt.multilook(x, 3), cube, mesh,
+                      {'y': (0, 1), 'x': (1, 1)})
+    assert torch.equal(got, ndt.multilook(cube, 3))
+    nlm3 = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=(2, 2, 1), f=1,
+                             sigma=2, h=3)
+    before = nlmeans_cuda.launches_3d
+    got = apply_sharded(nlm3, ds, mesh)
+    assert nlmeans_cuda.launches_3d == before + 4
+    ref = nlm3.apply(ds)
+    for v in ref.data_vars:
+        assert torch.equal(got[v].data, ref[v].data), v
+
+
+def test_sharded_change_detection_on_the_card(cuda):
+    """The README chain sharded over the (2, 2) mesh and over get_mesh()
+    (every card): change maps equal to the serial OmnibusTest's."""
+    from nd_tpu_torch.parallel import (apply_sharded, get_mesh,
+                                       sharded_change_detection)
+    _, ds = _mesh_ds(cuda, ny=61, nx=70, k=8)
+    flt = apply_sharded(ndt.NLMeansFilter(r=2, f=1, sigma=2, h=3), ds,
+                        _mesh22(cuda))
+    serial = ndt.OmnibusTest(ml=3, alpha=0.01).apply(flt)
+    assert int(serial.data.sum()) > 0
+    for mesh in (_mesh22(cuda), get_mesh()):
+        got = sharded_change_detection(flt, alpha=0.01, ml=3, mesh=mesh)
+        assert got.data.device == serial.data.device
+        assert torch.equal(got.data, serial.data)
+
+
+def test_sharded_train_step_on_the_card(cuda):
+    """train_step(mesh=) and make_sharded_step against the one-device
+    step: loss rtol 1e-6, parameters rtol 1e-5 / atol 1e-7; one sepconv
+    launch a block."""
+    cube, labels = _train_cube(48, 40)
+    cube = torch.from_numpy(cube).to(cuda)
+    labels = torch.from_numpy(labels).to(cuda)
+    model = ndt.SARChangePipeline(ml=3, n=1, alpha=0.9, lr=0.05)
+    p0 = model.init_params(seed=0)
+    ref_p, ref_l = model.train_step(p0, cube, labels)
+    mesh = _mesh22(cuda)
+    before = conv_cuda.launches
+    got = [model.train_step(p0, cube, labels, mesh=mesh)]
+    step, data_sh, label_sh = model.make_sharded_step(mesh, shape=(48, 40))
+    got.append(step(p0, data_sh.place(cube), label_sh.place(labels)))
+    assert conv_cuda.launches == before + 8
+    for p, loss in got:
+        assert loss.device.type == 'cuda'
+        torch.testing.assert_close(loss, ref_l, rtol=1e-6, atol=0)
+        for k in ('w', 'b'):
+            torch.testing.assert_close(p[k], ref_p[k], rtol=1e-5, atol=1e-7)

@@ -31,7 +31,8 @@ def test_import_loads_no_jax():
             'nd_tpu_torch.io.zarr, nd_tpu_torch.io.beam_dimap, '
             'nd_tpu_torch.io.lazy, nd_tpu_torch.tiling, '
             'nd_tpu_torch.io.jp2, nd_tpu_torch.native, '
-            'nd_tpu_torch.vector, nd_tpu_torch.ops.rasterize; '
+            'nd_tpu_torch.vector, nd_tpu_torch.ops.rasterize, '
+            'nd_tpu_torch.parallel, nd_tpu_torch.parallel.distributed; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')

@@ -200,13 +200,3 @@ def test_params_from_jax_checks_shapes():
     with pytest.raises(ValueError):
         ndt.SARChangePipeline(n_classes=2).params_from_jax(jparams,
                                                            device='cpu')
-
-
-def test_mesh_raises_naming_item_14():
-    _, tp, _, tparams = _pair()
-    cube = torch.from_numpy(_cube(8, 8))
-    labels = torch.zeros((8, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='ROADMAP item 14'):
-        tp.train_step(tparams, cube, labels, mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP item 14'):
-        tp.make_sharded_step(object())
