@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
 training path, its dated-stack path, its I/O, its tiling, its device
-mesh and its Sentinel-2 granule and vector path once on one CUDA
-device.
+mesh, its Sentinel-2 granule and vector path and its tracing, host
+oracles and rendering once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -334,6 +334,53 @@ no kernel of the port runs on this path, and none may launch):
      its predictions of the whole grid on the card equal to the CPU
      fit's on >= 99.9% of pixels; the accuracy on the labelled pixels,
      the fit and predict times.
+
+and, last, the README chain traced, the host C++ oracles, rendering and
+the port's last entry points:
+
+ V1. in a child process (``chip_smoke.v1_child``; a process's earlier
+     profiler windows can leave a later one without some kernels'
+     events): ``tracing.start_device_trace`` (torch.profiler, CPU and
+     CUDA activity), then under ``tracing.annotate('readme_chain')`` (a
+     ``record_function`` and an NVTX range) the README chain on the bench
+     cube, counted, then ``stop_device_trace``. The parent parses the
+     Chrome trace: the range is there, it holds every event of the
+     NLMeans, sepconv, round and rescan kernels in the trace, as many as
+     their counters rose; ``tracing.report()`` has one
+     ``NLMeansFilter.apply`` and one ``BoxcarFilter.apply`` span (the
+     omnibus test's multilook); the change map equals phase 6's (0
+     mismatches). Printed: the trace's size, the device-busy share of
+     the range, the chain's CUDA-event time without the profiler (median
+     of 5), traced (one call) and under a second window (median of 5);
+ V2. bench.py's cpu_baseline configuration (the 128 x 128 cut of the
+     bench cube; NLMeans r=(1,1,0), f=(1,1,0), sigma 2, h 3; change
+     detection alpha 0.99, 9 looks) through the host C++ oracles
+     (``native.nlmeans_native``, ``native.change_detection_native``, one
+     thread, built with g++ at first use) against the NLMeans kernel
+     (rtol 1e-5, atol 1e-6) and the exact mode on the card (0
+     mismatches; a mismatching pixel is printed with its margin);
+     ``cpu_1core_mpix_s`` as bench.py:1325 computes it (best of 3), with
+     the host's CPU model, beside the card's time for the same two calls;
+ V3. ``visualize``'s device part of ``to_rgb`` (percentiles, float64
+     stretch, uint8, BGR) on the card for phase 6's filtered cube at t = 0
+     (C11 / C22 / ratio) and for the change map's count over time, each
+     equal to the same call on CPU copies bit for bit, with the bytes that
+     cross to the host against the float channels'; the missing optional
+     modules are printed (the card's machine has cv2, not imageio), the
+     package-level ``to_rgb`` is None exactly where imageio is missing;
+     where cv2 imports, ``to_rgb`` of the card's channels (equal to the
+     CPU's device part, RGB) and to a PNG, ``render_map`` and
+     ``plot_map`` end to end, where it does not, both raise the JAX
+     package's ImportError texts; ``write_video`` writes a 12-frame GIF
+     where imageio imports and raises ImportError where it does not;
+ V4. ``ops.change.change_detection_hybrid`` on a numpy copy of the bench
+     cube: a numpy bool map with 0 mismatches to phase 4's, and with
+     ``return_device=True`` a CUDA tensor equal to it (counted: two
+     launches each of the round and the rescan kernels); one
+     ``TorchClassifier.train_step`` (``torch.optim.Adam``) on the bench
+     cube as (y*x, 48) samples on the card against the same step on the
+     CPU: loss rtol 1e-5, parameters within 1e-4 of each tensor's
+     largest magnitude (plus 1e-6).
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -2875,6 +2922,395 @@ def run_sharded_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return tuple(counts)
 
 
+# ---- V1-V4: tracing, the host oracles, rendering, the last entry points ----
+
+V_FAMILIES = {'nlmeans': 'nlmeans_tiled', 'sepconv': 'sepconv_tiled',
+              'omnibus': 'omnibus_kernel',
+              'omnibus_mixed': 'omnibus_mixed_kernel'}
+V_CUT = 128                 # V2: bench.py's cpu_baseline cut (128 x 128)
+V_TIMEOUT = 300             # V1: seconds the traced child may take
+
+
+def trace_kernels(logdir, range_name):
+    """Parse the one Chrome trace in ``logdir``: (path, the range's host
+    span in us, device-busy us inside it, {family: kernel events inside
+    the range}, {family: kernel events in the whole trace}); families are
+    ``V_FAMILIES``' kernel names. The range is ``annotate``'s host range
+    (``user_annotation``); the caller synchronizes inside it, so the
+    device work it launched ends inside it too."""
+    import glob
+    files = glob.glob(os.path.join(logdir, '*.pt.trace.json'))
+    check(len(files) == 1, 'one trace file', logdir, files)
+    with open(files[0]) as fh:
+        events = json.load(fh)['traceEvents']
+    ranges = [e for e in events if e.get('name') == range_name
+              and e.get('ph') == 'X' and e.get('cat') == 'user_annotation']
+    check(len(ranges) == 1, 'the %s range in the trace' % range_name,
+          len(ranges))
+    t0 = ranges[0]['ts']
+    t1 = t0 + ranges[0]['dur']
+    device = sorted((e['ts'], e['ts'] + e.get('dur', 0), e['name'])
+                    for e in events if e.get('ph') == 'X'
+                    and e.get('cat') in ('kernel', 'gpu_memcpy',
+                                         'gpu_memset'))
+    busy, end = 0.0, t0
+    inside = {f: 0 for f in V_FAMILIES}
+    total = dict(inside)
+    for s, e, name in device:
+        for fam, kname in V_FAMILIES.items():
+            if kname in name:
+                total[fam] += 1
+                inside[fam] += t0 <= s and e <= t1
+        lo, hi = max(s, end, t0), min(e, t1)
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    return files[0], t1 - t0, busy, inside, total
+
+
+def v1_child(out_dir):
+    """V1's process: the README chain on ``out_dir/cube.npy`` on the card,
+    timed without the profiler (median of 5 after a warm-up), then once
+    traced (``tracing.start_device_trace`` into ``out_dir/trace``, under
+    ``annotate('readme_chain')``, counted), then 5 times under a second
+    trace (``out_dir/timed``) to time it with the profiler on. Saves the
+    traced call's change map and prints one JSON line."""
+    import torch
+    import nd_tpu_torch as ndt
+    from nd_tpu_torch import tracing
+    from nd_tpu_torch.core import Dataset
+    from nd_tpu_torch.ops import (change_cuda, change_mixed_cuda,
+                                  change_scan_cuda, conv_cuda, nlmeans_cuda)
+    mods = {'sepconv': conv_cuda, 'nlmeans': nlmeans_cuda,
+            'omnibus': change_cuda, 'omnibus_scan': change_scan_cuda,
+            'omnibus_mixed': change_mixed_cuda}
+    dev = torch.device(DEVICE)
+    cube = torch.from_numpy(np.load(os.path.join(out_dir, 'cube.npy'))).to(
+        dev)
+    names = ('C11', 'C12__re', 'C12__im', 'C22')
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i])
+                  for i, v in enumerate(names)})
+    nlm = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.01)
+
+    def chain():
+        return omn.apply(nlm.apply(ds))
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = chain()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    chain()
+    torch.cuda.synchronize()
+    plain_ms = statistics.median(timed()[1] for _ in range(5))
+    for mod in mods.values():
+        mod.reset_launches()
+    tracing.reset()
+    tracing.start_device_trace(os.path.join(out_dir, 'trace'))
+    with tracing.annotate('readme_chain'):
+        change, traced_ms = timed()
+        torch.cuda.synchronize()
+    tracing.stop_device_trace()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    spans = tracing.report()
+    tracing.start_device_trace(os.path.join(out_dir, 'timed'))
+    profiled_ms = statistics.median(timed()[1] for _ in range(5))
+    tracing.stop_device_trace()
+    np.save(os.path.join(out_dir, 'change.npy'), change.data.cpu().numpy())
+    print(json.dumps({'launches': launches, 'spans': spans,
+                      'plain_ms': plain_ms, 'traced_ms': traced_ms,
+                      'profiled_ms': profiled_ms,
+                      'device': change.data.device.type}))
+    return 0
+
+
+def cpu_model():
+    """The host CPU as /proc/cpuinfo names it (its first processor's
+    vendor, model name, family and model) and the cores this process
+    sees."""
+    fields = {}
+    with open('/proc/cpuinfo') as fh:
+        for line in fh:
+            if not line.strip():
+                break
+            key, _, value = line.partition(':')
+            fields[key.strip()] = value.strip()
+    name = ', '.join('%s %s' % (k, fields[k]) for k in (
+        'vendor_id', 'model name', 'cpu family', 'model') if k in fields)
+    return '%s; %d cores' % (name or 'not named', os.cpu_count() or 0)
+
+
+def run_visual_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
+                      cube, exact4, readme_change, readme_filtered, root):
+    """V1-V4: the README chain traced in a process of its own, the host
+    C++ oracles against the card on bench.py's cpu_baseline cut,
+    to_rgb's device part on the card against the CPU (and the rendering
+    end to end where cv2 imports), change_detection_hybrid's
+    numpy delivery and TorchClassifier.train_step on the card. Returns
+    the launches counted in V1's traced call, V2's checked card calls and
+    V4's hybrid calls."""
+    import importlib
+    import tempfile
+    import torch
+    from nd_tpu_torch import native, visualize
+    from nd_tpu_torch.classify import TorchClassifier
+    from nd_tpu_torch.ops import change_cuda, nlmeans_cuda
+    from nd_tpu_torch.ops.change import (change_detection_exact,
+                                         change_detection_hybrid)
+
+    t_v = time.perf_counter()
+    counts = []
+    # ---- V1: the README chain traced, in a process of its own -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, 'cube.npy'), cube.cpu().numpy())
+        code = ('import sys; sys.path.insert(0, sys.argv[1]); '
+                'import chip_smoke; sys.exit(chip_smoke.v1_child(sys.argv[2]))')
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-c', code, root, tmp],
+                              capture_output=True, text=True,
+                              timeout=V_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, 'V1 child', proc.returncode,
+              proc.stderr[-3000:])
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        path, span_us, busy_us, inside, total = trace_kernels(
+            os.path.join(tmp, 'trace'), 'readme_chain')
+        size = os.path.getsize(path)
+        for fam in V_FAMILIES:
+            check(inside[fam] == total[fam] == res['launches'][fam] > 0,
+                  'V1 %s kernel events in the range' % fam, inside, total,
+                  res['launches'])
+        check(res['launches']['omnibus_scan'] == 0, 'V1 scan kernel',
+              res['launches'])
+        spans = {k: v['count'] for k, v in res['spans'].items()}
+        check(spans == {'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1},
+              'V1 apply spans', spans)
+        change = torch.from_numpy(np.load(os.path.join(tmp, 'change.npy')))
+        mism = int((change != readme_change.cpu()).sum())
+        check(res['device'] == 'cuda' and mism == 0, 'V1 change map',
+              res['device'], mism)
+    counts.append(dict({n: 0 for n in KERNELS}, **res['launches']))
+    phase('V1', 'README chain traced in a child process (%.1f s of wall '
+          'time): %s (%d bytes); the readme_chain range holds every kernel '
+          'event of the trace, as many as the counters rose: %s; spans %s; '
+          '0 mismatches to phase 6\'s map' % (
+              wall, os.path.basename(path), size, json.dumps(inside),
+              json.dumps(spans)))
+    phase('V1', 'device busy %.3f ms of the range\'s %.3f ms (%.1f%%) | '
+          'chain by CUDA events: %.3f ms without the profiler (median of 5 '
+          'after a warm-up), %.3f ms traced (one call), %.3f ms under a '
+          'second window (median of 5): the profiler adds %.3f ms (%.1f%%) '
+          '| %s' % (busy_us / 1e3, span_us / 1e3, 100.0 * busy_us / span_us,
+                    res['plain_ms'], res['traced_ms'], res['profiled_ms'],
+                    res['profiled_ms'] - res['plain_ms'],
+                    100.0 * (res['profiled_ms'] / res['plain_ms'] - 1), card))
+
+    # ---- V2: the host C++ oracles against the card ---------------------------
+    cut = cube[:V_CUT, :V_CUT].contiguous()
+    host = cut.cpu().numpy()
+    info = native.oracle_info()
+    r, f, sigma, h, alpha, looks = (1, 1, 0), (1, 1, 0), 2.0, 3.0, 0.99, 9
+
+    def best_of_3(fn):
+        best, out = None, None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        return out, best
+    nl_cpu, t_nl = best_of_3(lambda: native.nlmeans_native(
+        host, r, f, sigma, h, -1.0, nthreads=1))
+    om_cpu, t_om = best_of_3(lambda: native.change_detection_native(
+        host, alpha, n=looks, nthreads=1))
+    mpix = V_CUT * V_CUT * K / 1e6
+    cpu_rate = mpix * 2 / (t_nl + t_om)
+    reset_counts()
+    nl_card = nlmeans_cuda.nlmeans_spatial(cut, r[:2], f[:2], sigma, h)
+    om_card = change_detection_exact(cut, alpha, n=looks)
+    torch.cuda.synchronize()
+    counts.append(read_counts())
+    check(counts[-1]['nlmeans'] == 1 and counts[-1]['omnibus'] == 1
+          and counts[-1]['omnibus_mixed'] == 1, 'V2 launches', counts[-1])
+    nl_diff, excess = excess_over(nl_card.cpu(), torch.from_numpy(nl_cpu))
+    bad = torch.nonzero(om_card.cpu() != torch.from_numpy(om_cpu))
+    if len(bad):
+        _, margin = change_cuda.change_detection_fast(
+            cut, alpha, n=looks, return_margin=True,
+            max_rounds=change_cuda._round_cap(K))
+        for y, x, t in bad[:20].tolist():
+            phase('V2', 'mismatch at (%d, %d, %d): card %s, oracle %s, '
+                  'margin %.3g' % (y, x, t, bool(om_card[y, x, t]),
+                                   bool(om_cpu[y, x, t]),
+                                   float(margin[y, x])))
+    check(excess <= 0 and len(bad) == 0, 'V2 oracles', excess, len(bad))
+    nl_ms = cuda_ms(lambda: nlmeans_cuda.nlmeans_spatial(cut, r[:2], f[:2],
+                                                         sigma, h))
+    om_ms = cuda_ms(lambda: change_detection_exact(cut, alpha, n=looks))
+    phase('V2', 'host C++ oracles (%s, %s, built=%s in %.2f s) on the %d x '
+          '%d x %d cut: NLMeans r=(1,1,0) f=(1,1,0) within rtol 1e-5, atol '
+          '1e-6 of the kernel (largest difference %.3g), change map alpha '
+          '%.2f, %d looks: 0 mismatches to the exact mode on the card (%d '
+          'changes); launches %s' % (
+              os.path.basename(info['path']), ' '.join(native.ORACLE_FLAGS),
+              info['built'], info['seconds'], V_CUT, V_CUT, K, nl_diff,
+              alpha, looks, int(om_cpu.sum()), json.dumps(counts[-1])))
+    phase('V2', 'cpu_1core_mpix_s %.3f (bench.py:1325: 2 x %.3f Mpix over '
+          'NLMeans %.3f ms + change %.3f ms, best of 3, one thread, %s) | the '
+          'card, the same two calls: NLMeans %.3f ms + exact %.3f ms (CUDA '
+          'events, median of 7), %.1f Mpix/s | %s'
+          % (cpu_rate, mpix, t_nl * 1e3, t_om * 1e3, cpu_model(), nl_ms,
+             om_ms, mpix * 2 / (nl_ms + om_ms) * 1e3, card))
+
+    # ---- V3: rendering --------------------------------------------------------
+    c11, c22 = readme_filtered[:, :, 0, 0], readme_filtered[:, :, 0, 3]
+    count = readme_change.sum(-1)
+    rows = (('C11 / C22 / ratio at t = 0', [c11, c22], True),
+            ('the change map\'s count over time', [count], False))
+    for label, chans, ratio in rows:
+        def image(cs, ratio=ratio):
+            return visualize._bgr(cs + [cs[0] / cs[1]] if ratio else cs)
+        im = image(chans)
+        ref = image([c.cpu() for c in chans])
+        check(im.device.type == 'cuda' and im.dtype == torch.uint8
+              and torch.equal(im.cpu(), ref), 'V3 %s' % label)
+        float_bytes = sum(c.numel() * 8 for c in chans) \
+            + (chans[0].numel() * 8 if ratio else 0)
+        ms = cuda_ms(lambda: image(chans))
+        phase('V3', 'to_rgb\'s device part, %s: the (%d, %d, 3) uint8 image '
+              'equal to the CPU\'s bit for bit; %d bytes cross to the host '
+              '(and one bool a channel) against %d bytes of float64 '
+              'channels; %.3f ms on the card (CUDA events, median of 7) | %s'
+              % (label, im.shape[0], im.shape[1], im.numel(), float_bytes,
+                 ms, card))
+    def importable(name):
+        try:
+            importlib.import_module(name)
+            return True
+        except ImportError:
+            return False
+    missing = [m for m in ('cv2', 'imageio') if not importable(m)]
+    check((ndt.to_rgb is None) == ('imageio' in missing)
+          and (ndt.write_video is None) == ('imageio' in missing),
+          'V3 package-level to_rgb', missing, ndt.to_rgb)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if 'cv2' in missing:
+            for fn, args, text in (
+                    (visualize.to_rgb, ([c11],),
+                     'this function requires opencv-python (cv2)'),
+                    (visualize.render_map, (None,),
+                     'render_map requires opencv-python (cv2)')):
+                try:
+                    fn(*args)
+                except ImportError as e:
+                    check(str(e) == text, 'V3 ImportError text', str(e))
+                else:
+                    check(False, 'V3 %s ran without cv2' % fn.__name__)
+            done = 'to_rgb and render_map raise the JAX package\'s ' \
+                'ImportError texts'
+        else:
+            ds = io_dataset(readme_filtered, NY, NX)
+            chans = [c11, c22, c11 / c22]
+            rgb = visualize.to_rgb(chans)
+            ref = visualize._bgr([c.cpu() for c in chans[:2]]
+                                 + [c11.cpu() / c22.cpu()]).numpy()
+            visualize.to_rgb(chans, output=os.path.join(tmp, 'rgb.png'))
+            m1 = visualize.render_map(ds)
+            m2 = visualize.plot_map(ds, output=os.path.join(tmp, 'map.png'))
+            check(np.array_equal(rgb, ref[..., ::-1])
+                  and m1.shape == (720, 720, 3)
+                  and (visualize.cartopy is not None
+                       or np.array_equal(m1, m2)), 'V3 rendering')
+            done = 'to_rgb of the card\'s channels (equal to the CPU\'s ' \
+                'device part) and to a PNG, render_map and plot_map'
+            if 'imageio' in missing:
+                try:
+                    visualize.write_video(ds, os.path.join(tmp, 'stack.gif'))
+                except ImportError as e:
+                    check('imageio' in str(e), 'V3 write_video', str(e))
+                else:
+                    check(False, 'V3 write_video ran without imageio')
+                done += '; write_video raises ImportError (no imageio)'
+            else:
+                visualize.write_video(ds, os.path.join(tmp, 'stack.gif'))
+                done += ', write_video to a %d-frame GIF' % K
+        sizes = {n: os.path.getsize(os.path.join(tmp, n))
+                 for n in sorted(os.listdir(tmp))}
+        check(all(sizes.values()), 'V3 files', sizes)
+    phase('V3', 'missing on this machine: %s; nd_tpu_torch.to_rgb is %s; %s '
+          'end to end in %.2f s; files %s' % (
+              ', '.join(missing) or 'nothing', ndt.to_rgb, done,
+              time.perf_counter() - t0, json.dumps(sizes)))
+
+    # ---- V4: the remaining entry points ----------------------------------------
+    host_cube = cube.cpu().numpy()
+    reset_counts()
+    hyb = change_detection_hybrid(host_cube, alpha, n=looks)
+    hyb_dev = change_detection_hybrid(cube, alpha, n=looks,
+                                      return_device=True)
+    torch.cuda.synchronize()
+    counts.append(read_counts())
+    ref4 = exact4.cpu().numpy()
+    mism = int((hyb != ref4).sum())
+    check(isinstance(hyb, np.ndarray) and hyb.dtype == np.bool_
+          and mism == 0, 'V4 hybrid numpy delivery', type(hyb), mism)
+    check(hyb_dev.device.type == 'cuda'
+          and torch.equal(hyb_dev, exact4), 'V4 hybrid return_device')
+    check(counts[-1]['omnibus'] == 2 and counts[-1]['omnibus_mixed'] == 2,
+          'V4 launches', counts[-1])
+    t0 = time.perf_counter()
+    change_detection_hybrid(host_cube, alpha, n=looks)
+    hyb_s = time.perf_counter() - t0
+    phase('V4', 'change_detection_hybrid on a numpy copy of the bench cube: '
+          'a numpy bool map, 0 mismatches to phase 4\'s (%.1f ms of host '
+          'clock, the copy onto the card and the bool map back included); '
+          'return_device=True: a CUDA tensor equal to it; '
+          'launches %s' % (hyb_s * 1e3, json.dumps(counts[-1])))
+    X = cube.reshape(NY * NX, K * 4)
+    y = exact4.any(-1).reshape(-1).long()
+    clf = TorchClassifier(hidden=(16,), lr=0.05)
+    start = clf._init_params(K * 4, 2, 'cpu')
+    steps = []
+    for where in (dev, torch.device('cpu')):
+        leaves = [a.to(where).clone().requires_grad_(True)
+                  for pair in start for a in pair]
+        opt = torch.optim.Adam(leaves, lr=0.05)
+        params = [tuple(a.to(where) for a in pair) for pair in start]
+        t0 = time.perf_counter()
+        steps.append(clf.train_step(params, None, X.to(where), y.to(where),
+                                    opt))
+        if not steps[1:]:                  # the card's step, timed
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            step_ms = cuda_ms(lambda: clf.train_step(
+                params, None, X, y, opt))
+    (gp, gs, gl), (rp, rs, rl) = steps
+    loss_rel = abs(float(gl) - float(rl)) / abs(float(rl))
+    worst = max(float(((g.cpu() - r).abs()
+                       - (1e-4 * r.abs().max() + 1e-6)).max())
+                for gpair, rpair in zip(gp, rp)
+                for g, r in zip(gpair, rpair))
+    check(gl.device.type == 'cuda' and loss_rel <= 1e-5 and worst <= 0
+          and int(gs['state'][0]['step']) == 1, 'V4 train_step', loss_rel,
+          worst)
+    phase('V4', 'TorchClassifier(hidden=(16,)).train_step with torch.optim.'
+          'Adam on the bench cube as (%d, %d) float32 samples, labels phase '
+          '4\'s any-change: loss %.6f, %.3g from the CPU step\'s (rtol '
+          '1e-5), parameters within 1e-4 of each tensor\'s largest '
+          'magnitude (plus 1e-6); %.3f ms the first step, %.3f ms a step '
+          '(CUDA events, median of 7) | %s' % (
+              X.shape[0], X.shape[1], float(gl), loss_rel, first_ms, step_ms,
+              card))
+    phase('V', 'V1-V4 ran %.1f s' % (time.perf_counter() - t_v))
+    return tuple(counts)
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -3847,11 +4283,18 @@ def main():
     counts_j = run_granule_phases(ndt, dev, card, cuda_ms, reset_counts,
                                   read_counts, root)
 
+    # ---- V1-V4. the README chain traced, the host oracles, rendering,
+    # change_detection_hybrid and TorchClassifier.train_step; V1 and V4
+    # counted
+    counts_v = run_visual_phases(ndt, dev, card, cuda_ms, reset_counts,
+                                 read_counts, cube, exact, readme_change,
+                                 readme_filtered, root)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5, counts_t1,
                                           counts_i2, counts_j) + counts_s
-                                         + counts_o + counts_mesh)
+                                         + counts_o + counts_mesh + counts_v)
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

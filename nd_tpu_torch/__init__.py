@@ -10,14 +10,18 @@ ENVI, zarr, BEAM-DIMAP, JPEG 2000 and Sentinel-2 granules:
 ``open_dataset``, ``to_netcdf``, ``nd_tpu_torch.io``) with lazy opens
 (``chunks=``), tiling for cubes larger than memory
 (``nd_tpu_torch.tiling``: ``ds.nd.tile``, ``map_over_tiles``,
-``auto_merge``), and vector data rasterized onto a grid
-(``nd_tpu_torch.vector``, ``nd_tpu_torch.ops.rasterize``).
+``auto_merge``), vector data rasterized onto a grid
+(``nd_tpu_torch.vector``, ``nd_tpu_torch.ops.rasterize``), tracing
+(``nd_tpu_torch.tracing``: host spans, ``torch.profiler`` traces, NVTX
+ranges) and visualization (``to_rgb``, ``write_video``,
+``nd_tpu_torch.visualize_map.render_map``; cv2 and imageio optional).
 
 Tensors stay on the device the caller put them on and keep their dtype.
 On a CUDA tensor each kernel wrapper launches its kernel (built from
 ``csrc/*.cu`` with nvcc at first use) or raises; on a CPU tensor it runs
 the kernel's plain PyTorch version. The JPEG 2000 decoder's Tier-1 is
-host C++ (``native/jp2_t1.cpp``), built with g++ at first use.
+host C++ (``native/jp2_t1.cpp``), built with g++ at first use, as are
+the host C++ oracles of NLMeans and change detection (``native``).
 """
 
 from .algorithm import Algorithm, parallelize, wrap_algorithm
@@ -35,7 +39,15 @@ from .warp import (Coregistration, Reprojection, Resample, coregister,
                    reproject, resample)
 from . import tiling  # noqa: F401
 from .tiling import auto_merge
+from . import tracing  # noqa: F401
 from . import accessors  # noqa: E402,F401  (attaches .nd / .filter)
+
+try:
+    import imageio  # noqa: F401  (the JAX package's visualize needs it)
+except ImportError:
+    to_rgb = write_video = None
+else:
+    from .visualize import to_rgb, write_video
 
 __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
            'DataArray', 'Dataset', 'from_jax_dataset', 'concat', 'merge',
@@ -46,4 +58,5 @@ __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm', 'Variable',
            'TorchClassifier', 'class_mean', 'assemble_complex',
            'disassemble_complex', 'SARChangePipeline', 'multilook',
            'change_features', 'Reprojection', 'Resample', 'Coregistration',
-           'reproject', 'resample', 'coregister', 'auto_merge']
+           'reproject', 'resample', 'coregister', 'auto_merge', 'to_rgb',
+           'write_video']

@@ -5,8 +5,7 @@ Counterpart of ``nd_tpu/accessors.py``: the namespaces are attached as
 properties on :class:`nd_tpu_torch.core.Dataset` / :class:`DataArray`
 when ``nd_tpu_torch`` is imported, and each method mirrors the
 functional API (signature and docstring copied from the wrapped
-function). Methods whose module is not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+function).
 """
 
 from __future__ import annotations
@@ -40,12 +39,6 @@ def patch_doc(func):
         return wrapper
 
     return decorator
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(
-        '%s is not ported to nd_tpu_torch yet (ROADMAP item %d)'
-        % (what, item))
 
 
 class NDAccessor:
@@ -132,14 +125,26 @@ class NDAccessor:
         c = Classifier(clf, **kwargs)
         return c.fit_predict(self._obj, labels)
 
-    def to_rgb(self, *args, **kwargs):
-        _not_ported('nd.to_rgb (visualize)', 15)
+    def to_rgb(self, rgb=None, output=None, vmin=None, vmax=None,
+               pmin=2, pmax=98, categorical=False, mask=None, shape=None,
+               cmap=None):
+        from .visualize import to_rgb
+        if rgb is None and isinstance(self._obj, Dataset):
+            def rgb(d):
+                return [d['C11'], d['C22'], d['C11'] / d['C22']]
+        # a user-supplied rgb callable applies to DataArrays too
+        data = rgb(self._obj) if rgb is not None else self._obj
+        return to_rgb(data, output=output, vmin=vmin, vmax=vmax,
+                      pmin=pmin, pmax=pmax, categorical=categorical,
+                      mask=mask, shape=shape, cmap=cmap)
 
     def to_video(self, path, *args, **kwargs):
-        _not_ported('nd.to_video (visualize)', 15)
+        from .visualize import write_video
+        return write_video(self._obj, path, *args, **kwargs)
 
     def plot_map(self, *args, **kwargs):
-        _not_ported('nd.plot_map (visualize_map)', 15)
+        from .visualize import plot_map
+        return plot_map(self._obj, *args, **kwargs)
 
 
 class FilterAccessor:

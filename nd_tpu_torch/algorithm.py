@@ -15,6 +15,7 @@ from abc import ABC, abstractmethod
 from functools import partial
 
 from . import utils
+from .tracing import span
 
 __all__ = ['Algorithm', 'parallelize', 'wrap_algorithm']
 
@@ -42,18 +43,21 @@ def parallelize(func):
     ``njobs == 1`` executes directly. Otherwise the dataset is split
     along ``self._parallel_dimension(ds)`` into ``njobs`` chunks (-1: the
     CPU count) with a ``self._buffer(dim)`` halo, mapped over threads,
-    trimmed and concatenated: the result equals the unsplit call.
+    trimmed and concatenated: the result equals the unsplit call. Each
+    call records the span ``'<Class>.apply'`` (:mod:`.tracing`).
     """
 
     def wrapper(self, ds, *args, njobs=1, **kwargs):
         method = partial(func, self)
         if njobs == -1:
             njobs = utils.ncpus()
-        if njobs == 1:
-            return method(ds, *args, **kwargs)
-        dim = self._parallel_dimension(ds)
-        return utils.parallel(method, dim=dim, chunks=njobs,
-                              buffer=self._buffer(dim))(ds, *args, **kwargs)
+        with span('%s.apply' % type(self).__name__):
+            if njobs == 1:
+                return method(ds, *args, **kwargs)
+            dim = self._parallel_dimension(ds)
+            return utils.parallel(method, dim=dim, chunks=njobs,
+                                  buffer=self._buffer(dim))(ds, *args,
+                                                            **kwargs)
 
     sig_func = inspect.signature(func)
     sig_wrapper = inspect.signature(wrapper)

@@ -13,6 +13,7 @@ predictions stay on the cube's device.
 
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 
 import numpy as np
@@ -352,6 +353,48 @@ class TorchClassifier:
         classes = torch.arange(logp.shape[-1], device=y.device)
         onehot = (y[:, None] == classes).to(logp.dtype)
         return -torch.mean(torch.sum(onehot * logp, dim=-1))
+
+    def train_step(self, params, opt_state, X, y, optimizer):
+        """One optimizer step: the counterpart of ``JaxClassifier
+        .train_step``. Returns ``(params, opt_state, loss)``.
+
+        ``optimizer`` is a ``torch.optim`` optimizer built over one leaf
+        tensor per parameter, in the order of ``params`` (a list of
+        ``(w, b)`` pairs), e.g. ``torch.optim.Adam([a for pair in params
+        for a in pair], lr=1e-2)``. The step writes ``params`` into those
+        tensors, loads ``opt_state`` (the optimizer's ``state_dict()``;
+        None clears the optimizer's state, so the step starts afresh, as
+        JAX's is pure in ``opt_state``), takes the loss of ``X`` against the
+        class indices ``y``, its gradient and the optimizer's step. It
+        returns copies of the new parameters, a copy of the optimizer's
+        ``state_dict()`` and the loss, detached; the optimizer's tensors
+        hold the new parameters too.
+        """
+        leaves = [p for group in optimizer.param_groups
+                  for p in group['params']]
+        flat = [a for pair in params for a in pair]
+        if len(leaves) != len(flat):
+            raise ValueError('the optimizer holds %d tensors, params %d'
+                             % (len(leaves), len(flat)))
+        with torch.no_grad():
+            for leaf, a in zip(leaves, flat):
+                if leaf is not a:
+                    leaf.copy_(a)
+        if opt_state is None:
+            optimizer.state.clear()
+        else:
+            # torch keeps some loaded tensors (Adam's 'step') as they are
+            # and steps them in place: load a copy, so opt_state stays put
+            optimizer.load_state_dict(copy.deepcopy(opt_state))
+        optimizer.zero_grad()
+        it = iter(leaves)
+        pairs = [tuple(next(it) for _ in pair) for pair in params]
+        with torch.enable_grad():
+            loss = self.loss_fn(pairs, X, y)
+            loss.backward()
+        optimizer.step()
+        new = [tuple(a.detach().clone() for a in pair) for pair in pairs]
+        return new, copy.deepcopy(optimizer.state_dict()), loss.detach()
 
     # -- API --------------------------------------------------------------
     def fit(self, ds, labels):

@@ -25,7 +25,9 @@ Two routes:
     are rescanned with the float64 'mixed' scan, selected on the card
     and written straight into the packed flags
     (``ops/change_mixed_cuda.py`` ``rescan``). Longer series take the
-    'mixed' scan whole. The decisions equal the 'mixed' scan's.
+    'mixed' scan whole. The decisions equal the 'mixed' scan's;
+    :func:`change_detection_hybrid` is the exact mode with numpy
+    delivery (the bool map crosses to the host).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from .stats import chi2_cdf
 __all__ = ['omnibus_probabilities', 'omnibus_rho', 'omnibus_thresholds',
            'decision_tables',
            'change_detection', 'change_detection_plain',
-           'change_detection_exact', 'pack_flags', 'omnibus_z']
+           'change_detection_exact', 'change_detection_hybrid',
+           'pack_flags', 'omnibus_z']
 
 _P = 2.0  # dual-pol covariance matrices are 2x2
 
@@ -431,3 +434,30 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     packed, count = _exact_packed(values.contiguous(), alpha, n, margin_eps)
     flags = unpack_flags(packed, k)
     return (flags, int(count)) if return_count else flags
+
+
+def change_detection_hybrid(values, alpha, n=1, margin_eps=1e-4,
+                            nthreads=0, values_host=None,
+                            return_device=False, capacity=None,
+                            device=None):
+    """The exact mode with the JAX package's delivery: numpy in, a numpy
+    (y, x, time) bool map out (``OmnibusTest``'s route for host-resident
+    input there).
+
+    The decisions are :func:`change_detection_exact`'s (a float32 kernel
+    with margins, then the float64 rescan of the near-margin pixels on
+    ``values``' device), copied to the host as a bool array; with
+    ``return_device`` the bool tensor stays on the device instead.
+
+    ``nthreads``, ``values_host`` and ``capacity`` are accepted for the
+    JAX package's signature and unused: its ``ND_TPU_X64=0`` route (the
+    suspects patched on the host by the native float64 kernel, when JAX
+    runs without float64) does not exist in the port, which has no
+    global x64 switch and always rescans in float64 on the device; and
+    every suspect is rescanned, so there is no capacity. Non-tensor
+    ``values`` land on ``device`` (default ``cuda``).
+    """
+    del nthreads, values_host, capacity
+    flags = change_detection_exact(values, alpha, n=n, margin_eps=margin_eps,
+                                   device=device)
+    return flags if return_device else flags.cpu().numpy()

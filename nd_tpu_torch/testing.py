@@ -4,7 +4,10 @@ Counterpart of the generators and assertions of ``nd_tpu/testing.py``:
 the same ``np.random.RandomState`` draws in the same order, so one seed
 gives the same cube (values, coordinates and geo metadata) in both
 packages. The numeric arrays land on ``device`` (default ``cuda``, as
-everywhere in the port). ``create_mock_classes`` builds the two-class
+everywhere in the port). ``requires`` is a pytest skip marker for
+optional dependencies, ``all_algorithms`` walks the package for
+Algorithm classes, and the ``assert_*`` helpers compare tensors as
+numpy arrays. ``create_mock_classes`` builds the two-class
 cube of the classifier tests. ``random_polygon``,
 ``generate_test_polygons`` and ``generate_test_geodataframe`` draw the
 same polygons (and, with pandas, the same table) from one seed as the
@@ -14,16 +17,33 @@ samples its resident set from outside (the out-of-core checks).
 
 from __future__ import annotations
 
+import hashlib
+import importlib
+import inspect
+import pkgutil
+
 import numpy as np
 import torch
 
+from .algorithm import Algorithm
 from .core import DataArray, Dataset
 from .crs import CRS, Affine
 
-__all__ = ['generate_test_dataset', 'generate_test_dataarray',
-           'create_mock_classes', 'random_polygon', 'generate_test_polygons',
-           'generate_test_geodataframe', 'assert_equal_data',
-           'assert_equal_crs', 'run_sampling_rss']
+__all__ = ['requires', 'generate_test_dataset', 'generate_test_dataarray',
+           'create_mock_classes', 'equal_list_of_dicts',
+           'assert_equal_dict', 'assert_all_true', 'assert_equal_data',
+           'assert_equal_crs', 'all_algorithms', 'assert_equal_files',
+           'random_polygon', 'generate_test_polygons',
+           'generate_test_geodataframe', 'run_sampling_rss']
+
+
+def requires(dep):
+    """pytest skip marker for missing optional dependencies."""
+    import pytest
+    from .utils import check_requirements
+    return pytest.mark.skipif(
+        not check_requirements(dep),
+        reason='This test requires {}.'.format(dep))
 
 
 def _geo_attrs(extent, nx, ny, crs):
@@ -181,6 +201,37 @@ def generate_test_geodataframe(n=10, extent=(-10.0, 50.0, 0.0, 60.0),
     return df
 
 
+def equal_list_of_dicts(obj1, obj2, exclude=[]):
+    """Compare two lists of dictionaries (order-insensitive)."""
+    for key in exclude:
+        for obj in obj1 + obj2:
+            obj.pop(key, None)
+    serial1 = sorted(repr(sorted(_.items())) for _ in obj1)
+    serial2 = sorted(repr(sorted(_.items())) for _ in obj2)
+    return serial1 == serial2
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def assert_equal_dict(d1, d2, exclude=[]):
+    """Assert two dicts equal; arrays and tensors compare elementwise."""
+    d1 = {k: v for k, v in d1.items() if k not in exclude}
+    d2 = {k: v for k, v in d2.items() if k not in exclude}
+    for k in set(d1) | set(d2):
+        v1, v2 = _host(d1.get(k)), _host(d2.get(k))
+        if isinstance(v1, np.ndarray) or isinstance(v2, np.ndarray):
+            np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
+        else:
+            assert v1 == v2, '%r: %r != %r' % (k, v1, v2)
+
+
+def assert_all_true(ds):
+    assert bool(np.all(np.concatenate(
+        [np.asarray(ds[v].values).ravel() for v in ds.data_vars])))
+
+
 def assert_equal_data(ds1, ds2, rtol=1e-7, atol=0):
     """Assert that two Datasets/DataArrays contain the same data."""
     if isinstance(ds1, DataArray):
@@ -202,6 +253,48 @@ def assert_equal_crs(crs1, crs2):
     c1 = CRS.from_user_input(crs1)
     c2 = CRS.from_user_input(crs2)
     assert c1 == c2, '%r != %r' % (c1, c2)
+
+
+def all_algorithms(parent=None):
+    """Every concrete Algorithm subclass in ``parent`` (default: the
+    package) and its submodules, sorted by class name; ``native`` (host
+    C++) is not walked."""
+    import nd_tpu_torch
+    if parent is None:
+        parent = nd_tpu_torch
+    elif isinstance(parent, str):
+        parent = importlib.import_module(parent)
+
+    found = {}
+
+    def _collect(module):
+        for name, obj in inspect.getmembers(module, inspect.isclass):
+            if issubclass(obj, Algorithm) and not inspect.isabstract(obj):
+                found['%s.%s' % (obj.__module__, obj.__name__)] = obj
+
+    _collect(parent)
+    if hasattr(parent, '__path__'):
+        for info in pkgutil.walk_packages(parent.__path__,
+                                          parent.__name__ + '.'):
+            if 'native' in info.name.split('.'):
+                continue
+            try:
+                mod = importlib.import_module(info.name)
+            except ImportError:
+                continue
+            _collect(mod)
+    return sorted(set(found.values()), key=lambda c: c.__name__)
+
+
+def assert_equal_files(f1, f2):
+    """Assert two files are byte-identical (md5)."""
+    def _md5(path):
+        h = hashlib.md5()
+        with open(path, 'rb') as fh:
+            for chunk in iter(lambda: fh.read(1 << 20), b''):
+                h.update(chunk)
+        return h.hexdigest()
+    assert _md5(f1) == _md5(f2)
 
 
 def _resident(pid):

@@ -7,8 +7,9 @@ f=1, sigma=2, h=3).nd.change_omnibus(ml=3)``) is held to the tolerances
 ``test_torch_pipeline.py`` holds the same chain to: the NLMeans stage
 within rtol 1e-5, atol 1e-6, and change maps exactly equal when the
 omnibus stage is fed the same filtered data on both sides. The warp
-methods are held as in ``test_torch_warp.py``. Each accessor whose
-module is not ported yet raises and names its ROADMAP item.
+methods are held as in ``test_torch_warp.py``. The visualization
+methods (``nd.to_rgb``, ``nd.to_video``, ``nd.plot_map``) give images
+and GIF files equal to nd_tpu's bit for bit.
 """
 
 import inspect
@@ -156,11 +157,69 @@ def test_methods_carry_the_functional_signatures():
     assert flt.nlmeans.__doc__ == ndt.nlmeans.__doc__
 
 
-@pytest.mark.parametrize('method,item', [
-    ('to_rgb', 15), ('to_video', 15), ('plot_map', 15),
-])
-def test_unported_methods_raise_naming_their_item(method, item):
-    _, t = _pair()
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP item %d' % item):
-        getattr(t.nd, method)(None)
+def _visual_pair():
+    """The shared generator's cube in both packages (positive C11/C22 for
+    the ratio channel's stretch)."""
+    dims = {'y': 20, 'x': 26, 'time': 4}
+    return jgen(dims=dims, mean=[3, 0, 0, 2]), \
+        tgen(dims=dims, mean=[3, 0, 0, 2], device='cpu')
+
+
+@pytest.mark.parametrize('case', ['dataset', 'dataarray', 'dataarray_rgb',
+                                  'options'])
+def test_to_rgb_accessor_matches_jax(case):
+    """``nd.to_rgb``: the C11 / C22 / ratio default of a Dataset, a
+    DataArray alone, a user ``rgb`` applied to a DataArray, and the
+    stretch options: images equal to nd_tpu's bit for bit."""
+    pytest.importorskip('cv2')
+    j, t = _visual_pair()
+    j0, t0 = j.isel(time=0), t.isel(time=0)
+    if case == 'dataset':
+        got, ref = t0.nd.to_rgb(), j0.nd.to_rgb()
+    elif case == 'dataarray':
+        got, ref = t0['C22'].nd.to_rgb(), j0['C22'].nd.to_rgb()
+    elif case == 'dataarray_rgb':
+        def rgb(d):
+            return [d, d * 2, d * d]
+        got, ref = t0['C11'].nd.to_rgb(rgb=rgb), j0['C11'].nd.to_rgb(rgb=rgb)
+    else:
+        kw = dict(vmin=[0, 0, 0.5], vmax=[6, 4, 2], shape=(10, None))
+        got, ref = t0.nd.to_rgb(**kw), j0.nd.to_rgb(**kw)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_to_video_accessor_matches_jax(tmp_path):
+    pytest.importorskip('cv2')
+    pytest.importorskip('imageio')
+    from nd_tpu_torch.testing import assert_equal_files
+    j, t = _visual_pair()
+    j.nd.to_video(str(tmp_path / 'j.gif'), fps=2)
+    t.nd.to_video(str(tmp_path / 't.gif'), fps=2)
+    assert_equal_files(str(tmp_path / 't.gif'), str(tmp_path / 'j.gif'))
+    j['C11'].nd.to_video(str(tmp_path / 'j1.gif'), timestamp=None)
+    t['C11'].nd.to_video(str(tmp_path / 't1.gif'), timestamp=None)
+    assert_equal_files(str(tmp_path / 't1.gif'), str(tmp_path / 'j1.gif'))
+
+
+def test_plot_map_accessor_matches_jax(tmp_path):
+    pytest.importorskip('cv2')
+    from nd_tpu_torch import visualize
+    if visualize.cartopy is not None:
+        pytest.skip('cartopy installed: plot_map draws on its axes')
+    j, t = _visual_pair()
+    got = t.nd.plot_map(buffer=0.5, gridlines=False)
+    ref = j.nd.plot_map(buffer=0.5, gridlines=False)
+    assert got.shape == ref.shape == (720, 720, 3)
+    np.testing.assert_array_equal(got, ref)
+    from nd_tpu.testing import generate_test_dataarray as jgen_da
+    from nd_tpu_torch.testing import generate_test_dataarray as tgen_da
+    dims = {'y': 9, 'x': 7, 'time': 2}
+    extent = (20.0, -5.0, 23.0, -1.0)
+    np.testing.assert_array_equal(
+        tgen_da(dims=dims, extent=extent, device='cpu').nd.plot_map(),
+        jgen_da(dims=dims, extent=extent).nd.plot_map())
+    # a DataArray without geo metadata raises in both
+    for da in (t['C11'], j['C11']):
+        with pytest.raises(Exception, match='Could not determine the CRS'):
+            da.nd.plot_map()

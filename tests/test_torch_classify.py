@@ -8,7 +8,10 @@ float64 sums in another order); ``Classifier(LogisticRegression)``
 predictions equal; ``TorchClassifier`` from ``JaxClassifier``'s initial
 parameters within rtol 1e-4, atol 1e-6 of its parameters after 20 Adam
 epochs (the JAX package keeps ``w`` in float64, the port in float32),
-with equal predictions; and the ``ds.nd.classify`` accessor.
+with equal predictions; ``TorchClassifier.train_step`` (torch Adam)
+against ``JaxClassifier.train_step`` (optax Adam) from the same
+parameters, losses rtol 1e-5, parameters rtol 1e-4, atol 1e-6; and the
+``ds.nd.classify`` accessor.
 """
 
 import numpy as np
@@ -324,3 +327,75 @@ def test_nd_classify_accessor(both):
     got = ds.nd.classify(LogisticRegression(max_iter=200), labels,
                          feature_dims=['time'])
     assert set(got.dims) == {'y', 'x'}
+
+
+@pytest.mark.parametrize('hidden', [(), (16,), (8, 4)])
+def test_train_step_matches_jax_train_step(hidden):
+    """Five ``train_step`` calls with ``torch.optim.Adam`` against
+    ``JaxClassifier.train_step`` with ``optax.adam`` from JAX's initial
+    parameters on the same standardised design matrix: losses rtol 1e-5,
+    parameters rtol 1e-4 / atol 1e-6 (the fit's contract above);
+    ``opt_state`` is the optimizer's ``state_dict()``."""
+    import jax.numpy as jnp
+    import optax
+    rng = np.random.RandomState(4)
+    X = rng.normal(size=(300, 5)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.int32)
+    jc = JaxClassifier(hidden=hidden, lr=0.05)
+    jp = jc._init_params(5, 2)
+    jopt = optax.adam(0.05)
+    jstate = jopt.init(jp)
+    tc = TorchClassifier(hidden=hidden, lr=0.05)
+    tp = [tuple(torch.from_numpy(np.array(a, np.float32)) for a in pair)
+          for pair in jp]
+    leaves = [a.clone().requires_grad_(True) for pair in tp for a in pair]
+    topt = torch.optim.Adam(leaves, lr=0.05, betas=(0.9, 0.999), eps=1e-8)
+    tstate = None
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y).long()
+    for _ in range(5):
+        jp, jstate, jloss = jc.train_step(jp, jstate, jnp.asarray(X),
+                                          jnp.asarray(y), jopt)
+        tp, tstate, tloss = tc.train_step(tp, tstate, Xt, yt, topt)
+        assert tloss.shape == () and not tloss.requires_grad
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    assert isinstance(tstate, dict) and set(tstate) == {'state',
+                                                        'param_groups'}
+    assert int(tstate['state'][0]['step']) == 5
+    for (tw, tb), (jw, jb) in zip(tp, jp):
+        assert not tw.requires_grad and tw.dtype == torch.float32
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_train_step_with_no_state_starts_afresh():
+    """``opt_state=None`` is a fresh optimizer state, as JAX's
+    ``train_step`` is pure in ``opt_state``: two None calls from the same
+    parameters on one optimizer that has already stepped give equal
+    losses and parameters (exactly), each with Adam's step count 1; the
+    state passed in is left as it was."""
+    rng = np.random.RandomState(5)
+    X = torch.from_numpy(rng.normal(size=(64, 4)).astype(np.float32))
+    y = torch.from_numpy((rng.normal(size=64) > 0).astype(np.int64))
+    tc = TorchClassifier(hidden=(3,), lr=0.05)
+    start = tc._init_params(4, 2, 'cpu')
+    leaves = [a.clone().requires_grad_(True) for pair in start for a in pair]
+    opt = torch.optim.Adam(leaves, lr=0.05)
+    p1, s1, l1 = tc.train_step(start, None, X, y, opt)
+    tc.train_step(p1, s1, X, y, opt)
+    p2, s2, l2 = tc.train_step(start, None, X, y, opt)
+    assert float(l1) == float(l2)
+    assert int(s1['state'][0]['step']) == int(s2['state'][0]['step']) == 1
+    for a, b in zip(p1, p2):
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+
+
+def test_train_step_checks_the_optimizer():
+    tc = TorchClassifier()
+    params = [(torch.zeros(3, 2), torch.zeros(2))]
+    opt = torch.optim.Adam([torch.zeros(3, 2, requires_grad=True)])
+    with pytest.raises(ValueError, match='holds 1 tensors, params 2'):
+        tc.train_step(params, None, torch.zeros(4, 3),
+                      torch.zeros(4, dtype=torch.long), opt)

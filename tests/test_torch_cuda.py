@@ -1743,3 +1743,135 @@ def test_sharded_train_step_on_the_card(cuda):
         torch.testing.assert_close(loss, ref_l, rtol=1e-6, atol=0)
         for k in ('w', 'b'):
             torch.testing.assert_close(p[k], ref_p[k], rtol=1e-5, atol=1e-7)
+
+
+# ---- tracing, rendering, the host oracles, the last entry points ------------
+
+def _chip_smoke():
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return root, chip_smoke
+
+
+def test_traced_chain_holds_the_readme_kernels(cuda, tmp_path):
+    """chip_smoke's V1 child on a 96 x 80 x 12 cube (a process of its own:
+    earlier profiler windows of a process can lose later kernel events):
+    the readme_chain range of the Chrome trace holds every NLMeans,
+    sepconv, round and rescan kernel event, as many as the counters rose;
+    the change map equals the chain's in this process."""
+    import json
+    import subprocess
+    import sys
+    root, cs = _chip_smoke()
+    cube = sar_cube(96, 80, 12, seed=41, special=False)
+    np.save(str(tmp_path / 'cube.npy'), cube)
+    code = ('import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; '
+            'sys.exit(chip_smoke.v1_child(sys.argv[2]))')
+    proc = subprocess.run([sys.executable, '-c', code, root, str(tmp_path)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    _, span, busy, inside, total = cs.trace_kernels(str(tmp_path / 'trace'),
+                                                    'readme_chain')
+    for fam in cs.V_FAMILIES:
+        assert inside[fam] == total[fam] == res['launches'][fam] > 0, fam
+    assert 0 < busy <= span
+    assert {k: v['count'] for k, v in res['spans'].items()} == {
+        'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1}
+    t = torch.from_numpy(cube).to(cuda)
+    names = ('C11', 'C12__re', 'C12__im', 'C22')
+    ds = Dataset({v: (('y', 'x', 'time'), t[..., i])
+                  for i, v in enumerate(names)})
+    ref = ndt.OmnibusTest(ml=3, alpha=0.01).apply(
+        ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3).apply(ds))
+    np.testing.assert_array_equal(np.load(str(tmp_path / 'change.npy')),
+                                  ref.data.cpu().numpy())
+
+
+@pytest.mark.parametrize('case', ['percentiles', 'limits', 'count', 'nan'])
+def test_to_rgb_device_part_equals_the_cpu(cuda, case):
+    """to_rgb's stretch on the card equals the CPU's bit for bit (float64
+    division by a device 0-dim divisor, numpy's lerp) and stays there."""
+    from nd_tpu_torch import visualize
+    g = torch.Generator().manual_seed(3)
+    chans = [torch.rand(300, 257, generator=g, dtype=torch.float32) * 5
+             for _ in range(2)]
+    kw = {}
+    if case == 'limits':
+        kw = dict(vmin=[0.3, 1, 0.1], vmax=[4.7, 2, 3.3])
+    elif case == 'count':
+        chans = [torch.randint(0, 13, (300, 257), generator=g)]
+    elif case == 'nan':
+        chans[0][chans[0] < 0.4] = float('nan')
+    def image(cs):
+        return visualize._bgr(cs + [cs[0] / cs[1]] if len(cs) == 2 else cs,
+                              **kw)
+    got = image([c.to(cuda) for c in chans])
+    assert got.device.type == 'cuda' and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), image(chans))
+
+
+@pytest.mark.parametrize('k', [12, 40, 60])
+def test_hybrid_numpy_delivery_on_the_card(cuda, k):
+    from nd_tpu_torch.ops.change import change_detection_hybrid
+    cube = sar_cube(41, 37, k, seed=k) if k <= 48 \
+        else long_stack_cube(41, 37, k, seed=k)
+    got = change_detection_hybrid(cube, 0.99, n=9)          # lands on cuda
+    assert isinstance(got, np.ndarray) and got.dtype == np.bool_
+    ref = tchange.change_detection_exact(torch.from_numpy(cube).to(cuda),
+                                         0.99, n=9)
+    np.testing.assert_array_equal(got, ref.cpu().numpy())
+    dev = change_detection_hybrid(torch.from_numpy(cube).to(cuda), 0.99,
+                                  n=9, return_device=True)
+    assert dev.device.type == 'cuda' and torch.equal(dev, ref)
+
+
+def test_classifier_train_step_on_the_card_equals_the_cpu(cuda):
+    """Three train_steps with torch Adam: loss rtol 1e-5, parameters
+    within 1e-4 of each tensor's largest magnitude (plus 1e-6)."""
+    g = torch.Generator().manual_seed(5)
+    X = torch.randn(5000, 7, generator=g)
+    y = (X[:, 0] - X[:, 3] > 0.2).long()
+    clf = ndt.TorchClassifier(hidden=(16,), lr=0.05)
+    start = clf._init_params(7, 2, 'cpu')
+    out = []
+    for where in (cuda, torch.device('cpu')):
+        leaves = [a.to(where).clone().requires_grad_(True)
+                  for pair in start for a in pair]
+        opt = torch.optim.Adam(leaves, lr=0.05)
+        params, state = [tuple(a.to(where) for a in pair)
+                         for pair in start], None
+        losses = []
+        for _ in range(3):
+            params, state, loss = clf.train_step(params, state, X.to(where),
+                                                 y.to(where), opt)
+            losses.append(loss)
+        out.append((params, losses))
+    (gp, gl), (rp, rl) = out
+    assert gl[0].device.type == 'cuda'
+    for a, b in zip(gl, rl):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=0)
+    for gpair, rpair in zip(gp, rp):
+        for g_, r_ in zip(gpair, rpair):
+            assert g_.device.type == 'cuda'
+            assert float((g_.cpu() - r_).abs().max()) \
+                <= 1e-4 * float(r_.abs().max()) + 1e-6
+
+
+def test_host_oracles_against_the_card(cuda):
+    """native.nlmeans_native and native.change_detection_native (host
+    C++) against the NLMeans kernel (rtol 1e-5, atol 1e-6) and the exact
+    mode on the card (0 mismatches)."""
+    from nd_tpu_torch import native
+    cube = sar_cube(64, 70, 12, seed=13, special=False)
+    t = torch.from_numpy(cube).to(cuda)
+    nl = nlmeans_cuda.nlmeans_spatial(t, (1, 1), (1, 1), 2.0, 3.0)
+    ref = native.nlmeans_native(cube, (1, 1, 0), (1, 1, 0), 2.0, 3.0)
+    torch.testing.assert_close(nl.cpu(), torch.from_numpy(ref), rtol=1e-5,
+                               atol=1e-6)
+    got = tchange.change_detection_exact(t, 0.99, n=9).cpu().numpy()
+    np.testing.assert_array_equal(
+        got, native.change_detection_native(cube, 0.99, n=9))

@@ -1,6 +1,9 @@
 """Package-level contracts of nd_tpu_torch: it imports neither JAX nor
 nd_tpu, the head's parameters load from nd_tpu's, CPU calls never
-launch a kernel, and the data model round-trips nd_tpu's Dataset."""
+launch a kernel, and the data model round-trips nd_tpu's Dataset; its
+``__all__`` holds nd_tpu's names, ``testing.all_algorithms`` finds the
+counterpart of every Algorithm class of nd_tpu, and the ``testing``
+helpers behave as nd_tpu's."""
 
 import os
 import subprocess
@@ -32,7 +35,9 @@ def test_import_loads_no_jax():
             'nd_tpu_torch.io.lazy, nd_tpu_torch.tiling, '
             'nd_tpu_torch.io.jp2, nd_tpu_torch.native, '
             'nd_tpu_torch.vector, nd_tpu_torch.ops.rasterize, '
-            'nd_tpu_torch.parallel, nd_tpu_torch.parallel.distributed; '
+            'nd_tpu_torch.parallel, nd_tpu_torch.parallel.distributed, '
+            'nd_tpu_torch.tracing, nd_tpu_torch.visualize, '
+            'nd_tpu_torch.visualize_map; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')
@@ -170,3 +175,58 @@ def test_build_flags():
     assert '-fmad=false' in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert not any('fast_math' in f for f in _build.NVCC_FLAGS)
+
+
+def test_all_names_of_nd_tpu_are_exported():
+    import nd_tpu
+    assert set(nd_tpu.__all__) <= set(ndt.__all__)
+    for name in ndt.__all__:
+        assert hasattr(ndt, name), name
+    assert ndt.tracing.__all__ == nd_tpu.tracing.__all__
+
+
+def test_all_algorithms_names_every_class_of_nd_tpu():
+    from nd_tpu.testing import all_algorithms as jall
+    from nd_tpu_torch.testing import Algorithm, all_algorithms
+    got = all_algorithms()
+    assert [c.__name__ for c in got] == [c.__name__ for c in jall()]
+    assert all(issubclass(c, Algorithm) and
+               c.__module__.startswith('nd_tpu_torch.') for c in got)
+    assert [c.__name__ for c in all_algorithms('nd_tpu_torch.filters')] \
+        == [c.__name__ for c in jall('nd_tpu.filters')]
+
+
+def test_testing_helpers_match_nd_tpu(tmp_path):
+    from nd_tpu import testing as jt
+    from nd_tpu_torch import testing as tt
+    a = [{'a': 1, 'b': 2}, {'a': 3, 'c': 'x'}]
+    b = [{'a': 3, 'c': 'x', 'z': 0}, {'b': 2, 'a': 1, 'z': 1}]
+    for mod in (jt, tt):
+        assert mod.equal_list_of_dicts([dict(d) for d in a],
+                                       [dict(d) for d in b], exclude=['z'])
+        assert not mod.equal_list_of_dicts([dict(d) for d in a],
+                                           [dict(d) for d in b])
+    tt.assert_equal_dict({'x': torch.arange(3), 'y': 'v', 'k': 1},
+                         {'x': np.arange(3), 'y': 'v', 'k': 2},
+                         exclude=['k'])
+    with pytest.raises(AssertionError):
+        tt.assert_equal_dict({'x': torch.arange(3)}, {'x': np.arange(1, 4)})
+    with pytest.raises(AssertionError):
+        tt.assert_equal_dict({'y': 'v'}, {'y': 'w'})
+    ds = tt.generate_test_dataset(dims={'y': 3, 'x': 4, 'time': 2},
+                                  device='cpu')
+    tt.assert_all_true(ds > -100)
+    with pytest.raises(AssertionError):
+        tt.assert_all_true(ds > 0)
+    (tmp_path / 'a').write_bytes(b'abc' * 1000)
+    (tmp_path / 'b').write_bytes(b'abc' * 1000)
+    (tmp_path / 'c').write_bytes(b'abd' * 1000)
+    tt.assert_equal_files(str(tmp_path / 'a'), str(tmp_path / 'b'))
+    with pytest.raises(AssertionError):
+        tt.assert_equal_files(str(tmp_path / 'a'), str(tmp_path / 'c'))
+    for dep, skip in (('numpy', False), ('no_such_module_here', True)):
+        mark = tt.requires(dep)
+        ref = jt.requires(dep)
+        assert mark.name == ref.name == 'skipif'
+        assert mark.args == ref.args == (skip,)
+        assert mark.kwargs == ref.kwargs
