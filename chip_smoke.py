@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive nd_tpu_torch's SAR change paths, its georeferencing path, its
 training path, its dated-stack path, its I/O, its tiling, its device
-mesh, its Sentinel-2 granule and vector path and its tracing, host
-oracles and rendering once on one CUDA device.
+mesh, its Sentinel-2 granule and vector path, its tracing, host
+oracles and rendering, its complex, integer and bool payloads and the
+four runnable workflows of examples_torch/ once on one CUDA device.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -381,6 +382,30 @@ the port's last entry points:
      cube as (y*x, 48) samples on the card against the same step on the
      CPU: loss rtol 1e-5, parameters within 1e-4 of each tensor's
      largest magnitude (plus 1e-6).
+
+and the repaired payload faults and the four runnable workflows of
+``examples_torch/``, each against the CPU:
+
+ E1. on a 256 x 256 x 12 cut of the bench cube: its C12 as complex64
+     and complex128 with 1% NaN real parts, 1% NaN imaginary parts and
+     an all-NaN series: ``mean``, ``std``, ``var``, ``sum``, ``median``,
+     ``max``, ``min``, ``argmax``, ``argmin``, ``cumsum`` and ``diff``;
+     ``round`` of int32, bool and complex payloads, ``argmax``/``argmin``
+     of bool and int32 ones, ``clip`` of complex and int32 ones, and
+     numpy's promotions (int32 + 1.5, int32 ** 0.5, uint16 * 1e-4, int32 +
+     float32, int16 * float32, bool + float32, complex - 1.5 - complex)
+     with their dtypes: selections, rounding and element-wise results bit
+     for bit (the float64 power within rtol 1e-14: the card's pow rounds
+     otherwise), sums within rtol 1e-5, atol 1e-6 (complex64) or rtol
+     1e-12 (complex128);
+ E2-E5. ``geostationary_disk``, ``out_of_core_mosaic`` (sepconv on every
+     tile, counted), ``timeseries_gapfill`` and ``continental_mosaic`` on
+     the card at their default sizes (their printed lines equal to the
+     CPU run's) and at ``E_REAL``'s sizes (SEVIRI's 3712 x 3712 full disk,
+     1024 x 1024 x 12, two 1024 x 1024 x 36 swaths, 2 km), each result
+     within rtol 1e-5, atol 1e-6 of a CPU run of the same copy (run in a
+     process of its own beside the card's runs, ``e_cpu_child``), the
+     wall times on the host clock.
 
 Before the last line it prints one JSON object with every kernel entry
 point (name, route, source, replaced TPU kernel, launches in its paths,
@@ -3311,6 +3336,315 @@ def run_visual_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     return tuple(counts)
 
 
+# the sizes users would call real for the four workflows of
+# examples_torch/ (E2-E5): SEVIRI's 3712 x 3712 IR full disk, the bench
+# cube's grid, two 1024 x 1024 swaths of 36 dates (a year at 10 days),
+# the continental mosaic at 2 km
+E_REAL = {'geostationary_disk': dict(n=3712),
+          'out_of_core_mosaic': dict(ny=1024, nx=1024, k=12),
+          'timeseries_gapfill': dict(ny=1024, nx=1024, k=36),
+          'continental_mosaic': dict(res=2000.0)}
+E_ORDER = ('geostationary_disk', 'out_of_core_mosaic', 'timeseries_gapfill',
+           'continental_mosaic')
+E1_CUT = 256                # E1's rows and columns of the bench cube
+
+
+def same_parts(got, ref, rtol, atol):
+    """``ref`` against ``got`` on ``got``'s device, complex results part
+    by part: NaN where NaN, +-inf where +-inf, the rest within atol +
+    rtol * |ref|; (ok, max abs diff, bit for bit)."""
+    import torch
+    ref = ref.to(got.device)
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False, float('inf'), False
+    if not (ref.is_floating_point() or ref.is_complex()):
+        eq = bool(torch.equal(got, ref))
+        return eq, 0.0 if eq else float('inf'), eq
+    if ref.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    got, ref = got.double(), ref.double()
+    nan = got.isnan() & ref.isnan()
+    fin = torch.isfinite(ref)
+    diff = torch.where(fin, (got - ref).abs(), 0.0)
+    ok = bool(((got == ref) | nan | (fin & torch.isfinite(got)
+                                     & (diff <= atol + rtol * ref.abs())))
+              .all())
+    top = float(diff.max()) if diff.numel() else 0.0
+    exact = bool(((got == ref) | nan).all())
+    return ok, top, exact
+
+
+def run_fault_phases(dev, card, cube):
+    """E1: complex reductions over NaN parts, round, argmax and clip on
+    int32, bool and complex payloads and numpy's promotions on a cut of
+    the cube on the card, each call against the same call on CPU copies.
+    Selections, rounding and element-wise results bit for bit (but the
+    float64 power); sums, means and deviations within rtol 1e-5, atol
+    1e-6 (complex64) or rtol 1e-12 (complex128): they sum in another
+    order."""
+    import torch
+    from nd_tpu_torch.core import DataArray
+    cpu = torch.device('cpu')
+    t_e = time.perf_counter()
+    rng = np.random.RandomState(SEED + 16)
+    cube = cube[:E1_CUT, :E1_CUT]
+    c12 = torch.complex(cube[..., 1], cube[..., 2])   # (y, x, t) complex64
+    shape = tuple(c12.shape)
+    re_nan = torch.from_numpy(rng.rand(*shape) < 0.01).to(dev)
+    im_nan = torch.from_numpy(rng.rand(*shape) < 0.01).to(dev)
+    c12 = torch.complex(c12.real.masked_fill(re_nan, float('nan')),
+                        c12.imag.masked_fill(im_nan, float('nan')))
+    c12[5, 7, :] = complex(float('nan'), float('nan'))  # an all-NaN series
+    n_checks = 0
+    for label, data, tol in (('complex64 %d x %d x %d' % shape, c12,
+                              (1e-5, 1e-6)),
+                             ('complex128 %d x %d x %d' % shape,
+                              c12.to(torch.complex128), (1e-12, 0.0))):
+        card_da = DataArray(data, dims=('y', 'x', 'time'))
+        cpu_da = DataArray(data.cpu(), dims=('y', 'x', 'time'))
+        worst = {}
+        for name, dim, exact in (
+                ('mean', 'time', False), ('std', 'time', False),
+                ('var', 'time', False), ('sum', 'time', False),
+                ('median', 'time', True), ('max', 'time', True),
+                ('min', 'time', True), ('argmax', 'time', True),
+                ('argmin', 'time', True), ('mean', None, False),
+                ('max', None, True), ('cumsum', 'time', False),
+                ('diff', 'time', True)):
+            call = (lambda o: o.diff(dim)) if name == 'diff' \
+                else (lambda o: getattr(o, name)(dim))
+            got, ref = call(card_da), call(cpu_da)
+            check(got.data.device.type == 'cuda', 'E1 on the card', name)
+            ok, top, bit = same_parts(got.data, ref.data,
+                                      *((0.0, 0.0) if exact else tol))
+            check(ok and got.dims == ref.dims and (bit or not exact),
+                  'E1', label, name, dim, top)
+            worst['%s(%s)' % (name, dim or 'all')] = \
+                'bit for bit' if bit else '%.3g' % top
+            n_checks += 1
+        phase('E1', '%s with NaN parts on the card against the CPU: %s'
+              % (label, ', '.join('%s %s' % kv for kv in worst.items())))
+    # round, argmax, clip on int32, bool and complex payloads
+    c11 = cube[..., 0]
+    ints = (c11 * 1000).to(torch.int32)
+    mask = c11 > 1.5
+    # (label, payload, a second payload or None, call); every result is
+    # held bit for bit, but for the power's float64 pow, which the card's
+    # math library rounds otherwise (within rtol 1e-14)
+    cases = [
+        ('int32 round()', ints, None, lambda o, w: o.round()),
+        ('int32 round(-2)', ints, None, lambda o, w: o.round(-2)),
+        ('bool round()', mask, None, lambda o, w: o.round()),
+        ('complex64 round(2)', c12, None, lambda o, w: o.round(2)),
+        ('bool argmax(time)', mask, None, lambda o, w: o.argmax('time')),
+        ('bool argmin(time)', mask, None, lambda o, w: o.argmin('time')),
+        ('int32 argmax(time)', ints, None, lambda o, w: o.argmax('time')),
+        ('complex64 clip(0.5, 2+1j)', c12, None,
+         lambda o, w: o.clip(0.5, 2 + 1j)),
+        ('int32 clip(500, 2000.5)', ints, None,
+         lambda o, w: o.clip(500, 2000.5)),
+        # numpy's promotions (F13, F13b)
+        ('int32 + 1.5', ints, None, lambda o, w: o + 1.5),
+        ('int32 ** 0.5', ints, None, lambda o, w: o ** 0.5),
+        ('uint16 * 1e-4', (c11 * 1000).to(torch.uint16), None,
+         lambda o, w: o * 1e-4),
+        ('int32 + float32', ints, c11, lambda o, w: o + w),
+        ('int16 * float32', ints.to(torch.int16), c11, lambda o, w: o * w),
+        ('bool + float32', mask, c11, lambda o, w: o + w),
+        ('complex64 - 1.5 - complex64', c12, c12.flip(0),
+         lambda o, w: o - 1.5 - w),
+    ]
+    dtypes = []
+    for label, data, other, fn in cases:
+        res = []
+        for d in (dev, cpu):
+            o = DataArray(data.to(d), dims=('y', 'x', 'time'))
+            w = None if other is None else \
+                DataArray(other.to(d), dims=('y', 'x', 'time'))
+            res.append(fn(o, w))
+        got, ref = res
+        exact = '**' not in label
+        ok, top, bit = same_parts(got.data, ref.data,
+                                  0.0 if exact else 1e-14, 0.0)
+        check(ok and (bit or not exact) and got.data.device.type == 'cuda',
+              'E1', label, top, got.dtype, ref.dtype)
+        dtypes.append('%s -> %s%s' % (
+            label, str(got.dtype).replace('torch.', ''),
+            '' if bit else ' (max abs diff %.3g)' % top))
+        n_checks += 1
+    expect = {'int32 round()': 'int32', 'bool round()': 'float16',
+              'int32 + 1.5': 'float64', 'int32 ** 0.5': 'float64',
+              'uint16 * 1e-4': 'float64', 'int32 + float32': 'float64',
+              'int16 * float32': 'float32', 'bool + float32': 'float32',
+              'int32 clip(500, 2000.5)': 'float64'}
+    for line in dtypes:
+        label, dt = line.rsplit(' -> ', 1)
+        dt = dt.split(' ')[0]
+        check(expect.get(label, dt) == dt, 'E1 dtype', label, dt)
+    phase('E1', 'round, argmax/argmin, clip and numpy\'s promotions on the '
+          'card against the CPU, bit for bit where no difference is '
+          'printed: %s' % '; '.join(dtypes))
+    phase('E1', '%d calls held in %.1f s | %s'
+          % (n_checks, time.perf_counter() - t_e, card))
+
+
+def load_example(root, name):
+    """``examples_torch/<name>.py`` of the checkout at ``root``."""
+    import importlib.util
+    path = os.path.join(root, 'examples_torch', name + '.py')
+    spec = importlib.util.spec_from_file_location('examples_torch_' + name,
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, device, sizes, tmp):
+    """One workflow's ``main`` on ``device``: (its results as a flat dict
+    of dims and payloads, its printed lines, host-clock seconds). The
+    out-of-core mosaic's result is the file it writes, read back."""
+    import contextlib
+    import io
+    import torch
+    from nd_tpu_torch.io import open_netcdf
+    buf = io.StringIO()
+    kw = dict(sizes, device=device)
+    if mod.__name__.endswith('out_of_core_mosaic'):
+        kw['outdir'] = tmp
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(**kw)
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if 'outdir' in kw:
+        lines = [ln.replace(tmp, '<outdir>') for ln in lines]
+        out = open_netcdf(os.path.join(out, 'mosaic_3395.nc'), device=device)
+    return flat_outputs(out), lines, wall
+
+
+def flat_outputs(out, prefix=''):
+    """``{key: (dims, payload)}`` of every variable and coordinate of a
+    workflow's results (tuples, Datasets, DataArrays)."""
+    if isinstance(out, tuple):
+        flat = {}
+        for i, part in enumerate(out):
+            flat.update(flat_outputs(part, '%s%d/' % (prefix, i)))
+        return flat
+    names = list(out.data_vars) if hasattr(out, 'data_vars') else [None]
+    flat = {}
+    for k in names + list(out.coords):
+        da = out if k is None else out[k]
+        flat[prefix + (k or '')] = (tuple(da.dims), da.data)
+    return flat
+
+
+def e_cpu_child(root, out_dir):
+    """E2-E5's CPU references, in a process of their own beside the
+    parent's card runs: every workflow at its default and real sizes on
+    the CPU; writes each run's payloads (``.npz``), dims and printed
+    lines (``.json``) into ``out_dir``."""
+    import tempfile
+    sys.path.insert(0, root)
+    for name in E_ORDER:
+        mod = load_example(root, name)
+        for size in ('default', 'real'):
+            sizes = E_REAL[name] if size == 'real' else {}
+            with tempfile.TemporaryDirectory() as tmp:
+                flat, lines, wall = run_example(mod, 'cpu', sizes, tmp)
+            tag = os.path.join(out_dir, '%s_%s' % (name, size))
+            np.savez(tag + '.npz', **{
+                str(i): np.asarray(v[1]) for i, v in enumerate(flat.values())})
+            with open(tag + '.json', 'w') as fh:
+                json.dump({'keys': list(flat), 'lines': lines, 'wall': wall,
+                           'dims': [v[0] for v in flat.values()]}, fh)
+    return 0
+
+
+def run_example_phases(dev, card, reset_counts, read_counts, root):
+    """E2-E5: the four runnable workflows of examples_torch/ on the card,
+    each at its default size (its printed lines equal to a CPU run's)
+    and at the size its users would call real, each result held to a CPU
+    run of the same port copy (W2's rtol 1e-5, atol 1e-6, on the card).
+    The CPU runs go in a process of their own (``e_cpu_child``) beside
+    the card runs. Counted: the launches of each card run. Returns
+    them."""
+    import tempfile
+    import torch
+
+    counts = []
+    t_e = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ref_dir:
+        code = ('import sys; sys.path.insert(0, sys.argv[1]); import '
+                'chip_smoke; sys.exit(chip_smoke.e_cpu_child(*sys.argv[1:]))')
+        child = subprocess.Popen([sys.executable, '-c', code, root, ref_dir],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            runs = []
+            for name in E_ORDER:
+                mod = load_example(root, name)
+                for size in ('default', 'real'):
+                    sizes = E_REAL[name] if size == 'real' else {}
+                    with tempfile.TemporaryDirectory() as tmp:
+                        reset_counts()
+                        runs.append((name, size, sizes)
+                                    + run_example(mod, dev, sizes, tmp))
+                        counts.append(read_counts())
+            out, err = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        check(child.returncode == 0, 'E2-E5 CPU references', out[-2000:],
+              err[-2000:])
+        for i, (name, size, sizes, flat, lines, card_s) in enumerate(runs):
+            tag = 'E%d' % (E_ORDER.index(name) + 2)
+            stem = os.path.join(ref_dir, '%s_%s' % (name, size))
+            with open(stem + '.json') as fh:
+                ref = json.load(fh)
+            arrays = np.load(stem + '.npz')
+            # by name: a merge may list the coordinates in another order
+            check(sorted(flat) == sorted(ref['keys']), tag, name, list(flat),
+                  ref['keys'])
+            top, bit = 0.0, True
+            for key, (dims, got) in flat.items():
+                j = ref['keys'].index(key)
+                want = arrays[str(j)]
+                check(list(dims) == ref['dims'][j], tag, name, key, dims)
+                if not isinstance(got, torch.Tensor):   # datetimes, strings
+                    check(np.array_equal(np.asarray(got), want), tag, name,
+                          key)
+                    continue
+                check(got.device.type == 'cuda', tag, name, key, 'on the card')
+                ok, d, exact = same_parts(got, torch.from_numpy(want),
+                                          1e-5, 1e-6)
+                check(ok, tag, name, size, key, 'rtol 1e-5, atol 1e-6', d)
+                top, bit = max(top, d), bit and exact
+            if size == 'default':
+                check(lines == ref['lines'] and lines, tag, name, lines,
+                      ref['lines'])
+            launched = {k: v for k, v in counts[i].items() if v}
+            if name == 'out_of_core_mosaic':
+                check(launched.get('sepconv', 0) > 0, tag,
+                      'sepconv launched', launched)
+            phase(tag, '%s %s size %s: card %.3f s, the same port copy on '
+                  'the CPU %.3f s (host clock, the two side by side in two '
+                  'processes); %s; printed lines %s; launches %s | %s'
+                  % (name, size, json.dumps(sizes), card_s, ref['wall'],
+                     'bit for bit' if bit else
+                     'max abs diff %.3g (rtol 1e-5, atol 1e-6 held)' % top,
+                     'equal' if lines == ref['lines'] else
+                     'differ: %r / %r' % (lines, ref['lines']),
+                     json.dumps(launched), card))
+            for ln in lines:
+                print('  %s | %s' % (tag, ln))
+    phase('E2-E5', 'four workflows in %.1f s | %s'
+          % (time.perf_counter() - t_e, card))
+    return counts
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -4290,11 +4624,17 @@ def main():
                                  read_counts, cube, exact, readme_change,
                                  readme_filtered, root)
 
+    # ---- E1-E5. the repaired faults on the card; the four workflows of
+    # examples_torch/ at their default and real sizes, counted
+    run_fault_phases(dev, card, cube)
+    counts_e = run_example_phases(dev, card, reset_counts, read_counts, root)
+
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
                                           counts_wide, counts_w5, counts_t1,
                                           counts_i2, counts_j) + counts_s
-                                         + counts_o + counts_mesh + counts_v)
+                                         + counts_o + counts_mesh + counts_v
+                                         + tuple(counts_e))
               for name in KERNELS}
     phase(17, 'chip_smoke ran %.1f s, the build included'
           % (time.perf_counter() - started))

@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from . import nanops
-from .variable import Variable, _operand, as_array, to_numpy, torch_dtype
+from .variable import (Variable, _operand, add, as_array, less,
+                       less_equal, promote, sub, to_numpy, torch_dtype,
+                       truediv)
 
 __all__ = ['DataArray', 'Dataset', 'broadcast_variables', 'broadcast',
            'concat', 'merge', 'full_like', 'zeros_like', 'ones_like',
@@ -483,16 +485,40 @@ def _where(cond, a, other):
     return torch.where(cond, a, other)
 
 
-def _truediv(a, b):
-    """``a / b``; two integer operands divide in float64, as numpy."""
-    def integral(v):
-        return isinstance(v, int) or (isinstance(v, torch.Tensor)
-                                      and not v.is_floating_point()
-                                      and not v.is_complex())
-    if integral(a) and integral(b):
-        a = a.to(torch.float64) if isinstance(a, torch.Tensor) \
-            else float(a)
-    return a / b
+def _round(x, decimals):
+    """numpy's ``round``: integers unchanged (to the ``10**-decimals``
+    multiple, half to even, for negative ``decimals``), bool as float16,
+    complex part by part."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.float16)
+    if x.is_complex():
+        return torch.complex(_round(x.real, decimals),
+                             _round(x.imag, decimals))
+    if x.is_floating_point():
+        return torch.round(x, decimals=decimals)
+    if decimals >= 0:
+        return x.clone()
+    step = 10.0 ** -decimals
+    return (torch.round(x.to(torch.float64) / step) * step).to(x.dtype)
+
+
+def _clip(x, lo, hi):
+    """numpy's ``clip``: the result dtype is numpy's of ``x`` and the
+    bounds; a complex value with a NaN part is kept, the others are
+    clipped in numpy's order of complex numbers."""
+    lo, hi = (None if v is None else _operand(v, x) for v in (lo, hi))
+    for bound in (lo, hi):
+        if bound is not None:
+            x, _ = promote(x, bound)
+    if not x.is_complex():
+        return torch.clamp(x, lo, hi)
+    keep = torch.isnan(x)
+    for bound, low in ((lo, True), (hi, False)):
+        if bound is not None:
+            b = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
+            out = less(x, b) if low else less(b, x)
+            x = torch.where(out & ~keep, b, x)
+    return x
 
 
 class _NDOpsMixin:
@@ -502,16 +528,16 @@ class _NDOpsMixin:
         raise NotImplementedError
 
     def __add__(self, o):
-        return self._apply_binary(o, lambda a, b: a + b)
+        return self._apply_binary(o, add)
 
     def __radd__(self, o):
-        return self._apply_binary(o, lambda a, b: a + b, True)
+        return self._apply_binary(o, add, True)
 
     def __sub__(self, o):
-        return self._apply_binary(o, lambda a, b: a - b)
+        return self._apply_binary(o, sub)
 
     def __rsub__(self, o):
-        return self._apply_binary(o, lambda a, b: a - b, True)
+        return self._apply_binary(o, sub, True)
 
     def __mul__(self, o):
         return self._apply_binary(o, lambda a, b: a * b)
@@ -520,10 +546,10 @@ class _NDOpsMixin:
         return self._apply_binary(o, lambda a, b: a * b, True)
 
     def __truediv__(self, o):
-        return self._apply_binary(o, _truediv)
+        return self._apply_binary(o, truediv)
 
     def __rtruediv__(self, o):
-        return self._apply_binary(o, _truediv, True)
+        return self._apply_binary(o, truediv, True)
 
     def __pow__(self, o):
         return self._apply_binary(o, lambda a, b: a ** b)
@@ -541,16 +567,16 @@ class _NDOpsMixin:
         return self._apply_binary(o, lambda a, b: a ^ b)
 
     def __lt__(self, o):
-        return self._apply_binary(o, lambda a, b: a < b)
+        return self._apply_binary(o, less)
 
     def __le__(self, o):
-        return self._apply_binary(o, lambda a, b: a <= b)
+        return self._apply_binary(o, less_equal)
 
     def __gt__(self, o):
-        return self._apply_binary(o, lambda a, b: a > b)
+        return self._apply_binary(o, lambda a, b: less(b, a))
 
     def __ge__(self, o):
-        return self._apply_binary(o, lambda a, b: a >= b)
+        return self._apply_binary(o, lambda a, b: less_equal(b, a))
 
     def __eq__(self, o):  # elementwise, like xarray
         return self._apply_binary(o, lambda a, b: a == b)
@@ -1022,10 +1048,10 @@ class DataArray(_NDOpsMixin):
         return out._replace(torch.logical_not(out.data))
 
     def clip(self, min=None, max=None):
-        return self._replace(torch.clamp(self.data, min, max))
+        return self._replace(_clip(self.data, min, max))
 
     def round(self, decimals=0):
-        return self._replace(torch.round(self.data, decimals=decimals))
+        return self._replace(_round(self.data, decimals))
 
     def conj(self):
         return self._replace(torch.conj(self.data).resolve_conj())
@@ -1181,7 +1207,7 @@ class DataArray(_NDOpsMixin):
             lower = out.variable.isel({dim: slice(None, -1)})
             base = upper if label == 'upper' \
                 else out.isel({dim: slice(None, -1)})
-            out = base._replace(upper.data - lower.data)
+            out = base._replace(sub(upper.data, lower.data))
         return out
 
     def shift(self, shifts=None, fill_value=np.nan, **kwargs):
@@ -2374,6 +2400,10 @@ class Dataset(_NDOpsMixin):
             for ck, cv in res._coords.items():
                 ds._coords.setdefault(ck, cv)
         return ds
+
+    def apply(self, func, **kwargs):
+        """:meth:`map` by another name."""
+        return self.map(func, **kwargs)
 
     # -- elementwise ------------------------------------------------------------------
     def where(self, cond, other=np.nan):

@@ -17,6 +17,8 @@ the variable's device, where the variable keeps it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -104,6 +106,172 @@ def to_numpy(data):
     if isinstance(data, torch.Tensor):
         return data.detach().cpu().numpy()
     return np.asarray(data)
+
+
+# -- numpy's type promotion ---------------------------------------------------
+_SKIP = object()
+
+
+def _strong_dtype(v):
+    """The torch dtype of an operand whose type decides the result (a
+    tensor, a numeric numpy array or scalar); None for a Python number,
+    which is weak (NEP 50); ``_SKIP`` for anything else."""
+    if isinstance(v, torch.Tensor):
+        return v.dtype
+    if isinstance(v, (np.ndarray, np.generic)):
+        return torch_dtype(v.dtype) if v.dtype.kind in 'biufc' else _SKIP
+    if isinstance(v, (bool, int, float, complex)):
+        return None
+    return _SKIP
+
+
+@functools.lru_cache(maxsize=None)          # over pairs of dtypes: small
+def _strong_result(da, db):
+    """numpy's result dtype of two torch dtypes (PyTorch's where one has
+    no numpy twin: bfloat16, complex32)."""
+    if da == db:
+        return da
+    try:
+        na, nb = (torch.empty((), dtype=d).numpy().dtype for d in (da, db))
+    except TypeError:
+        return torch.promote_types(da, db)
+    return torch_dtype(np.result_type(na, nb))
+
+
+def _weak_result(dtype, scalar):
+    """numpy 2's result dtype of an array of ``dtype`` and a Python
+    ``scalar``: the scalar's kind counts, its precision does not."""
+    exact = dtype == torch.bool or not (dtype.is_floating_point
+                                        or dtype.is_complex)
+    if isinstance(scalar, bool):
+        return dtype
+    if isinstance(scalar, int):
+        return torch.int64 if dtype == torch.bool else dtype
+    if isinstance(scalar, float):
+        return torch.float64 if exact else dtype
+    if dtype.is_complex:
+        return dtype
+    return torch.complex128 if exact or dtype == torch.float64 \
+        else torch.complex64
+
+
+def result_dtype(a, b):
+    """numpy 2's ``np.result_type`` of two operands, as a torch dtype:
+    tensors and numpy values by their dtype, Python numbers weakly
+    (int32 + 1.5 and int32 + float32 are float64, float32 + 1.5 and
+    int16 + float32 float32, int32 + 2 int32). None where numpy's rule
+    does not apply (two Python numbers, datetimes, other objects)."""
+    da, db = _strong_dtype(a), _strong_dtype(b)
+    if da is _SKIP or db is _SKIP or (da is None and db is None):
+        return None
+    if da is None or db is None:
+        return _weak_result(da if db is None else db, b if db is None else a)
+    return _strong_result(da, db)
+
+
+def promote(a, b, true_divide=False):
+    """``a`` and ``b`` with their tensors cast to :func:`result_dtype`
+    (Python numbers stay weak); ``true_divide`` gives an integer or bool
+    result float64, as numpy's true division."""
+    dtype = result_dtype(a, b)
+    if dtype is None:
+        return a, b
+    if true_divide and not (dtype.is_floating_point or dtype.is_complex):
+        dtype = torch.float64
+
+    def cast(v):
+        if isinstance(v, torch.Tensor) and v.dtype != dtype:
+            return v.to(dtype)
+        if isinstance(v, bool) and dtype != torch.bool:
+            return int(v)          # PyTorch takes a bool as a bool tensor
+        return v
+    return cast(a), cast(b)
+
+
+def _parts(v):
+    """The real and imaginary parts of a complex tensor or a number."""
+    v = v if isinstance(v, torch.Tensor) else complex(v)
+    return v.real, v.imag
+
+
+def _by_parts(a, b, op):
+    """``op`` on complex operands part by part, as numpy adds and
+    subtracts (PyTorch scales the second operand by a complex 1 first,
+    so a NaN in one part spreads to both)."""
+    (ar, ai), (br, bi) = _parts(a), _parts(b)
+    return torch.complex(op(ar, br), op(ai, bi))
+
+
+def _is_complex(v):
+    return v.is_complex() if isinstance(v, torch.Tensor) \
+        else isinstance(v, (complex, np.complexfloating))
+
+
+def add(a, b):
+    """``a + b`` with numpy's promotion, complex part by part."""
+    a, b = promote(a, b)
+    if _is_complex(a) or _is_complex(b):
+        return _by_parts(a, b, lambda x, y: x + y)
+    return a + b
+
+
+def sub(a, b):
+    """``a - b`` with numpy's promotion, complex part by part."""
+    a, b = promote(a, b)
+    if _is_complex(a) or _is_complex(b):
+        return _by_parts(a, b, lambda x, y: x - y)
+    return a - b
+
+
+def truediv(a, b):
+    """``a / b`` with numpy's promotion; integer and bool operands
+    divide in float64, as numpy."""
+    a, b = promote(a, b, true_divide=True)
+    return a / b
+
+
+def _lex(a, b, strict):
+    """numpy's order of complex numbers: the real parts, then the
+    imaginary ones; a NaN part compares false."""
+    like = a if isinstance(a, torch.Tensor) else b
+    a, b = (v if isinstance(v, torch.Tensor) else
+            torch.as_tensor(v, dtype=like.dtype, device=like.device)
+            for v in (a, b))
+    (ar, ai), (br, bi) = _parts(a), _parts(b)
+    ordered = (ar < br) & ~torch.isnan(ai) & ~torch.isnan(bi)
+    return ordered | ((ar == br) & ((ai < bi) if strict else (ai <= bi)))
+
+
+def less(a, b):
+    """``a < b`` with numpy's promotion and order of complex numbers."""
+    a, b = promote(a, b)
+    return _lex(a, b, True) if _is_complex(a) or _is_complex(b) else a < b
+
+
+def less_equal(a, b):
+    """``a <= b`` with numpy's promotion and order of complex numbers."""
+    a, b = promote(a, b)
+    return _lex(a, b, False) if _is_complex(a) or _is_complex(b) \
+        else a <= b
+
+
+# unsigned dtypes PyTorch stores but has no arithmetic for: an operation
+# runs in the wider signed dtype and a result of that dtype is narrowed
+# back, wrapping as numpy's
+_WIDER = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def _apply(op, a, b):
+    """``op(a, b)`` on operands cast to numpy's result dtype."""
+    a, b = promote(a, b)
+    narrow = next((v.dtype for v in (a, b) if isinstance(v, torch.Tensor)),
+                  None)
+    wide = _WIDER.get(narrow)
+    if wide is None:
+        return op(a, b)
+    out = op(*(v.to(wide) if isinstance(v, torch.Tensor) else v
+               for v in (a, b)))
+    return out.to(narrow) if out.dtype == wide else out
 
 
 class Variable:
@@ -318,8 +486,9 @@ class Variable:
 
     # -- arithmetic ---------------------------------------------------------
     def _binary_op(self, other, op, reflexive=False):
-        """``op`` elementwise; against a Variable aligned by dimension
-        name (the union of dims, self's first; size-1 axes broadcast)."""
+        """``op`` elementwise, on operands cast to numpy's result dtype
+        (:func:`promote`); against a Variable aligned by dimension name
+        (the union of dims, self's first; size-1 axes broadcast)."""
         if isinstance(other, Variable):
             out_dims = list(self.dims)
             for d in other.dims:
@@ -331,11 +500,11 @@ class Variable:
                     raise ValueError('conflicting size for dim %r' % d)
             a = _expand_dims_to(self.data, self.dims, out_dims)
             b = _expand_dims_to(other.data, other.dims, out_dims)
-            data = op(b, a) if reflexive else op(a, b)
-            return Variable(tuple(out_dims), data)
-        other = _operand(other, self.data)
-        data = op(other, self.data) if reflexive else op(self.data, other)
-        return Variable(self.dims, data)
+        else:
+            out_dims, a, b = self.dims, self.data, _operand(other,
+                                                            self.data)
+        data = _apply(op, b, a) if reflexive else _apply(op, a, b)
+        return Variable(tuple(out_dims), data)
 
     # -- reductions ----------------------------------------------------------
     def reduce(self, func, dim=None, **kwargs):
@@ -364,7 +533,11 @@ class Variable:
 
     def _reduced(self, data, dims):
         if not isinstance(data, torch.Tensor):
-            data = as_array(data, getattr(self.data, 'device', None))
+            # a host payload's numeric result (an index, a truth value)
+            # stays on the host
+            device = self.data.device \
+                if isinstance(self.data, torch.Tensor) else 'cpu'
+            data = as_array(data, device)
         # keepdims-style reducers preserve rank; otherwise trust `dims`
         if data.ndim == self.ndim:
             dims = self.dims

@@ -313,7 +313,7 @@ def _promote_coords(variables, coords, names):
         a.pop('coordinates', None)
 
 
-def open_netcdf_file(path, decode_cf=True, device=None, chunks=None):
+def open_netcdf_file(path, decode_cf=True, chunks=None, device=None):
     """Read a netCDF file (netCDF-4/HDF5 or classic) into a Dataset with
     its numeric data on ``device`` (default ``cuda``).
 

@@ -388,7 +388,7 @@ def _exact_packed(values, alpha, n, margin_eps):
 
 
 def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
-                           return_count=False, device=None):
+                           capacity=None, return_count=False, device=None):
     """Exact change detection: the decisions of ``change_detection(...,
     stat_dtype='mixed')`` at about the kernels' cost.
 
@@ -421,9 +421,11 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
 
     Returns a (y, x, time) bool tensor on ``values``' device (and the
     suspect count with ``return_count``). Non-tensor ``values`` land on
-    ``device`` (default ``cuda``).
+    ``device`` (default ``cuda``). ``capacity`` is accepted for the
+    reference's signature and unused: every suspect is rescanned.
     """
     from .change_cuda import supports_rescan, unpack_flags
+    del capacity
     values = as_tensor(values, device)
     if not values.is_floating_point():
         values = values.to(torch.float32)

@@ -18,6 +18,8 @@ import contextlib
 import numpy as np
 import torch
 
+from ..core.variable import as_tensor
+
 __all__ = ['map_coordinates', 'grid_from_transforms',
            'separable_coords', 'axis_weights', 'matmul_resample',
            'footprint_axis', 'footprint_resample', 'FOOTPRINT_STATS',
@@ -77,15 +79,18 @@ def _clip_index(v, size):
     return torch.nan_to_num(v, nan=0.0).clamp(0, size - 1).to(torch.int64)
 
 
-def map_coordinates(values, rows, cols, method='bilinear', cval=np.nan):
+def map_coordinates(values, rows, cols, method='bilinear', cval=np.nan,
+                    device=None):
     """Sample ``values`` at fractional pixel coordinates.
 
     Parameters
     ----------
-    values : tensor (..., H, W)
-        Source raster(s); leading dims are batched.
-    rows, cols : tensors of identical shape S, on ``values``' device
-        Fractional pixel coordinates to sample at.
+    values : tensor or array (..., H, W)
+        Source raster(s); leading dims are batched. An array lands on
+        ``device`` (default ``cuda``), a tensor stays where it is.
+    rows, cols : tensors or arrays of identical shape S
+        Fractional pixel coordinates to sample at (arrays land on
+        ``values``' device).
     method : {'bilinear', 'nearest', 'cubic', 'cubic_spline', 'lanczos'}
         'cubic' is the Catmull-Rom 4x4 kernel (GDAL's cubic),
         'cubic_spline' the cubic B-spline, 'lanczos' the normalized
@@ -98,6 +103,8 @@ def map_coordinates(values, rows, cols, method='bilinear', cval=np.nan):
     -------
     tensor (..., *S)
     """
+    values = as_tensor(values, device)
+    rows, cols = (as_tensor(a, values.device) for a in (rows, cols))
     if method in ('bilinear', 'cubic', 'cubic_spline', 'lanczos') \
             and not (values.is_floating_point() or values.is_complex()):
         # fractional weights need a float accumulator
@@ -322,7 +329,7 @@ def _separable(wy, V, wx):
 
 
 def matmul_resample(values, wy, wym, wx, wxm, valid_y, valid_x, cval,
-                    expected, skipna=False):
+                    expected, skipna=False, device=None):
     """Separable resample as two matmuls per operator.
 
     ``out[..., i, j] = sum_hw wy[i, h] * values[..., h, w] * wx[j, w]``
@@ -335,7 +342,14 @@ def matmul_resample(values, wy, wym, wx, wxm, valid_y, valid_x, cval,
     ``skipna=True`` (the 'average' method) switches to a NaN-skipping
     weighted mean instead: non-finite contributors drop out of the
     normalization, and a cell with no finite contributor is NaN.
+
+    Arrays land on ``device`` (``values``; default ``cuda``) and on
+    ``values``' device (the plan); tensors stay where they are.
     """
+    values = as_tensor(values, device)
+    wy, wym, wx, wxm, valid_y, valid_x = (
+        as_tensor(a, values.device)
+        for a in (wy, wym, wx, wxm, valid_y, valid_x))
     dt = values.dtype
     wy, wym, wx, wxm = (w.to(dt) for w in (wy, wym, wx, wxm))
     finite = torch.isfinite(values)
@@ -442,7 +456,7 @@ def _masked_quantile(win, ok, q):
 
 
 def footprint_resample(values, idx_y, in_y, valid_y, idx_x, in_x,
-                       valid_x, stat, cval):
+                       valid_x, stat, cval, device=None):
     """Footprint resample: GDAL's order-statistic methods on the
     sample-center footprint model (separable warps only).
 
@@ -452,8 +466,13 @@ def footprint_resample(values, idx_y, in_y, valid_y, idx_x, in_x,
     destination yields ``cval``. ``med``/``q1``/``q3`` interpolate
     linearly; ``mode`` resolves ties to the smallest value. The plan
     tensors (``idx_*``, ``in_*``, ``valid_*``) lie on ``values``'
-    device.
+    device; arrays land there (and ``values`` on ``device``, default
+    ``cuda``).
     """
+    values = as_tensor(values, device)
+    idx_y, in_y, valid_y, idx_x, in_x, valid_x = (
+        as_tensor(a, values.device)
+        for a in (idx_y, in_y, valid_y, idx_x, in_x, valid_x))
     V = values
     dt = V.dtype
     ny, sy = idx_y.shape

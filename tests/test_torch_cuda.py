@@ -1875,3 +1875,102 @@ def test_host_oracles_against_the_card(cuda):
     got = tchange.change_detection_exact(t, 0.99, n=9).cpu().numpy()
     np.testing.assert_array_equal(
         got, native.change_detection_native(cube, 0.99, n=9))
+
+
+# -- F10, F11, F13b: the repaired payload faults on the card ------------------
+
+def _complex_series(dtype=torch.complex128, shape=(33, 41, 12), seed=21):
+    rng = np.random.RandomState(seed)
+    re = rng.randint(-3, 4, shape).astype(np.float64)
+    im = rng.randint(-3, 4, shape).astype(np.float64)
+    re[rng.rand(*shape) < 0.05] = np.nan
+    im[rng.rand(*shape) < 0.05] = np.nan
+    re[2, 3], im[2, 3] = np.nan, np.nan            # an all-NaN series
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(
+        dtype)
+
+
+def _same_on_both(got, ref, exact):
+    """The card's result against the CPU's: bit for bit (NaN where NaN)
+    or, where the two sum in another order, within rtol 1e-5, atol 1e-6
+    (float32 parts) or rtol 1e-12 (float64)."""
+    assert got.device.type == 'cuda' and got.dtype == ref.dtype
+    got = got.cpu()
+    if not (ref.is_floating_point() or ref.is_complex()):
+        assert torch.equal(got, ref)
+        return
+    parts = (lambda t: (t.real, t.imag)) if ref.is_complex() \
+        else (lambda t: (t,))
+    for g, r in zip(parts(got), parts(ref)):
+        tol = dict(rtol=0.0, atol=0.0) if exact else \
+            dict(rtol=1e-5, atol=1e-6) if r.dtype == torch.float32 else \
+            dict(rtol=1e-12, atol=0.0)
+        torch.testing.assert_close(g, r, equal_nan=True, **tol)
+
+
+COMPLEX_CALLS = {
+    'mean': (lambda o: o.mean('time'), False),
+    'std': (lambda o: o.std('time'), False),
+    'sum': (lambda o: o.sum('time'), False),
+    'prod': (lambda o: o.prod('time'), False),
+    'cumsum': (lambda o: o.cumsum('time'), False),
+    'median': (lambda o: o.median('time'), True),
+    'max': (lambda o: o.max('time'), True),
+    'min': (lambda o: o.min(('y', 'x')), True),
+    'argmax': (lambda o: o.argmax('time'), True),
+    'argmin': (lambda o: o.argmin('x'), True),
+    'diff': (lambda o: o.diff('time'), True),
+    'sub': (lambda o: o - o.isel(time=0), True),
+    'clip': (lambda o: o.clip(-1 + 1j, 2), True),
+    'round': (lambda o: (o / 3).round(2), True),
+    'lt': (lambda o: o < (1 + 1j), True),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.complex64, torch.complex128])
+@pytest.mark.parametrize('name', sorted(COMPLEX_CALLS))
+def test_complex_payload_on_the_card_equals_the_cpu(cuda, name, dtype):
+    from nd_tpu_torch.core import DataArray
+    call, exact = COMPLEX_CALLS[name]
+    data = _complex_series(dtype)
+    got = call(DataArray(data.to(cuda), dims=('y', 'x', 'time')))
+    ref = call(DataArray(data, dims=('y', 'x', 'time')))
+    assert got.dims == ref.dims
+    _same_on_both(got.data, ref.data, exact)
+
+
+INT_CALLS = {
+    'int32 round': (torch.int32, lambda o: o.round(), torch.int32),
+    'int32 round(-1)': (torch.int32, lambda o: o.round(-1), torch.int32),
+    'uint8 round': (torch.uint8, lambda o: o.round(), torch.uint8),
+    'bool round': (torch.bool, lambda o: o.round(), torch.float16),
+    'bool argmax': (torch.bool, lambda o: o.argmax('time'), torch.int64),
+    'bool argmin': (torch.bool, lambda o: o.argmin('x'), torch.int64),
+    'int32 clip': (torch.int32, lambda o: o.clip(2, 7.5), torch.float64),
+    'int32 + 1.5': (torch.int32, lambda o: o + 1.5, torch.float64),
+    'int32 ** 0.5': (torch.int32, lambda o: o ** 0.5, torch.float64),
+    'int32 ** 2': (torch.int32, lambda o: o ** 2, torch.int32),
+    'uint16 * 1e-4': (torch.uint16, lambda o: o * 1e-4, torch.float64),
+    'uint16 + 1000': (torch.uint16, lambda o: o + 1000, torch.uint16),
+    'int32 + float32': (torch.int32, lambda o: o + o.astype('float32'),
+                        torch.float64),
+    'int8 + float32': (torch.int8, lambda o: o + o.astype('float32'),
+                       torch.float32),
+    'bool + float32': (torch.bool, lambda o: o + o.astype('float32'),
+                       torch.float32),
+    'int32 / int32': (torch.int32, lambda o: o / (o + 1), torch.float64),
+}
+
+
+@pytest.mark.parametrize('name', sorted(INT_CALLS))
+def test_integer_and_bool_payload_on_the_card_equals_the_cpu(cuda, name):
+    from nd_tpu_torch.core import DataArray
+    dtype, call, expect = INT_CALLS[name]
+    vals = np.random.RandomState(22).randint(0, 9, (17, 23, 6))
+    data = torch.from_numpy(vals > 4) if dtype == torch.bool \
+        else torch.from_numpy(vals).to(dtype)
+    got = call(DataArray(data.to(cuda), dims=('y', 'x', 'time')))
+    ref = call(DataArray(data, dims=('y', 'x', 'time')))
+    assert got.dtype == ref.dtype == expect
+    # the card's float64 pow rounds otherwise than the CPU's
+    _same_on_both(got.data, ref.data, name != 'int32 ** 0.5')

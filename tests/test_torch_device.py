@@ -17,6 +17,7 @@ from nd_tpu_torch.ops import change as tchange
 from nd_tpu_torch.ops import change_cuda, change_scan_cuda
 from nd_tpu_torch.ops import conv as tconv
 from nd_tpu_torch.ops import fft as tfft
+from nd_tpu_torch.ops import interp as tinterp
 from nd_tpu_torch.ops import nlmeans as tnlmeans
 from nd_tpu_torch.models import change_features, load_params
 from nd_tpu_torch.ops.stats import chi2_cdf
@@ -120,6 +121,20 @@ ENTRY_POINTS = {
     'open_beam_dimap': lambda **kw: (lambda ds: [ds['Sigma0_VV'].data,
                                                  ds['lat'].data])(
         ndt.io.open_beam_dimap(_files()['dim'], **kw)),
+    'map_coordinates': lambda **kw: [tinterp.map_coordinates(
+        np.ones((3, 4)), np.array([[0.5, 1.0]]), np.array([[1.5, 2.0]]),
+        **kw)],
+    'matmul_resample': lambda **kw: [tinterp.matmul_resample(
+        np.ones((3, 4), np.float32),
+        *(tinterp.axis_weights(np.array([0.5, 1.5]), 3, 'bilinear')[:2]
+          + tinterp.axis_weights(np.array([1.0, 2.5]), 4, 'bilinear')[:2]),
+        np.ones(2, bool), np.ones(2, bool), np.nan, 4.0, **kw)],
+    'footprint_resample': lambda **kw: [tinterp.footprint_resample(
+        np.ones((4, 6)), *(tinterp.footprint_axis(np.array([0.5, 2.5]), 4,
+                                                   2.0)
+                           + tinterp.footprint_axis(np.array([1.0, 3.0]),
+                                                    6, 2.0)),
+        'med', np.nan, **kw)],
 }
 
 _FILES = {}

@@ -24,7 +24,8 @@ COUNTED = (conv_cuda, nlmeans_cuda, change_cuda)
 
 
 def test_import_loads_no_jax():
-    code = ('import sys, nd_tpu_torch, nd_tpu_torch.ops.change_cuda, '
+    code = ('import sys; sys.path.insert(0, "examples_torch"); '
+            'import nd_tpu_torch, nd_tpu_torch.ops.change_cuda, '
             'nd_tpu_torch.ops.change_scan_cuda, '
             'nd_tpu_torch.ops.conv_cuda, nd_tpu_torch.ops.nlmeans_cuda, '
             'nd_tpu_torch.warp, nd_tpu_torch.accessors, nd_tpu_torch.crs, '
@@ -37,7 +38,8 @@ def test_import_loads_no_jax():
             'nd_tpu_torch.vector, nd_tpu_torch.ops.rasterize, '
             'nd_tpu_torch.parallel, nd_tpu_torch.parallel.distributed, '
             'nd_tpu_torch.tracing, nd_tpu_torch.visualize, '
-            'nd_tpu_torch.visualize_map; '
+            'nd_tpu_torch.visualize_map, continental_mosaic, '
+            'geostationary_disk, out_of_core_mosaic, timeseries_gapfill; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "nd_tpu")); print(bad); '
             'sys.exit(1 if bad else 0)')
