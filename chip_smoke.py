@@ -92,15 +92,19 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      staging kernel reaches, from single calls and from runs of 50
      back-to-back calls between one event pair (the host's share of a
      single call shows in the difference);
- 15. the long-tap route: ``GaussianFilter(dims=('y','x','time'),
+ 15. the long-tap kernel: ``GaussianFilter(dims=('y','x','time'),
      sigma=16)`` (129 taps) on path C's C11 DataArray, counted (one
-     sepconv pass per axis with its taps in shared memory), max abs diff
-     0 to the same passes' plain versions, timed;
- 16. the wide-window route: ``NLMeansFilter(dims=('y','x','time'),
+     pass per axis, each on ``csrc/sepconv_long.cu``), max abs diff 0 to
+     the same passes' plain versions, timed whole and pass by pass
+     beside the tiled kernel's long-tap route on the same pass (the
+     parent's route); then that route where it still runs, a long axis
+     beside a short one (``sepconv2`` with 3 and 129 taps), counted, max
+     abs diff 0, timed;
+ 16. the wide-window kernel: ``NLMeansFilter(dims=('y','x','time'),
      r=(10,10,3), f=3)`` on a 128 x 128 x 56 x 4 slab of the long stack
-     (its halo tile of every variable fits no block: the global-halo
-     route), counted, within rtol 1e-5, atol 1e-6 of the plain version,
-     timed;
+     (its halo tile of every variable fits no block of the tiled kernel:
+     ``csrc/nlmeans_wide.cu``), counted, within rtol 1e-5, atol 1e-6 of
+     the plain version, timed;
 
 and the georeferencing path (``generate_test_dataset`` cubes, float32;
 each phase held against the same port call on the CPU, timed as the
@@ -457,12 +461,18 @@ KERNELS = {
                       'launches'),
     'stream_probe': ('nd_tpu_torch/csrc/stream_probe.cu', 'bench.py:176',
                      'stream_cuda', 'launches'),
-    # routes of the kernels above, counted apart (the reference sends
-    # these shapes to XLA)
+    # the tiled sepconv kernel's long-tap route, counted apart: a long
+    # axis beside a short one (the reference sends long taps to XLA)
     'sepconv_long': ('nd_tpu_torch/csrc/sepconv.cu', 'nd_tpu/ops/conv.py:567',
                      'conv_cuda', 'launches_long'),
-    'nlmeans_wide': ('nd_tpu_torch/csrc/nlmeans.cu', 'nd_tpu/ops/nlmeans.py:46',
-                     'nlmeans_cuda', 'launches_wide'),
+    # kernels of shapes the reference sends to XLA: one long axis, wide
+    # NLMeans windows
+    'sepconv_long_axis': ('nd_tpu_torch/csrc/sepconv_long.cu',
+                          'nd_tpu/ops/conv.py:567', 'conv_cuda',
+                          'launches_long_axis'),
+    'nlmeans_wide': ('nd_tpu_torch/csrc/nlmeans_wide.cu',
+                     'nd_tpu/ops/nlmeans.py:46', 'nlmeans_cuda',
+                     'launches_wide'),
     # the reference runs non-separable kernels through XLA's convolution
     # (no Pallas kernel); the port's own stencil
     'stencil': ('nd_tpu_torch/csrc/stencil.cu', 'nd_tpu/ops/conv.py:123',
@@ -3645,6 +3655,159 @@ def run_example_phases(dev, card, reset_counts, read_counts, root):
     return counts
 
 
+def run_wide_phases(ndt, card, cuda_ms, once_ms, time_rows, reset_counts,
+                    read_counts, c11_da, stack, names, err):
+    """Phases 15-16: the long-tap kernel (``GaussianFilter`` sigma 16 on
+    path C's C11, pass by pass beside the tiled kernel's long-tap route,
+    then that route on a long axis beside a short one) and the
+    wide-window NLMeans kernel on a 128 x 128 x 56 x 4 slab of the long
+    stack. Returns the three runs' launch counts."""
+    import torch
+    from nd_tpu_torch.core import Dataset
+    from nd_tpu_torch.ops import conv_cuda, nlmeans_cuda
+    from nd_tpu_torch.ops.conv import gaussian_kernel1d
+    ny, nx, kl = c11_da.data.shape
+    mpix_l = ny * nx * kl / 1e6
+    c11v = c11_da.data.contiguous().reshape(ny, nx, kl, 1)
+    # ---- 15. the long-tap kernel, counted -----------------------------------------
+    g16 = np.flip(gaussian_kernel1d(16.0))          # 129 taps, as convolve
+    gauss16 = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=16)
+
+    def pass_views(x):
+        """ops/conv.py ``_sep_pass``'s (1, outer, n, inner) view of each
+        axis of a (y, x, time) tensor."""
+        return [(1, int(np.prod(x.shape[:ax])), x.shape[ax],
+                 int(np.prod(x.shape[ax + 1:]))) for ax in range(3)]
+
+    def plain_long(x):
+        """The same one-axis passes, each by sepconv's plain version."""
+        out = x
+        for view in pass_views(x):
+            out = conv_cuda.sepconv2_plain(out.contiguous().reshape(view),
+                                           np.ones(1), g16).reshape(x.shape)
+        return out
+
+    reset_counts()
+    smooth16 = gauss16.apply(c11_da)
+    torch.cuda.synchronize()
+    counts_long = read_counts()
+    check(counts_long['sepconv_long_axis'] == 3
+          and counts_long['sepconv'] == 0
+          and counts_long['sepconv_long'] == 0, 'long-tap kernels',
+          counts_long)
+    diff = float((smooth16.data - plain_long(c11_da.data)).abs().max())
+    check(diff == 0 and smooth16.dims == ('y', 'x', 'time'), 'long taps',
+          diff)
+    err['sepconv_long_axis'] = diff
+    phase(15, 'GaussianFilter(dims=(y,x,time), sigma=16): %d taps per axis, '
+          'one pass per axis on the long-tap kernel, max abs diff %.3g vs '
+          'the plain passes; launches %s' % (len(g16), diff,
+                                             json.dumps(counts_long)))
+    del smooth16
+    time_rows(15, [
+        ('GaussianFilter sigma=16', 'sepconv_long_axis', mpix_l,
+         lambda: gauss16.apply(c11_da), lambda: plain_long(c11_da.data),
+         sepconv_bound(c11v, g16, g16, g16), None, False)])
+    # each pass alone, beside the tiled kernel's long-tap route (the
+    # parent's) on the same view, in turns (new, tiled, tiled, new)
+    x15 = c11_da.data
+    split = []
+    for name, view in zip(('y', 'x', 'time'), pass_views(x15)):
+        xv = x15.contiguous().reshape(view)
+        ref15 = conv_cuda.sepconv2_plain(xv, np.ones(1), g16)
+        tiled = conv_cuda.sepconv2_tiled(xv, np.ones(1), g16)
+        torch.cuda.synchronize()
+        check(float((tiled - ref15).abs().max()) == 0, 'tiled long route',
+              name)
+
+        def new_pass(xv=xv):
+            return conv_cuda.sepconv2(xv, np.ones(1), g16)
+
+        def old_pass(xv=xv):
+            return conv_cuda.sepconv2_tiled(xv, np.ones(1), g16)
+        runs = {'new': [], 'old': []}
+        for which in ('new', 'old', 'old', 'new'):
+            runs[which].append(cuda_ms(new_pass if which == 'new'
+                                       else old_pass))
+        k_ms, o_ms = min(runs['new']), min(runs['old'])
+        bnd = sepconv_bound(xv, g16)
+        plan15 = conv_cuda._long_plan(view[1], view[2], view[3], len(g16), 4)
+        split.append(k_ms)
+        phase(15, 'pass %s %s: long-tap kernel %.3f ms (the tiled route '
+              '%.3f ms, x%.2f) | bound %.3f ms (%s), %.1f%% of it; f32 '
+              'multiplies and adds issue apart (-fmad=false), so half the '
+              'counted rate bounds a bit-equal kernel | plan %s | %s'
+              % (name, view, k_ms, o_ms, o_ms / k_ms, bnd[0], bnd[1],
+                 100.0 * bnd[0] / k_ms, plan15, card))
+        x15 = ref15.reshape(x15.shape)
+        del ref15, tiled
+    phase(15, 'passes y + x + time: %.3f ms | %s' % (sum(split), card))
+    # the tiled route where it still runs: a long axis beside a short one
+    t3 = np.array([0.25, 0.5, 0.25])
+    xm = c11v.reshape(1, ny, nx, kl)
+    reset_counts()
+    mixed = conv_cuda.sepconv2(xm, t3, g16)
+    torch.cuda.synchronize()
+    counts_mixed = read_counts()
+    check(counts_mixed['sepconv_long'] == 1 and counts_mixed['sepconv'] == 1
+          and counts_mixed['sepconv_long_axis'] == 0, 'mixed long taps',
+          counts_mixed)
+    diff = float((mixed - conv_cuda.sepconv2_plain(xm, t3, g16)).abs().max())
+    check(diff == 0, 'mixed long taps', diff)
+    err['sepconv_long'] = diff
+    phase(15, 'sepconv2 (1,y,x,56), 3 taps over y beside 129 over x: the '
+          'tiled kernel\'s long-tap route, max abs diff %.3g; launches %s'
+          % (diff, json.dumps(counts_mixed)))
+    time_rows(15, [
+        ('sepconv2 3 x 129 taps', 'sepconv_long', mpix_l,
+         lambda: conv_cuda.sepconv2(xm, t3, g16),
+         lambda: conv_cuda.sepconv2_plain(xm, t3, g16),
+         sepconv_bound(xm, t3, g16), None, False)])
+    del mixed, x15
+
+    # ---- 16. the wide-window kernel, counted --------------------------------------
+    rw, fw = (10, 10, 3), (3, 3, 3)
+    slab = stack[:128, :128].contiguous()                 # 128 x 128 x 56 x 4
+    plan = nlmeans_cuda._tile_plan(tuple(slab.shape), rw, fw, 4)
+    check(plan['route'] == 'wide', 'wide-window kernel', plan)
+    nlm_wide = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=rw, f=3,
+                                 sigma=2, h=3)
+    ds_slab = Dataset({v: (('y', 'x', 'time'), slab[..., i])
+                       for i, v in enumerate(names)})
+    reset_counts()
+    wide = nlm_wide.apply(ds_slab)
+    torch.cuda.synchronize()
+    counts_wide = read_counts()
+    check(counts_wide['nlmeans_wide'] == 1
+          and counts_wide['nlmeans_3d'] == 0, 'wide-window kernels',
+          counts_wide)
+    wide = torch.stack([wide[v].data for v in names], -1)
+    ref_w, wide_plain_ms = once_ms(
+        lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0))
+    diff = (wide - ref_w).abs()
+    excess = float((diff - (1e-6 + 1e-5 * ref_w.abs())).max())
+    check(bool(torch.isfinite(wide).all()) and excess <= 0, 'wide window',
+          excess)
+    err['nlmeans_wide'] = float(diff.max())
+    phase(16, 'NLMeansFilter(dims=(y,x,time), r=%r, f=3) on %s: plan %s; '
+          'max abs diff %.3g, max |diff| / (1e-6 + 1e-5 |ref|) %.3f (rtol '
+          '1e-5, atol 1e-6 held); plain once %.1f ms; launches %s'
+          % (rw, tuple(slab.shape), plan, err['nlmeans_wide'],
+             float((diff / (1e-6 + 1e-5 * ref_w.abs())).max()),
+             wide_plain_ms, json.dumps(counts_wide)))
+    del wide, ref_w, diff
+    time_rows(16, [
+        ('nlmeans_3d wide r=(10,10,3) f=3', 'nlmeans_wide',
+         slab.numel() / 4 / 1e6,
+         lambda: nlmeans_cuda.nlmeans_3d(slab, rw, fw, 2.0, 3.0),
+         lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0),
+         nlmeans_bound(slab, rw, fw), None, True)])
+    phase(16, 'nlmeans_3d wide: f32 multiplies and adds issue apart '
+          '(-fmad=false), so half the counted rate bounds this kernel | %s'
+          % card)
+    return counts_long, counts_mixed, counts_wide
+
+
 def main():
     started = time.perf_counter()
     import torch
@@ -4491,78 +4654,10 @@ def main():
              2 * nbytes / run_add / 1e6, run_add / run_k, row['ms'],
              row['library_ms'], card))
 
-    # ---- 15. the long-tap route, counted ------------------------------------------
-    g16 = np.flip(gaussian_kernel1d(16.0))          # 129 taps, as convolve
-    gauss16 = ndt.GaussianFilter(dims=('y', 'x', 'time'), sigma=16)
-
-    def plain_long(x):
-        """The same one-axis passes (ops/conv.py ``_sep_pass``'s (1, outer,
-        n, inner) views), each by sepconv's plain version."""
-        out = x
-        for ax in range(3):
-            shape = out.shape
-            view = (1, int(np.prod(shape[:ax])), shape[ax],
-                    int(np.prod(shape[ax + 1:])))
-            out = conv_cuda.sepconv2_plain(out.contiguous().reshape(view),
-                                           np.ones(1), g16).reshape(shape)
-        return out
-
-    reset_counts()
-    smooth16 = gauss16.apply(c11_da)
-    torch.cuda.synchronize()
-    counts_long = read_counts()
-    check(counts_long['sepconv_long'] == 3 and counts_long['sepconv'] == 3,
-          'long-tap kernels', counts_long)
-    diff = float((smooth16.data - plain_long(c11_da.data)).abs().max())
-    check(diff == 0 and smooth16.dims == ('y', 'x', 'time'), 'long taps',
-          diff)
-    err['sepconv_long'] = diff
-    phase(15, 'GaussianFilter(dims=(y,x,time), sigma=16): %d taps per axis, '
-          'one pass per axis, max abs diff %.3g vs the plain passes; '
-          'launches %s' % (len(g16), diff, json.dumps(counts_long)))
-    del smooth16
-    time_rows(15, [
-        ('GaussianFilter sigma=16', 'sepconv_long', mpix_l,
-         lambda: gauss16.apply(c11_da), lambda: plain_long(c11_da.data),
-         sepconv_bound(c11v, g16, g16, g16), None, False)])
-
-    # ---- 16. the wide-window route, counted ---------------------------------------
-    rw, fw = (10, 10, 3), (3, 3, 3)
-    slab = stack[:128, :128].contiguous()                 # 128 x 128 x 56 x 4
-    plan = nlmeans_cuda._tile_plan(tuple(slab.shape), rw, fw, 4)
-    check(plan['route'] == 'global', 'wide-window route', plan)
-    nlm_wide = ndt.NLMeansFilter(dims=('y', 'x', 'time'), r=rw, f=3,
-                                 sigma=2, h=3)
-    ds_slab = Dataset({v: (('y', 'x', 'time'), slab[..., i])
-                       for i, v in enumerate(names)})
-    reset_counts()
-    wide = nlm_wide.apply(ds_slab)
-    torch.cuda.synchronize()
-    counts_wide = read_counts()
-    check(counts_wide['nlmeans_wide'] == 1
-          and counts_wide['nlmeans_3d'] == 1, 'wide-window kernels',
-          counts_wide)
-    wide = torch.stack([wide[v].data for v in names], -1)
-    ref_w, wide_plain_ms = once_ms(
-        lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0))
-    diff = (wide - ref_w).abs()
-    excess = float((diff - (1e-6 + 1e-5 * ref_w.abs())).max())
-    check(bool(torch.isfinite(wide).all()) and excess <= 0, 'wide window',
-          excess)
-    err['nlmeans_wide'] = float(diff.max())
-    phase(16, 'NLMeansFilter(dims=(y,x,time), r=%r, f=3) on %s: route %s, '
-          'tile %r, %d bytes of shared memory a block; max abs diff %.3g '
-          '(rtol 1e-5, atol 1e-6 held); plain once %.1f ms; launches %s'
-          % (rw, tuple(slab.shape), plan['route'], plan['tile'],
-             plan['smem'], err['nlmeans_wide'], wide_plain_ms,
-             json.dumps(counts_wide)))
-    del wide, ref_w, diff
-    time_rows(16, [
-        ('nlmeans_3d wide r=(10,10,3) f=3', 'nlmeans_wide',
-         slab.numel() / 4 / 1e6,
-         lambda: nlmeans_cuda.nlmeans_3d(slab, rw, fw, 2.0, 3.0),
-         lambda: nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0),
-         nlmeans_bound(slab, rw, fw), None, True)])
+    # ---- 15-16. the long-tap and wide-window kernels, counted
+    counts_long, counts_mixed, counts_wide = run_wide_phases(
+        ndt, card, cuda_ms, once_ms, time_rows, reset_counts, read_counts,
+        c11_da, stack, names, err)
 
     # ---- W1-W5. the georeferencing path, its chain counted ------------------
     counts_w5 = run_warp_phases(ndt, dev, card, cuda_ms, reset_counts,
@@ -4631,7 +4726,8 @@ def main():
 
     totals = {name: sum(c[name] for c in (launches, counts_a, counts_b,
                                           counts_c, counts_p, counts_long,
-                                          counts_wide, counts_w5, counts_t1,
+                                          counts_mixed, counts_wide,
+                                          counts_w5, counts_t1,
                                           counts_i2, counts_j) + counts_s
                                          + counts_o + counts_mesh + counts_v
                                          + tuple(counts_e))

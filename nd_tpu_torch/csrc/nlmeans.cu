@@ -37,12 +37,8 @@
 // Wide windows: where the halo tile of every variable fits no block's
 // shared memory (4 float32 variables at r = (10, 10, 3), f = 3, or float64
 // at r = (5, 5, 5), f = 2, on any tile of 128 outputs), the wrapper's
-// _tile_plan takes the global-halo route: the same kernel with GLOBAL set
-// keeps only the two scratch planes in shared memory and reads the
-// neighbours in steps (1) and (3) and the centre from device memory (L1
-// and L2 hold the tile's neighbourhood), each position reflect-mapped at
-// the read, the same values the staged tile holds. The plan picks the
-// route from the shapes before the launch.
+// _tile_plan sends the call to nlmeans_wide.cu instead; the plan picks
+// the kernel from the shapes before the launch.
 //
 // Numerics: the same operations in the same order as the plain PyTorch
 // version (ops/nlmeans.py nlmeans_plain): the squared differences summed
@@ -100,33 +96,20 @@ __device__ __forceinline__ T weight(T patch, const Params<T>& p) {
 }
 
 // Shared-memory elements of one block: the halo tile of all nv
-// variables (none on the global-halo route) and two scratch planes of the
-// largest D-extended region.
+// variables and two scratch planes of the largest D-extended region.
 __host__ __device__ inline void tile_sizes(int ty, int tx, int tt, int ry,
                                            int rx, int rt, int fy, int fx,
-                                           int ft, int nv, bool global,
-                                           long long* tile,
+                                           int ft, int nv, long long* tile,
                                            long long* region) {
-  *tile = global ? 0
-                 : (long long)nv * (ty + 2 * (ry + fy)) *
-                       (tx + 2 * (rx + fx)) * (tt + 2 * (rt + ft));
+  *tile = (long long)nv * (ty + 2 * (ry + fy)) * (tx + 2 * (rx + fx)) *
+          (tt + 2 * (rt + ft));
   *region = (long long)(ty + ry + 2 * fy) * (tx + rx + 2 * fx) *
             (tt + rt + 2 * ft);
 }
 
-// The element (y, x, t, v = 0) of the cube at a position, reflect-mapped
-// as the staged halo tile maps it.
-template <typename T>
-__device__ __forceinline__ const T* at(const T* __restrict__ in, int y, int x,
-                                       int t, const Params<T>& p, int nv) {
-  return in + (((long long)reflect_src(y, p.ny) * p.nx + reflect_src(x, p.nx)) *
-                   p.nt + reflect_src(t, p.nt)) * nv;
-}
-
 // NV > 0: nv == NV with register accumulators; NV == 0: any nv, the
-// output row is the accumulator. GLOBAL: the global-halo route (no halo
-// tile in shared memory).
-template <typename T, int NV, bool GLOBAL>
+// output row is the accumulator.
+template <typename T, int NV>
 __global__ void __launch_bounds__(512)
     nlmeans_tiled(const T* __restrict__ in, T* __restrict__ out,
                   Params<T> p) {
@@ -139,7 +122,7 @@ __global__ void __launch_bounds__(512)
   const int sX = Et, sY = Ex * Et, sV = Ey * Ex * Et;
   long long tile_n, region_n;
   tile_sizes(p.ty, p.tx, p.tt, p.ry, p.rx, p.rt, p.fy, p.fx, p.ft, nv,
-             GLOBAL, &tile_n, &region_n);
+             &tile_n, &region_n);
   T* const bufA = tile + tile_n;
   T* const bufB = bufA + region_n;
 
@@ -155,7 +138,7 @@ __global__ void __launch_bounds__(512)
   // 1. the halo tile, reflect applied at the load; consecutive threads
   //    read consecutive (t, v) elements of a (y, x) row
   const int row_n = Et * nv;
-  for (int e = tid; !GLOBAL && e < (int)tile_n; e += nth) {
+  for (int e = tid; e < (int)tile_n; e += nth) {
     const int row = e / row_n;
     const int rem = e - row * row_n;
     const int it = rem / nv;
@@ -232,30 +215,19 @@ __global__ void __launch_bounds__(512)
         const int it = e - q * ct;
         const int iy = fdiv(q, cx, inv_x);
         const int ix = q - iy * cx;
-        // the pair's two positions: variable v at a[v * va] and b[v * va]
-        const T *a, *b;
-        int va;
-        if constexpr (GLOBAL) {
-          const int gy = y0 + lo_y - p.fy + iy, gx = x0 + lo_x - p.fx + ix,
-                    gt = t0 + lo_t - p.ft + it;
-          a = at(in, gy, gx, gt, p, nv);
-          b = at(in, gy + dy, gx + dx, gt + dt, p, nv);
-          va = 1;
-        } else {
-          a = tile + base + iy * sY + ix * sX + it;
-          b = a + doff;
-          va = sV;
-        }
+        // the pair's two positions: variable v at a[v * sV] and b[v * sV]
+        const T* a = tile + base + iy * sY + ix * sX + it;
+        const T* b = a + doff;
         T d = a[0] - b[0];
         T s = d * d;
 #pragma unroll
         for (int v = 1; v < (NV > 0 ? NV : 1); ++v) {
-          d = a[v * va] - b[v * va];
+          d = a[v * sV] - b[v * sV];
           s = s + d * d;
         }
         if (NV == 0) {
           for (int v = 1; v < nv; ++v) {
-            d = a[v * va] - b[v * va];
+            d = a[v * sV] - b[v * sV];
             s = s + d * d;
           }
         }
@@ -331,26 +303,19 @@ __global__ void __launch_bounds__(512)
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir) {
         const T w = W[wi + (dir == 0 ? fwd0 : bwd0)];
-        const int sgn = dir == 0 ? 1 : -1;
-        const T* val;
-        if constexpr (GLOBAL)
-          val = at(in, y0 + oy + sgn * dy, x0 + ox + sgn * dx,
-                   t0 + ot + sgn * dt, p, nv);
-        else
-          val = tile + obase[k] + sgn * doff;
+        const T* val = tile + obase[k] + (dir == 0 ? doff : -doff);
         wsum[k] = wsum[k] + w;
         if (p.use_neff) {
           wx[k] = wx[k] + w * w;
         } else {
           wx[k] = w > wx[k] ? w : wx[k];
         }
-        const int vs = GLOBAL ? 1 : sV;
         if (NV > 0) {
 #pragma unroll
           for (int v = 0; v < (NV > 0 ? NV : 1); ++v)
-            acc[k][v] = acc[k][v] + w * val[v * vs];
+            acc[k][v] = acc[k][v] + w * val[v * sV];
         } else {
-          for (int v = 0; v < nv; ++v) o[v] = o[v] + w * val[v * vs];
+          for (int v = 0; v < nv; ++v) o[v] = o[v] + w * val[v * sV];
         }
       }
     }
@@ -374,36 +339,34 @@ __global__ void __launch_bounds__(512)
     const T total = wsum[k] + w_self;
     const long long oi =
         (((long long)(y0 + oy) * p.nx + (x0 + ox)) * p.nt + (t0 + ot)) * nv;
-    const T* center = GLOBAL ? in + oi : tile + obase[k];
-    const int vs = GLOBAL ? 1 : sV;
+    const T* center = tile + obase[k];
     T* o = out + oi;
     if (NV > 0) {
 #pragma unroll
       for (int v = 0; v < (NV > 0 ? NV : 1); ++v)
-        o[v] = (acc[k][v] + w_self * center[v * vs]) / total;
+        o[v] = (acc[k][v] + w_self * center[v * sV]) / total;
     } else {
       for (int v = 0; v < nv; ++v)
-        o[v] = (o[v] + w_self * center[v * vs]) / total;
+        o[v] = (o[v] + w_self * center[v * sV]) / total;
     }
   }
 }
 
-template <typename T, int NV, bool GLOBAL>
+template <typename T, int NV>
 int launch_nv(const T* src, T* dst, const Params<T>& p, long long blocks,
               int threads, size_t smem, cudaStream_t s) {
   int err = (int)cudaFuncSetAttribute(
-      nlmeans_tiled<T, NV, GLOBAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      nlmeans_tiled<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err) return err;
-  nlmeans_tiled<T, NV, GLOBAL><<<(unsigned)blocks, threads, smem, s>>>(
-      src, dst, p);
+  nlmeans_tiled<T, NV><<<(unsigned)blocks, threads, smem, s>>>(src, dst, p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
            int rx, int rt, int fy, int fx, int ft, int ty, int tx, int tt,
-           int global, double sigma, double h, double n_eff, void* stream) {
+           double sigma, double h, double n_eff, void* stream) {
   if ((long long)ny * nx * nt == 0 || nv == 0) return 0;
   // the packed output coordinates take 8 bits per axis
   if (ty < 1 || tx < 1 || tt < 1 || ty > 255 || tx > 255 || tt > 255)
@@ -412,8 +375,7 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
   const int threads = ((nout + kOut - 1) / kOut + 31) / 32 * 32;
   if (threads > 512) return (int)cudaErrorInvalidValue;
   long long tile_n, region_n;
-  tile_sizes(ty, tx, tt, ry, rx, rt, fy, fx, ft, nv, global != 0, &tile_n,
-             &region_n);
+  tile_sizes(ty, tx, tt, ry, rx, rt, fy, fx, ft, nv, &tile_n, &region_n);
   const size_t smem = (size_t)(tile_n + 2 * region_n) * sizeof(T);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((ny + ty - 1) / ty) *
@@ -431,17 +393,12 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
-  if (global) {   // wide windows: the cube's 4 variables, or any nv
-    if (nv == 4)
-      return launch_nv<T, 4, true>(src, dst, p, blocks, threads, smem, s);
-    return launch_nv<T, 0, true>(src, dst, p, blocks, threads, smem, s);
-  }
   switch (nv) {
-    case 1: return launch_nv<T, 1, false>(src, dst, p, blocks, threads, smem, s);
-    case 2: return launch_nv<T, 2, false>(src, dst, p, blocks, threads, smem, s);
-    case 3: return launch_nv<T, 3, false>(src, dst, p, blocks, threads, smem, s);
-    case 4: return launch_nv<T, 4, false>(src, dst, p, blocks, threads, smem, s);
-    default: return launch_nv<T, 0, false>(src, dst, p, blocks, threads, smem, s);
+    case 1: return launch_nv<T, 1>(src, dst, p, blocks, threads, smem, s);
+    case 2: return launch_nv<T, 2>(src, dst, p, blocks, threads, smem, s);
+    case 3: return launch_nv<T, 3>(src, dst, p, blocks, threads, smem, s);
+    case 4: return launch_nv<T, 4>(src, dst, p, blocks, threads, smem, s);
+    default: return launch_nv<T, 0>(src, dst, p, blocks, threads, smem, s);
   }
 }
 
@@ -449,22 +406,20 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
 
 extern "C" {
 
-// global: 1 for the global-halo route (wide windows), 0 for the staged
-// halo tile.
 int nd_nlmeans_f32(const void* in, void* out, int ny, int nx, int nt, int nv,
                    int ry, int rx, int rt, int fy, int fx, int ft, int ty,
-                   int tx, int tt, int global, double sigma, double h,
-                   double n_eff, void* stream) {
+                   int tx, int tt, double sigma, double h, double n_eff,
+                   void* stream) {
   return launch<float>(in, out, ny, nx, nt, nv, ry, rx, rt, fy, fx, ft, ty,
-                       tx, tt, global, sigma, h, n_eff, stream);
+                       tx, tt, sigma, h, n_eff, stream);
 }
 
 int nd_nlmeans_f64(const void* in, void* out, int ny, int nx, int nt, int nv,
                    int ry, int rx, int rt, int fy, int fx, int ft, int ty,
-                   int tx, int tt, int global, double sigma, double h,
-                   double n_eff, void* stream) {
+                   int tx, int tt, double sigma, double h, double n_eff,
+                   void* stream) {
   return launch<double>(in, out, ny, nx, nt, nv, ry, rx, rt, fy, fx, ft, ty,
-                        tx, tt, global, sigma, h, n_eff, stream);
+                        tx, tt, sigma, h, n_eff, stream);
 }
 
 }  // extern "C"

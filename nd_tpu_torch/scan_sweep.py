@@ -1,7 +1,7 @@
 """The forced-plan sweeps behind ``ops.change_scan_cuda._scan_plan`` and
 ``ops.change_cuda._round_plan``, and the sepconv kernel's tap routes.
 
-    python -m nd_tpu_torch.scan_sweep [scan|round|taps|library|stencil]
+    python -m nd_tpu_torch.scan_sweep [scan|round|taps|library|stencil|routes]
                                           # default: scan, round, taps
 
 scan: runs the long-series scan kernel with every plan of
@@ -52,6 +52,22 @@ unrolled build, the unrolled and the generic build in turns (unrolled,
 generic, generic, unrolled; ``stencil_cuda.UNROLLED``). A tree without
 those knobs (an older checkout) prints the first line only. Run it from
 two checkouts in one call to compare two versions of the kernel.
+
+routes (not in the default set): the two wide-window rows of
+``chip_smoke.py``, phases 15 and 16, on its long stack: each of the
+three one-axis passes of ``GaussianFilter(dims=('y', 'x', 'time'),
+sigma=16)`` (129 taps; the (1, outer, n, inner) views of ``ops/conv.py``
+over C11, each pass fed the previous one's output) through ``sepconv2``
+and, where the tree has it, through ``sepconv2_tiled`` (the tiled
+kernel's long-tap route), each bit-equal to ``sepconv2_plain``; and
+``nlmeans_3d`` at r = (10, 10, 3), f = 3 on the 128 x 128 x 56 x 4
+slab, within rtol 1e-5, atol 1e-6 of ``nlmeans_3d_plain``, then at five
+forced tiles, fused and unfused where the build takes them. Medians of 7
+(NLMeans: 3) CUDA-event timings of one call after a warm-up, in turns
+(sepconv2, tiled, tiled, sepconv2), the launch counters each call
+moved, and the nvcc lines of the two wide-window sources. Route-blind:
+copied into an older checkout it times that tree's routes, so two
+checkouts in one call compare the parent's routes with the change's.
 
 Each plan's flags and margins must be bit-equal to the plain version's
 (a failure raises); its time is the median of 5 CUDA-event timings of
@@ -391,6 +407,113 @@ def _library_sweep(cs, card, dev):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def _routes(cs, card, dev):
+    import numpy as np
+    from . import _build
+    from .ops import conv_cuda, nlmeans_cuda
+    from .ops.conv import gaussian_kernel1d
+    info = _build.build_info()
+    keep = False
+    for ln in info['log'].splitlines():
+        if 'Compiling entry function' in ln:
+            keep = 'nlmeans_wide' in ln or 'sepconv_long' in ln
+        if keep and ('Compiling' in ln or 'registers' in ln or 'spill' in ln
+                     or 'stack frame' in ln):
+            print('routes ptxas: ' + ln.strip())
+    print('routes: kernels built=%s in %.1f s from %s'
+          % (info['built'], info['seconds'], ', '.join(info['sources'])),
+          flush=True)
+    stack = torch.from_numpy(cs.make_cube(cs.NY, cs.NX, cs.KL,
+                                          seed=cs.SEED + 3, step=5.0,
+                                          burst=True)).to(dev)
+
+    def moved(fn, mod):
+        before = {k: v for k, v in vars(mod).items()
+                  if k.startswith('launches') and isinstance(v, int)}
+        fn()
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in vars(mod).items()
+                if k in before and v != before[k]}
+
+    g16 = np.flip(gaussian_kernel1d(16.0))
+    tiled = getattr(conv_cuda, 'sepconv2_tiled', None)
+    x = stack[..., 0].contiguous()
+    for ax, name in enumerate(('y', 'x', 'time')):
+        shape = x.shape
+        view = x.reshape(1, int(np.prod(shape[:ax])), shape[ax],
+                         int(np.prod(shape[ax + 1:])))
+        ref = conv_cuda.sepconv2_plain(view, np.ones(1), g16)
+        calls = {'sepconv2': lambda: conv_cuda.sepconv2(view, np.ones(1),
+                                                        g16)}
+        if tiled is not None:
+            calls['sepconv2_tiled'] = lambda: tiled(view, np.ones(1), g16)
+        for label, fn in calls.items():
+            diff = float((fn() - ref).abs().max())
+            if diff != 0:
+                raise RuntimeError('routes: %s pass %s differs from the plain '
+                                   'version by %g' % (label, name, diff))
+        ms = {label: [] for label in calls}
+        order = list(calls) + list(reversed(list(calls)))
+        for label in order:
+            ms[label].append(_ms(calls[label], reps=7))
+        for label in calls:
+            print('routes GaussianFilter sigma=16 pass %s %s %s: %s ms (min '
+                  '%.4f); launches %s; max abs diff 0 to the plain pass | %s'
+                  % (name, tuple(view.shape), label,
+                     ' '.join('%.4f' % t for t in ms[label]),
+                     min(ms[label]), moved(calls[label], conv_cuda), card),
+                  flush=True)
+        x = ref.reshape(shape)
+        del ref
+    rw, fw = (10, 10, 3), (3, 3, 3)
+    slab = stack[:128, :128].contiguous()
+
+    def wide():
+        return nlmeans_cuda.nlmeans_3d(slab, rw, fw, 2.0, 3.0)
+    ref = nlmeans_cuda.nlmeans_3d_plain(slab, rw, fw, 2.0, 3.0)
+    got = wide()
+    excess = float(((got - ref).abs() - (1e-6 + 1e-5 * ref.abs())).max())
+    if not (bool(torch.isfinite(got).all()) and excess <= 0):
+        raise RuntimeError('routes: nlmeans_3d wide exceeds rtol 1e-5, atol '
+                           '1e-6 of the plain version by %g' % excess)
+    print('routes nlmeans_3d r=%r f=%r on %s: %s ms; plan %s; launches %s; '
+          'max abs diff %.3g, max |diff| / (1e-6 + 1e-5 |ref|) %.3f | %s'
+          % (rw, fw, tuple(slab.shape),
+             ' '.join('%.3f' % _ms(wide, reps=3) for _ in range(2)),
+             nlmeans_cuda._tile_plan(tuple(slab.shape), rw, fw, 4),
+             moved(wide, nlmeans_cuda), float((got - ref).abs().max()),
+             float(((got - ref).abs() / (1e-6 + 1e-5 * ref.abs())).max()),
+             card), flush=True)
+    # the wide-window kernel at other tiles and builds (where the tree has
+    # them): fewer threads a block against the same work
+    plan_of = getattr(nlmeans_cuda, 'wide_plan_of', None)
+    for tile in ((8, 8, 8), (8, 16, 4), (4, 16, 8), (4, 8, 8), (8, 8, 4)):
+        for fused in (True, False):
+            if plan_of is None:
+                break
+            plan = plan_of(tuple(slab.shape), rw, fw, 4, tile, True, fused)
+            region = np.prod([t + 2 * fi for t, fi in zip(tile, fw)])
+            if plan['smem'] > nlmeans_cuda.SMEM_MAX or (
+                    fused and not nlmeans_cuda.wide_fused(tile, fw, 4, 4,
+                                                          True)) or (
+                    not fused and region > nlmeans_cuda.WIDE_MAX_E
+                    * plan['threads']):
+                continue
+
+            def forced(plan=plan):
+                return nlmeans_cuda._launch(slab, rw, fw, 2.0, 3.0, -1.0,
+                                            'launches_3d', plan)
+            diff = float(((forced() - ref).abs()
+                          - (1e-6 + 1e-5 * ref.abs())).max())
+            if diff > 0:
+                raise RuntimeError('routes: forced plan %r exceeds the '
+                                   'tolerance by %g' % (plan, diff))
+            print('routes nlmeans_3d wide tile %r %s: %d threads, %d bytes '
+                  'of shared memory: %.3f ms | %s'
+                  % (tile, 'fused' if fused else 'unfused', plan['threads'],
+                     plan['smem'], _ms(forced, reps=3), card), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('scan_sweep: needs a CUDA device', file=sys.stderr)
@@ -411,6 +534,8 @@ def main():
         _library_sweep(cs, card, dev)
     if 'stencil' in which:
         _stencil_sweep(cs, card, dev)
+    if 'routes' in which:
+        _routes(cs, card, dev)
     if 'scan' not in which:
         return 0
     shapes = [(cs.NY, cs.NX, cs.KL, cs.SEED + 3), (cs.BNY, cs.BNX, cs.BK,

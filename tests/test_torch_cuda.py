@@ -9,7 +9,8 @@ PyTorch is installed:
 Tolerances: sepconv (two and three axes) max abs diff <= 1e-6 max|x|
 (1e-13 in float64), and 0 for the tiled kernel against its plain version
 (the same operations in the same order), long taps included; NLMeans
-(spatial and 3-D windows, both routes) rtol 1e-5, atol 1e-6 (float64:
+(spatial and 3-D windows, the tiled and the wide-window kernel) rtol
+1e-5, atol 1e-6 (float64:
 rtol 1e-12; float16 in and out: rtol 1e-3, atol 1e-3, one float16
 rounding of results that agree in float32); the round kernel's flags
 and margins exactly equal to its plain version (margins compared as
@@ -772,15 +773,19 @@ LONG_TAPS = {'65': np.linspace(0.5, 1.5, 65), '129 uniform': np.ones(129),
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_long_tap_sepconv_is_bit_equal_to_plain(cuda, taps, mode, dtype):
     w = LONG_TAPS[taps]
-    # a one-axis pass as ops/conv.py sends it: (1, outer, n, inner)
+    # a one-axis pass as ops/conv.py sends it: (1, outer, n, inner), the
+    # long-tap kernel
     a = _data((1, 37, 53, 7), seed=97).to(cuda, dtype)
+    conv_cuda.reset_launches()
     got = conv_cuda.sepconv2(a, np.ones(1), w, mode=mode, cval=0.5)
+    assert conv_cuda.launches_long_axis == 1 and conv_cuda.launches == 0
     ref = conv_cuda.sepconv2_plain(a, np.ones(1), w, mode=mode, cval=0.5)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) == 0.0
-    # a long axis beside short ones, both entry points
+    # a long axis beside short ones, both entry points: the tiled kernel
     b = _data((3, 21, 70, 5), seed=98).to(cuda, dtype)
     got = conv_cuda.sepconv2(b, np.array([0.25, 0.5, 0.25]), w, mode=mode)
+    assert conv_cuda.launches == 1 and conv_cuda.launches_long == 1
     ref = conv_cuda.sepconv2_plain(b, np.array([0.25, 0.5, 0.25]), w,
                                    mode=mode)
     assert float((got - ref).abs().max()) == 0.0
@@ -790,6 +795,34 @@ def test_long_tap_sepconv_is_bit_equal_to_plain(cuda, taps, mode, dtype):
     ref = conv_cuda.sepconv3_plain(c, t3, t3, w, mode=mode)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) == 0.0
+    assert conv_cuda.launches_long_axis == 1
+
+
+# the long-tap kernel's routes: the time pass's lines (outer >= 4096,
+# n = 56 < k, inner = 1), short lines of several columns, n < k on both
+# routes, rows of whole 16-byte chunks and ragged ones
+LONG_VIEWS = [(1, 4096, 56, 1), (1, 300, 20, 3), (1, 9, 5, 1),
+              (1, 2, 70, 300), (1, 3, 40, 50), (2, 5, 1, 37)]
+
+
+@pytest.mark.parametrize('view', LONG_VIEWS)
+@pytest.mark.parametrize('taps', sorted(LONG_TAPS))
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_long_tap_kernel_routes_are_bit_equal_to_plain(cuda, view, taps,
+                                                       mode, dtype):
+    w = LONG_TAPS[taps]
+    a = _data(view, seed=103).to(cuda, dtype)
+    conv_cuda.reset_launches()
+    got = conv_cuda.sepconv2(a, np.ones(1), w, mode=mode, cval=-0.25)
+    torch.cuda.synchronize()
+    assert conv_cuda.launches_long_axis == 1 and conv_cuda.launches == 0
+    ref = conv_cuda.sepconv2_plain(a, np.ones(1), w, mode=mode, cval=-0.25)
+    assert float((got - ref).abs().max()) == 0.0
+    # the tiled kernel's long-tap route (the parent's) agrees bit for bit
+    tiled = conv_cuda.sepconv2_tiled(a, np.ones(1), w, mode=mode, cval=-0.25)
+    assert conv_cuda.launches == 1
+    assert float((tiled - ref).abs().max()) == 0.0
 
 
 @pytest.mark.parametrize('sigma', [7.9, 16.0])
@@ -800,14 +833,19 @@ def test_long_gaussian_filter_on_the_card_matches_the_cpu(cuda, sigma):
     ref = g.apply(da).data
     conv_cuda.reset_launches()
     got = g.apply(Dataset({'C11': (('y', 'x', 'time'), x.to(cuda))})['C11'])
-    assert conv_cuda.launches == 3            # one pass per axis
+    # one pass per axis, each on the long-tap kernel
+    assert conv_cuda.launches_long_axis == 3 and conv_cuda.launches == 0
     assert float((got.data.cpu() - ref).abs().max()) == 0.0
 
 
+# the wide-window kernel: the WIDE shapes of the reference's repairs, a
+# ragged one (no side divides the tile), and r + f = n - 1 on one axis
 WIDE = [((24, 26, 9, 4), (10, 10, 3), (3, 3, 3), torch.float32),
         ((12, 13, 12, 4), (5, 5, 5), (2, 2, 2), torch.float64),
         ((12, 13, 12, 8), (5, 5, 5), (2, 2, 2), torch.float32),
-        ((13, 14, 10, 4), (4, 4, 4), (3, 3, 3), torch.float64)]
+        ((13, 14, 10, 4), (4, 4, 4), (3, 3, 3), torch.float64),
+        ((23, 27, 11, 4), (10, 10, 3), (3, 3, 3), torch.float32),
+        ((22, 25, 6, 4), (10, 10, 2), (3, 3, 3), torch.float32)]
 
 
 @pytest.mark.parametrize('shape,r,f,dtype', WIDE)
@@ -816,11 +854,43 @@ def test_wide_window_nlmeans_route_matches_plain(cuda, shape, r, f, dtype,
                                                  n_eff):
     a = _data(shape, seed=101).to(cuda, dtype)
     plan = nlmeans_cuda._tile_plan(shape, r, f, a.element_size())
-    assert plan['route'] == 'global'
-    before = nlmeans_cuda.launches_3d
+    assert plan['route'] == 'wide'
+    before = (nlmeans_cuda.launches_3d, nlmeans_cuda.launches_wide)
     got = nlmeans_cuda.nlmeans_3d(a, r, f, 0.3, 0.4, n_eff)
-    assert nlmeans_cuda.launches_3d == before + 1
+    assert (nlmeans_cuda.launches_3d, nlmeans_cuda.launches_wide) \
+        == (before[0], before[1] + 1)
     ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 0.3, 0.4, n_eff)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=1e-12, atol=1e-13)
+    torch.testing.assert_close(got, ref, equal_nan=True, **tol)
+
+
+# every build of the wide-window kernel through a given plan: the ring
+# fused (float32 only) and not, patches past the unrolled width, any nv,
+# and no ring (the partner from the padded cube)
+WIDE_BUILDS = [((13, 14, 9, 4), (3, 3, 2), (1, 1, 1), (4, 8, 4), True, True),
+               ((13, 14, 9, 4), (3, 3, 2), (1, 1, 1), (4, 8, 4), True, False),
+               ((13, 14, 11, 4), (2, 2, 2), (1, 2, 3), (4, 4, 8), True, True),
+               ((13, 14, 9, 4), (2, 2, 1), (4, 1, 1), (4, 4, 4), True, False),
+               ((13, 14, 9, 3), (2, 2, 1), (1, 1, 1), (4, 4, 4), True, False),
+               ((13, 14, 9, 3), (2, 2, 1), (4, 1, 1), (4, 4, 4), True, False),
+               ((13, 14, 9, 4), (2, 3, 1), (1, 1, 1), (4, 4, 4), False, False),
+               ((13, 14, 9, 5), (2, 3, 1), (1, 0, 1), (2, 8, 4), False, False),
+               ((9, 8, 7, 4), (1, 2, 2), (0, 0, 0), (4, 4, 4), True, True),
+               ((9, 8, 7, 4), (1, 2, 2), (0, 0, 0), (4, 4, 4), True, False),
+               ((9, 8, 7, 4), (2, 2, 0), (1, 1, 0), (8, 8, 1), True, True)]
+
+
+@pytest.mark.parametrize('shape,r,f,tile,ring,fused', WIDE_BUILDS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_window_builds_match_plain(cuda, shape, r, f, tile, ring, fused,
+                                        dtype):
+    a = _data(shape, seed=104).to(cuda, dtype)
+    plan = nlmeans_cuda.wide_plan_of(shape, r, f, a.element_size(), tile,
+                                     ring, fused and dtype == torch.float32)
+    got = nlmeans_cuda._launch(a, r, f, 0.3, 0.4, -1.0, 'launches_3d', plan)
+    ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 0.3, 0.4)
     torch.cuda.synchronize()
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
         else dict(rtol=1e-12, atol=1e-13)

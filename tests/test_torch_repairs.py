@@ -10,7 +10,7 @@ CPU (the kernels' plain versions):
     precision's rounding: float16 rtol 5e-3, atol 5e-3 (a few float16
     ulps at 1); bfloat16 rtol 2e-2, atol 2e-2 (a few bfloat16 ulps);
   - NLMeans with wide 3-D windows, whose halo tile of every variable
-    fits no block on the card (the global-halo route): the route chosen
+    fits no block on the card (the wide-window kernel): the route chosen
     by ``_tile_plan`` from the shapes, and the plain version against
     the reference at a small size (float32 rtol 1e-5, atol 1e-6;
     float64 rtol 1e-12, atol 1e-13).
@@ -163,11 +163,11 @@ def test_low_precision_is_filtered_in_float32():
 
 # ---- NLMeans with wide 3-D windows ------------------------------------------
 
-WIDE_PLANS = [((1024, 1024, 56, 4), (10, 10, 3), (3, 3, 3), 4, 'global'),
-              ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 8, 'global'),
+WIDE_PLANS = [((1024, 1024, 56, 4), (10, 10, 3), (3, 3, 3), 4, 'wide'),
+              ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 8, 'wide'),
               ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 4, 'staged'),
-              ((1024, 1024, 56, 8), (5, 5, 5), (2, 2, 2), 4, 'global'),
-              ((1024, 1024, 56, 4), (4, 4, 4), (3, 3, 3), 8, 'global'),
+              ((1024, 1024, 56, 8), (5, 5, 5), (2, 2, 2), 4, 'wide'),
+              ((1024, 1024, 56, 4), (4, 4, 4), (3, 3, 3), 8, 'wide'),
               ((1024, 1024, 56, 4), (2, 2, 1), (1, 1, 1), 4, 'staged')]
 
 
@@ -180,11 +180,14 @@ def test_tile_plan_chooses_the_route_from_the_shapes(shape, r, f, itemsize,
     halo = [t + 2 * (ri + fi) for t, ri, fi in zip(plan['tile'], r, f)]
     region = [t + ri + 2 * fi for t, ri, fi in zip(plan['tile'], r, f)]
     staged = (nv * np.prod(halo) + 2 * np.prod(region)) * itemsize
-    assert plan['smem'] == (staged if route == 'staged'
-                            else 2 * np.prod(region) * itemsize)
+    assert plan['smem'] == (staged if route == 'staged' else
+                            nlmeans_cuda.wide_smem(plan['tile'], r, f, nv,
+                                                   itemsize, plan['ring'],
+                                                   plan['fused']))
     assert plan['smem'] <= nlmeans_cuda.SMEM_MAX
-    if route == 'global':
-        assert plan['smem'] <= nlmeans_cuda.SMEM_BUDGET   # two blocks/SM
+    if route == 'wide':
+        # the partner rows of one dy in the block's ring
+        assert plan['ring']
         # no tile of 128 outputs or more holds the staged halo
         for tile in ((4, 4, 8), (4, 8, 4), (8, 4, 4), (8, 8, 2),
                      (16, 8, 1), (8, 16, 1)):
