@@ -1,0 +1,10 @@
+"""omnibus_roofline_pct: the OmnibusTest stage's least time on the card
+(``roofline/omnibus.py`` against ``roofline/peaks.json``) over the
+card-busy time inside its ranges, summed over the traced tiles."""
+
+
+def read(run):
+    busy = (run.trace or {}).get('stage_busy_s', {}).get('omnibus')
+    if not busy or 'omnibus' not in run.stage_bound_s:
+        return None
+    return 100.0 * run.stage_bound_s['omnibus'] / busy
