@@ -353,7 +353,8 @@ the port's last entry points:
      NLMeans, sepconv, round and rescan kernels in the trace, as many as
      their counters rose; ``tracing.report()`` has one
      ``NLMeansFilter.apply`` and one ``BoxcarFilter.apply`` span (the
-     omnibus test's multilook); the change map equals phase 6's (0
+     omnibus test's multilook) and one of each of ``V_SPANS`` (the
+     chain's copies and omnibus steps); the change map equals phase 6's (0
      mismatches). Printed: the trace's size, the device-busy share of
      the range, the chain's CUDA-event time without the profiler (median
      of 5), traced (one call) and under a second window (median of 5);
@@ -425,6 +426,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 
@@ -948,10 +950,36 @@ def classifier_bound(n, n_features, hidden, n_classes, epochs):
     return bound(2 * n * n_features * 4 * epochs, n * per_sample * epochs)
 
 
+def profiled(fn):
+    """(wall ms, device-busy ms, device events, top kernels) of one call
+    under torch.profiler, after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float('-inf')          # union of the device spans, us
+    per_name = defaultdict(float)
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        per_name[name[:40]] += (e - s) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    return wall, busy / 1e3, len(spans), top
+
+
 def say_profile(tag, label, fn, card):
     """One call under torch.profiler: wall, device-busy share, device
     events and the kernels that took the most device time."""
-    from nd_tpu_torch.breakdown import profiled
     wall, busy, events, top = profiled(fn)
     phase(tag, '%s under torch.profiler: wall %.3f ms, device busy %.3f ms '
           '(%.1f%%), %d device events; top %s | %s'
@@ -2351,7 +2379,6 @@ def run_granule_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
     (all 0)."""
     import torch
     from nd_tpu_torch import native
-    from nd_tpu_torch.breakdown import profiled
     from nd_tpu_torch.classify import TorchClassifier
     from nd_tpu_torch.core import DataArray, Dataset
     from nd_tpu_torch.io import jp2, open_sentinel2_granule
@@ -2962,6 +2989,10 @@ def run_sharded_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
 V_FAMILIES = {'nlmeans': 'nlmeans_tiled', 'sepconv': 'sepconv_tiled',
               'omnibus': 'omnibus_kernel',
               'omnibus_mixed': 'omnibus_mixed_kernel'}
+V_SPANS = {'OmnibusTest.apply': 1, 'data.filter_to_array': 1,
+           'data.nlmeans_contiguous': 1, 'data.filter_stack': 1,
+           'data.omnibus_in': 1, 'omnibus.kernel': 1, 'omnibus.rescan': 1,
+           'omnibus.unpack': 1, 'omnibus.result': 1}   # V1: besides applies
 V_CUT = 128                 # V2: bench.py's cpu_baseline cut (128 x 128)
 V_TIMEOUT = 300             # V1: seconds the traced child may take
 
@@ -3123,8 +3154,9 @@ def run_visual_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
         check(res['launches']['omnibus_scan'] == 0, 'V1 scan kernel',
               res['launches'])
         spans = {k: v['count'] for k, v in res['spans'].items()}
-        check(spans == {'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1},
-              'V1 apply spans', spans)
+        check(spans == dict(V_SPANS, **{'NLMeansFilter.apply': 1,
+                                        'BoxcarFilter.apply': 1}),
+              'V1 spans', spans)
         change = torch.from_numpy(np.load(os.path.join(tmp, 'change.npy')))
         mism = int((change != readme_change.cpu()).sum())
         check(res['device'] == 'cuda' and mism == 0, 'V1 change map',
@@ -4665,7 +4697,6 @@ def main():
 
 
     # ---- 17. the exact calls' host share --------------------------------------------
-    from nd_tpu_torch.breakdown import profiled
     for label, vals in (('phase 4 exact (k=%d)' % K, cube),
                         ('path A exact (k=%d)' % KL, looked3),
                         ('path B exact (k=%d)' % BK, bcube)):

@@ -17,6 +17,7 @@ from .core import DataArray
 from .filters import BoxcarFilter
 from .io import disassemble_complex
 from .ops.change import change_detection_exact
+from .tracing import span
 
 __all__ = ['ChangeDetection', 'OmnibusTest', 'omnibus']
 
@@ -40,17 +41,19 @@ def _omnibus_change_detection(ds, alpha=0.01, ml=None, n=1):
     if ml is not None:
         ds_m = BoxcarFilter(w=ml).apply(ds_m)
         n = ml ** 2
-    da = ds_m[['C11', 'C12__re', 'C12__im', 'C22']].to_array()
-    values = da.transpose('y', 'x', 'time', 'variable').data
+    with span('data.omnibus_in'):
+        da = ds_m[['C11', 'C12__re', 'C12__im', 'C22']].to_array()
+        values = da.transpose('y', 'x', 'time', 'variable').data.contiguous()
     # change_detection_exact takes the route (kernel + rescan, or the
     # whole-grid 'mixed' scan) from (k, n, alpha) before any launch
-    change = change_detection_exact(values.contiguous(), float(alpha),
-                                    n=int(n), margin_eps=MARGIN_EPS)
-    out = DataArray(change, dims=('y', 'x', 'time'), attrs=dict(ds.attrs),
-                    name='change')
-    for ck, cv in ds._coords.items():
-        if set(cv.dims).issubset({'y', 'x', 'time'}):
-            out._coords[ck] = cv
+    change = change_detection_exact(values, float(alpha), n=int(n),
+                                    margin_eps=MARGIN_EPS)
+    with span('omnibus.result'):
+        out = DataArray(change, dims=('y', 'x', 'time'),
+                        attrs=dict(ds.attrs), name='change')
+        for ck, cv in ds._coords.items():
+            if set(cv.dims).issubset({'y', 'x', 'time'}):
+                out._coords[ck] = cv
     return out
 
 
@@ -79,8 +82,9 @@ class OmnibusTest(ChangeDetection):
         super().__init__(*args, **kwargs)
 
     def apply(self, ds):
-        return _omnibus_change_detection(ds, alpha=self.alpha, ml=self.ml,
-                                         n=self.n)
+        with span('OmnibusTest.apply'):
+            return _omnibus_change_detection(ds, alpha=self.alpha,
+                                             ml=self.ml, n=self.n)
 
 
 omnibus = wrap_algorithm(OmnibusTest, 'omnibus')

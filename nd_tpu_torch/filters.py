@@ -25,6 +25,7 @@ from .io import disassemble_complex
 from .ops.conv import convolve as _convolve
 from .ops.conv import gaussian_kernel1d, separable_convolve
 from .ops.nlmeans import nlmeans as _nlmeans
+from .tracing import span
 from .utils import expand_variables, get_vars_for_dims, is_complex
 
 __all__ = ['Filter', 'ConvolutionFilter', 'convolution', 'BoxcarFilter',
@@ -137,7 +138,8 @@ class Filter(Algorithm):
                     result._variables[vs[0]] = Variable(
                         vdims, filtered, ds[vs[0]].attrs)
                     continue
-                stacked = torch.stack([ds[v].data for v in vs])
+                with span('data.filter_stack'):
+                    stacked = torch.stack([ds[v].data for v in vs])
                 filtered = run(stacked, (None,) + tuple(vdims))
                 for i, v in enumerate(vs):
                     result._variables[v] = Variable(vdims, filtered[i],
@@ -146,7 +148,8 @@ class Filter(Algorithm):
 
         # variables form an extra axis; weights are joint
         joint_dims = ordered_dims + ('variable',)
-        da_ordered = ds[variables].to_array().transpose(*joint_dims)
+        with span('data.filter_to_array'):
+            da_ordered = ds[variables].to_array().transpose(*joint_dims)
         filtered = run(da_ordered.data, da_ordered.dims)
         result = expand_variables(da_ordered._replace(filtered))
         for v in list(result._variables):

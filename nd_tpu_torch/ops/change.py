@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.variable import as_tensor
+from ..tracing import count, span
 from .stats import chi2_cdf
 
 __all__ = ['omnibus_probabilities', 'omnibus_rho', 'omnibus_thresholds',
@@ -374,17 +375,19 @@ def _exact_packed(values, alpha, n, margin_eps):
     from .change_cuda import K_MAX, _round_cap, change_detection_fast
     from .change_mixed_cuda import rescan
     ny, nx, k, _ = values.shape
-    if k <= K_MAX:
-        packed, margin = change_detection_fast(
-            values, alpha, n=n, return_margin=True, return_packed=True,
-            max_rounds=_round_cap(k))
-    else:
-        from .change_scan_cuda import change_detection_scan
-        packed, margin = change_detection_scan(values, alpha, n=n,
-                                               return_packed=True)
-    count = rescan(values.reshape(ny * nx, k, 4), margin, packed, alpha, n,
-                   margin_eps)
-    return packed, count
+    with span('omnibus.kernel'):
+        if k <= K_MAX:
+            packed, margin = change_detection_fast(
+                values, alpha, n=n, return_margin=True, return_packed=True,
+                max_rounds=_round_cap(k))
+        else:
+            from .change_scan_cuda import change_detection_scan
+            packed, margin = change_detection_scan(values, alpha, n=n,
+                                                   return_packed=True)
+    with span('omnibus.rescan'):
+        suspects = rescan(values.reshape(ny * nx, k, 4), margin, packed,
+                          alpha, n, margin_eps)
+    return packed, suspects
 
 
 def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
@@ -430,12 +433,17 @@ def change_detection_exact(values, alpha, n=1, margin_eps=1e-4,
     if not values.is_floating_point():
         values = values.to(torch.float32)
     ny, nx, k, _ = values.shape
+    count('omnibus.pixels', ny * nx)
     if not supports_rescan(k, n, alpha):
+        count('omnibus.rescanned', ny * nx)
         flags = change_detection(values, alpha, n=n, stat_dtype='mixed')
         return (flags, ny * nx) if return_count else flags
-    packed, count = _exact_packed(values.contiguous(), alpha, n, margin_eps)
-    flags = unpack_flags(packed, k)
-    return (flags, int(count)) if return_count else flags
+    packed, suspects = _exact_packed(values.contiguous(), alpha, n,
+                                     margin_eps)
+    count('omnibus.rescanned', suspects)
+    with span('omnibus.unpack'):
+        flags = unpack_flags(packed, k)
+    return (flags, int(suspects)) if return_count else flags
 
 
 def change_detection_hybrid(values, alpha, n=1, margin_eps=1e-4,

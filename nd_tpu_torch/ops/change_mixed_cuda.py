@@ -138,9 +138,11 @@ def _launch(rows, planes, alpha, n, stat_dtype, margin=None, margin_eps=0.0):
     use_folded, table = _device_table(int(k), float(n), float(alpha),
                                       ldtype, rows.device)
     types = (int(sdtype == torch.float64), int(ldtype == torch.float64))
-    queue = None
-    if margin is not None:       # the queue's nrows ints, then the count
-        queue = torch.empty(nrows + 1, dtype=torch.int32, device=rows.device)
+    queue = count = None
+    if margin is not None:       # the suspects' rows, and their count
+        queue = torch.empty(max(nrows, 1), dtype=torch.int32,
+                            device=rows.device)
+        count = torch.empty(1, dtype=torch.int32, device=rows.device)
     fn = _build.function('nd_omnibus_mixed', 'ppfpppqiiipidqpp')
     with torch.cuda.device(rows.device):
         blocks = _grid(k, *types, torch.cuda.current_device())
@@ -153,13 +155,13 @@ def _launch(rows, planes, alpha, n, stat_dtype, margin=None, margin_eps=0.0):
                  None if margin is None else margin.data_ptr(),
                  float(margin_eps),
                  None if queue is None else queue.data_ptr(),
-                 None if queue is None else queue.data_ptr() + 4 * nrows,
+                 None if count is None else count.data_ptr(),
                  planes.data_ptr(), nrows, k, *types, table.data_ptr(),
                  int(use_folded), float(n), blocks,
                  None if work is None else work.data_ptr(), stream)
     _build.bump(globals(), 'launches')
     _build.check('nd_omnibus_mixed', err)
-    return None if queue is None else queue[nrows:]
+    return count
 
 
 def mixed_scan(rows, alpha, n, stat_dtype='mixed'):

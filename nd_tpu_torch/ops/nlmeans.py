@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.variable import as_tensor
+from ..tracing import span
 from .conv import pad_reflect
 
 __all__ = ['nlmeans', 'nlmeans_plain', 'find_weight_vectorized']
@@ -170,7 +171,8 @@ def nlmeans(arr, r, f, sigma, h, n_eff=-1.0, device=None):
     if r == (0, 0, 0):
         return arr               # degenerate neighborhood: identity
     from .nlmeans_cuda import nlmeans_3d, nlmeans_spatial
+    with span('data.nlmeans_contiguous'):
+        arr = arr.contiguous()
     if r[2] == 0 and f[2] == 0:
-        return nlmeans_spatial(arr.contiguous(), r[:2], f[:2], sigma, h,
-                               n_eff)
-    return nlmeans_3d(arr.contiguous(), r, f, sigma, h, n_eff)
+        return nlmeans_spatial(arr, r[:2], f[:2], sigma, h, n_eff)
+    return nlmeans_3d(arr, r, f, sigma, h, n_eff)

@@ -1849,8 +1849,8 @@ def test_traced_chain_holds_the_readme_kernels(cuda, tmp_path):
     for fam in cs.V_FAMILIES:
         assert inside[fam] == total[fam] == res['launches'][fam] > 0, fam
     assert 0 < busy <= span
-    assert {k: v['count'] for k, v in res['spans'].items()} == {
-        'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1}
+    assert {k: v['count'] for k, v in res['spans'].items()} == dict(
+        README_SPANS, **{'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1})
     t = torch.from_numpy(cube).to(cuda)
     names = ('C11', 'C12__re', 'C12__im', 'C22')
     ds = Dataset({v: (('y', 'x', 'time'), t[..., i])
@@ -1859,6 +1859,74 @@ def test_traced_chain_holds_the_readme_kernels(cuda, tmp_path):
         ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3).apply(ds))
     np.testing.assert_array_equal(np.load(str(tmp_path / 'change.npy')),
                                   ref.data.cpu().numpy())
+
+
+# the README chain's spans beside its Algorithm.apply spans: its data
+# model's copies (data.*) and the omnibus test's steps (omnibus.*)
+README_SPANS = {'OmnibusTest.apply': 1, 'data.filter_to_array': 1,
+                'data.nlmeans_contiguous': 1, 'data.filter_stack': 1,
+                'data.omnibus_in': 1, 'omnibus.kernel': 1,
+                'omnibus.rescan': 1, 'omnibus.unpack': 1, 'omnibus.result': 1}
+COPY_KERNELS = ('CatArrayBatchedCopy', 'direct_copy')
+
+
+def test_every_copy_of_the_chain_is_launched_in_a_data_span(cuda, tmp_path):
+    """The README chain on a 96 x 80 x 12 cube under a profiler: each
+    kernel joined to its launch by correlation id; every copy kernel
+    (``CatArrayBatchedCopy``, ``direct_copy``) was launched inside a
+    ``data.*`` range and every kernel launched inside one is a copy;
+    ``report()`` has the device time of each ``data.*`` span and of
+    ``omnibus.unpack``, and the rescan's count in the counters."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from nd_tpu_torch import tracing
+    cube = torch.from_numpy(sar_cube(96, 80, 12, seed=41,
+                                     special=False)).to(cuda)
+    ds = Dataset({v: (('y', 'x', 'time'), cube[..., i]) for i, v in
+                  enumerate(('C11', 'C12__re', 'C12__im', 'C22'))})
+    nlm = ndt.NLMeansFilter(dims=('y', 'x'), r=2, f=1, sigma=2, h=3)
+    omn = ndt.OmnibusTest(ml=3, alpha=0.01)
+    want = omn.apply(nlm.apply(ds)).data
+    torch.cuda.synchronize()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = omn.apply(nlm.apply(ds)).data
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    prof.export_chrome_trace(str(tmp_path / 'trace.json'))
+    with open(str(tmp_path / 'trace.json')) as fh:
+        events = [e for e in json.load(fh)['traceEvents']
+                  if e.get('ph') == 'X']
+    data = [(e['ts'], e['ts'] + e['dur']) for e in events
+            if e.get('cat') == 'user_annotation'
+            and e['name'].startswith('data.')]
+    launch = {e['args']['correlation']: e['ts'] for e in events
+              if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+              and 'correlation' in e.get('args', {})}
+    kernels = [(e['name'], launch.get(e['args']['correlation']))
+               for e in events if e.get('cat') == 'kernel']
+    assert kernels and all(t is not None for _, t in kernels)
+    copies = [n for n, _ in kernels if any(c in n for c in COPY_KERNELS)]
+    in_data = [any(a <= t <= b for a, b in data) for _, t in kernels]
+    assert len(data) == 4 and len(copies) >= 4
+    assert [n for (n, _), inside in zip(kernels, in_data) if inside] \
+        == copies
+    rep = tracing.report()
+    assert {k: v['count'] for k, v in rep.items()} == dict(
+        README_SPANS, **{'NLMeansFilter.apply': 1, 'BoxcarFilter.apply': 1})
+    for name in [k for k in README_SPANS if k.startswith('data.')] + [
+            'omnibus.unpack']:
+        assert rep[name]['device'] > 0, name
+    assert rep['OmnibusTest.apply']['device'] > rep['omnibus.unpack'][
+        'device']
+    looked = ndt.BoxcarFilter(w=3).apply(nlm.apply(ds))   # the test's input
+    _, suspects = tchange.change_detection_exact(
+        torch.stack([looked[v].data for v in
+                     ('C11', 'C12__re', 'C12__im', 'C22')], -1),
+        0.01, n=9, return_count=True)
+    assert tracing.counters() == {'omnibus.pixels': 96 * 80,
+                                  'omnibus.rescanned': suspects}
 
 
 @pytest.mark.parametrize('case', ['percentiles', 'limits', 'count', 'nan'])
