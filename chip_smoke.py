@@ -102,7 +102,7 @@ and a bursty column (x = 0) whose backscatter alternates every 3 dates:
      abs diff 0, timed;
  16. the wide-window kernel: ``NLMeansFilter(dims=('y','x','time'),
      r=(10,10,3), f=3)`` on a 128 x 128 x 56 x 4 slab of the long stack
-     (its halo tile of every variable fits no block of the tiled kernel:
+     (its halo tile of every variable fits no block of the ring kernel:
      ``csrc/nlmeans_wide.cu``), counted, within rtol 1e-5, atol 1e-6 of
      the plain version, timed;
 
@@ -2986,7 +2986,7 @@ def run_sharded_phases(ndt, dev, card, cuda_ms, reset_counts, read_counts,
 
 # ---- V1-V4: tracing, the host oracles, rendering, the last entry points ----
 
-V_FAMILIES = {'nlmeans': 'nlmeans_tiled', 'sepconv': 'sepconv_tiled',
+V_FAMILIES = {'nlmeans': 'nlmeans_ring', 'sepconv': 'sepconv_tiled',
               'omnibus': 'omnibus_kernel',
               'omnibus_mixed': 'omnibus_mixed_kernel'}
 V_SPANS = {'OmnibusTest.apply': 1, 'data.filter_to_array': 1,

@@ -4,55 +4,89 @@
 // Replaces: nd_tpu/ops/nlmeans_pallas.py _nlmeans_padless (:408) and
 // _nlmeans_rowfused (:271) (spatial windows, r2 = f2 = 0) and the tiled
 // branch of nlmeans_pallas (:568, temporal or full 3-D windows); all
-// three share the body _kernel (:101), whose algorithm this kernel keeps.
+// three share the body _kernel (:101), whose arithmetic this kernel keeps.
 // Axes 0 and 1 are y and x; axis 2 is time, batched when r2 = f2 = 0.
 //
-// Bound on the H100: arithmetic and shared-memory traffic, not device
-// memory (which sees the cube read about three times through the halo
-// tiles and written once). Per output and unordered offset pair the work
-// is the squared differences of nv variables, three separable patch sums
-// and one exp, over a region a little larger than the tile. The design:
+// Bound on the H100: instruction issue. Per output and unordered offset
+// pair the work is the squared differences of nv variables over the
+// patch positions evaluated, three separable patch sums, one IEEE
+// division and one expf per weight, and the two weighted adds: about 80
+// issued instructions a pair and output in nlmeans_ring_pairs at a
+// spatial r=2/f=1 window, 220 in nlmeans_ring at r=(2,2,1)/f=1 (SASS of
+// the offset loop). Shared loads (3 a position evaluated) come next;
+// device memory sees the cube read about 1.5-3 times through the halo
+// tiles and written once. The design, a register-resident offset loop:
 //
 //  - one block per output tile of ty x tx x tt (y, x, t) positions (the
-//    wrapper's _tile_plan picks it from the shapes); for a spatial window
-//    the tt slices are batched, since no output reads a neighbouring t;
-//  - the halo tile, extent + 2(r+f) per axis and all nv variables, is
-//    loaded once into shared memory with the numpy 'reflect' mapping
-//    applied at the load; the offset and patch loops are plain shifts
-//    inside shared memory with 32-bit offsets, no boundary mapping;
-//  - each unordered offset pair D > 0 (row-major over (y, x, t)) is
-//    evaluated once, as the Pallas body does: (1) the squared differences
-//    summed over v over the D-extended region, (2) the patch sum as
-//    separable passes over t, then y, then x through two scratch planes,
-//    the last pass turning each patch distance into its weight
-//    exp(-max(dsq/dsq_norm - 2 sigma^2, 0)/h^2), once per extended
-//    position, (3) each thread adds, for each of its kOut outputs o, the
-//    forward weight (pair (o, o+D), the value at o+D) and then the
-//    backward one (pair (o-D, o), the value at o-D). Patch distances are
-//    symmetric, so the backward term is bit-identical to evaluating -D
-//    on its own. wsum, wmax (or wsq for n_eff) and acc[nv] live in
-//    registers (nv <= 4; wider stacks accumulate in the output row, which
-//    each thread owns).
+//    wrapper's _tile_plan picks it from the shapes); the halo tile is
+//    copied once into shared memory (cp.async, every copy of the block
+//    in flight) with the numpy 'reflect' mapping applied at the copy, the
+//    nv values of a position side by side (one 16-byte load for 4
+//    float32) and x fastest, so the 32 lanes of a warp read 32
+//    consecutive positions;
+//  - a warp owns 32 consecutive x positions, one a lane; the inner tx
+//    are outputs, the others the halo of the x pass. Each thread owns a
+//    run of R outputs along y (the walk axis) at C consecutive t: R = 8,
+//    C = 1 where the patch has no t extent (the t slices batched over
+//    warps), else R = 4, C = 2 (4 x 4 holds twice the registers and
+//    halves the warps a multiprocessor keeps: slower on the card);
+//  - nlmeans_ring, every window whose patch radii fit: per unordered
+//    offset pair D > 0 (row-major over (y, x, t)) each thread evaluates
+//    both directions at its own outputs, in registers: at each row of
+//    its run and fy rows on each side and each of its columns and ft on
+//    each side, the squared differences to the position + D and to the
+//    position - D (one load of the position serves both), then per row
+//    the t pass over its columns, per output the y pass over its rows and
+//    the x pass by warp shuffles, one weight per output and direction,
+//    and the forward then the backward term added to its accumulators.
+//    Patch distances are symmetric (a - b and b - a square to the same
+//    bits), so the backward weight evaluated at o with -D is
+//    bit-identical to the forward weight of the pair (o - D, o) that the
+//    Pallas body reuses. tx = 32 - 2fx;
+//  - nlmeans_ring_pairs, spatial windows of 4 float32 variables at fy =
+//    fx = 1 or 2 (the README chain, r <= 2): each pair's weight evaluated
+//    once, at the pair's left position, for the R + dy rows its outputs'
+//    two directions use; the backward weight of output o comes from the
+//    lane dx to the left by shuffle, so tx = 32 - 2(rx + fx). A weight
+//    is 25 of the about 50 instructions of a direction;
+//  - no scratch plane, no barrier and no index division inside the
+//    offset loop; builds with every radius fixed at compile time (float32
+//    nv = 4: the pair kernel at fy = fx = 1, 2; nlmeans_ring at f = 1 on
+//    each axis), each with and without n_eff, wsum, wmax (or wsq) and
+//    acc[4] in registers; every other shape the tile plan sends here
+//    (float64, any nv, fy and ft up to kFMax, fx up to kFxMax) in
+//    nlmeans_ring's generic build with runtime radii, the output row its
+//    accumulator.
 //
 // Wide windows: where the halo tile of every variable fits no block's
-// shared memory (4 float32 variables at r = (10, 10, 3), f = 3, or float64
-// at r = (5, 5, 5), f = 2, on any tile of 128 outputs), the wrapper's
+// shared memory, or a patch radius passes kFMax or kFxMax, the wrapper's
 // _tile_plan sends the call to nlmeans_wide.cu instead; the plan picks
 // the kernel from the shapes before the launch.
 //
 // Numerics: the same operations in the same order as the plain PyTorch
-// version (ops/nlmeans.py nlmeans_plain): the squared differences summed
-// over v = 0..nv-1, each patch pass adding its 2f+1 terms left to right,
-// the division by dsq_norm = nv (2f0+1)(2f1+1)(2f2+1), and per pair the
-// forward then the backward terms. Built with -fmad=false, so products
-// and sums round separately; only the exp implementation differs.
+// version (ops/nlmeans.py nlmeans_plain): the squared differences
+// summed over v = 0..nv-1, the patch passes over t, then y, then x, each
+// adding its 2f+1 terms left to right, the IEEE division by dsq_norm =
+// nv (2f0+1)(2f1+1)(2f2+1) and expf (no fast-math intrinsic), the pairs
+// in row-major order and per pair the forward then the backward term,
+// the self-weight and the normalisation. Built with -fmad=false, so
+// products and sums round separately; only the exp implementation
+// differs from the plain version's.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "stage.cuh"
+
 namespace {
 
-constexpr int kOut = 2;              // outputs per thread
 constexpr int kSmemMax = 232448;     // shared memory a block may use
+constexpr int kFMax = 3;             // largest fy and ft of the generic builds
+constexpr int kFxMax = 8;            // largest fx: 16 outputs of a warp
+constexpr int kMaxThreads = 256;
+constexpr int kPairRMax = 2;         // largest ry of the pair kernel's builds
+constexpr unsigned kAll = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ T exp_t(T x);
@@ -86,6 +120,7 @@ struct Params {
   int ty, tx, tt;                    // output tile of one block
   T dsq_norm, two_sigma2, inv_h2, n_eff;
   int use_neff;
+  int aligned16;                     // the input's positions 16-byte aligned
 };
 
 template <typename T>
@@ -95,272 +130,434 @@ __device__ __forceinline__ T weight(T patch, const Params<T>& p) {
   return exp_t<T>(-g * p.inv_h2);
 }
 
-// Shared-memory elements of one block: the halo tile of all nv
-// variables and two scratch planes of the largest D-extended region.
-__host__ __device__ inline void tile_sizes(int ty, int tx, int tt, int ry,
-                                           int rx, int rt, int fy, int fx,
-                                           int ft, int nv, long long* tile,
-                                           long long* region) {
-  *tile = (long long)nv * (ty + 2 * (ry + fy)) * (tx + 2 * (rx + fx)) *
-          (tt + 2 * (rt + ft));
-  *region = (long long)(ty + ry + 2 * fy) * (tx + rx + 2 * fx) *
-            (tt + rt + 2 * ft);
+// one position's NV values from shared memory
+template <typename T, int NV>
+__device__ __forceinline__ void load_rec(const T* s, T (&r)[NV]) {
+  if constexpr (NV == 4 && sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(s);
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else if constexpr (NV == 4 && sizeof(T) == 8) {
+    const double2 a = reinterpret_cast<const double2*>(s)[0];
+    const double2 b = reinterpret_cast<const double2*>(s)[1];
+    r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y;
+  } else {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) r[v] = s[v];
+  }
 }
 
-// NV > 0: nv == NV with register accumulators; NV == 0: any nv, the
-// output row is the accumulator.
 template <typename T, int NV>
-__global__ void __launch_bounds__(512)
-    nlmeans_tiled(const T* __restrict__ in, T* __restrict__ out,
-                  Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);
-  const int nv = NV > 0 ? NV : p.nv;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int Py = p.ry + p.fy, Px = p.rx + p.fx, Pt = p.rt + p.ft;
-  const int Ey = p.ty + 2 * Py, Ex = p.tx + 2 * Px, Et = p.tt + 2 * Pt;
-  const int sX = Et, sY = Ex * Et, sV = Ey * Ex * Et;
-  long long tile_n, region_n;
-  tile_sizes(p.ty, p.tx, p.tt, p.ry, p.rx, p.rt, p.fy, p.fx, p.ft, nv,
-             &tile_n, &region_n);
-  T* const bufA = tile + tile_n;
-  T* const bufB = bufA + region_n;
+__device__ __forceinline__ T sqsum(const T (&a)[NV], const T (&b)[NV]) {
+  T d = a[0] - b[0];
+  T s = d * d;
+#pragma unroll
+  for (int v = 1; v < NV; ++v) {
+    d = a[v] - b[v];
+    s = s + d * d;
+  }
+  return s;
+}
 
-  // the block's tile origin; t fastest, then x, then y
+// The block's output tile (t fastest, then x, then y) and its halo tile
+// in shared memory: ty + 2(ry+fy) rows, 32 + 2rx positions along x (the
+// warp's 32 lanes, lx = (32 - tx) / 2 of them before the first output,
+// and rx on each side) and tt + 2(rt+ft) along t, the numpy 'reflect'
+// mapping applied at the load; x fastest, then y, then t, the nv values
+// of a position side by side. Consecutive threads copy consecutive t of
+// a (y, x) row, every copy of the block in flight at once (cp.async, 16
+// bytes a position where the input allows it).
+struct Halo {
+  int y0, x0, t0;                    // the block's first output
+  int sY, sT;                        // element strides of a row and a plane
+};
+
+template <typename T, int NV>
+__device__ __forceinline__ Halo load_halo(const T* __restrict__ in, T* tile,
+                                          const Params<T>& p, int fy,
+                                          int ft) {
+  const int nv = NV > 0 ? NV : p.nv;
+  Halo h;
   const int nbt = (p.nt + p.tt - 1) / p.tt;
   const int nbx = (p.nx + p.tx - 1) / p.tx;
   int b = blockIdx.x;
-  const int t0 = (b % nbt) * p.tt;
+  h.t0 = (b % nbt) * p.tt;
   b /= nbt;
-  const int x0 = (b % nbx) * p.tx;
-  const int y0 = (b / nbx) * p.ty;
-
-  // 1. the halo tile, reflect applied at the load; consecutive threads
-  //    read consecutive (t, v) elements of a (y, x) row
-  const int row_n = Et * nv;
-  for (int e = tid; e < (int)tile_n; e += nth) {
-    const int row = e / row_n;
-    const int rem = e - row * row_n;
-    const int it = rem / nv;
-    const int v = rem - it * nv;
-    const int iy = row / Ex;
-    const int ix = row - iy * Ex;
-    const int gy = reflect_src(y0 - Py + iy, p.ny);
-    const int gx = reflect_src(x0 - Px + ix, p.nx);
-    const int gt = reflect_src(t0 - Pt + it, p.nt);
-    tile[v * sV + iy * sY + ix * sX + it] =
-        in[(((long long)gy * p.nx + gx) * p.nt + gt) * nv + v];
-  }
-
-  // the thread's outputs: (y, x, t) in the tile packed into one int
-  // (8 bits each), -1 for none; t fastest across threads
-  int opack[kOut], obase[kOut];
-  const int nout = p.ty * p.tx * p.tt;
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    const int e = tid + k * nth;
-    const int ot = e % p.tt;
-    const int oyx = e / p.tt;
-    const int ox = oyx % p.tx;
-    const int oy = oyx / p.tx;
-    const bool ok = e < nout && y0 + oy < p.ny && x0 + ox < p.nx &&
-                    t0 + ot < p.nt;
-    opack[k] = ok ? (oy << 16) | (ox << 8) | ot : -1;
-    obase[k] = (oy + Py) * sY + (ox + Px) * sX + (ot + Pt);
-  }
-
-  T acc[kOut][NV > 0 ? NV : 1];
-  T wsum[kOut], wx[kOut];            // wx: wsq (n_eff) or wmax
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    wsum[k] = T(0);
-    wx[k] = T(0);
-    if (NV > 0) {
-#pragma unroll
-      for (int v = 0; v < (NV > 0 ? NV : 1); ++v) acc[k][v] = T(0);
-    } else if (opack[k] >= 0) {
-      const int oy = opack[k] >> 16, ox = (opack[k] >> 8) & 255,
-                ot = opack[k] & 255;
-      T* o = out + (((long long)(y0 + oy) * p.nx + (x0 + ox)) * p.nt +
-                    (t0 + ot)) * nv;
-      for (int v = 0; v < nv; ++v) o[v] = T(0);
-    }
-  }
-  __syncthreads();
-
-  const int wy = 2 * p.ry + 1, wxn = 2 * p.rx + 1, wt = 2 * p.rt + 1;
-  const int npos = wy * wxn * wt;
-  for (int pi = npos / 2 + 1; pi < npos; ++pi) {
-    const int dt = pi % wt - p.rt;
-    const int dx = (pi / wt) % wxn - p.rx;
-    const int dy = pi / (wt * wxn) - p.ry;
-    const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx,
-              adt = dt < 0 ? -dt : dt;
-    const int lo_y = dy > 0 ? -dy : 0, lo_x = dx > 0 ? -dx : 0,
-              lo_t = dt > 0 ? -dt : 0;
-    const int doff = dy * sY + dx * sX + dt;
-    const bool pass_t = p.ft > 0, pass_y = p.fy > 0, pass_x = p.fx > 0;
-
-    // (1) squared differences over the D-extended region widened by f
-    int cy = p.ty + ady + 2 * p.fy, cx = p.tx + adx + 2 * p.fx,
-        ct = p.tt + adt + 2 * p.ft;
-    {
-      const int base = (lo_y - p.fy + Py) * sY + (lo_x - p.fx + Px) * sX +
-                       (lo_t - p.ft + Pt);
-      const bool last = !pass_t && !pass_y && !pass_x;
-      const float inv_t = 1.0f / ct, inv_x = 1.0f / cx;
-      const int n1 = cy * cx * ct;
-      for (int e = tid; e < n1; e += nth) {
-        const int q = fdiv(e, ct, inv_t);
-        const int it = e - q * ct;
-        const int iy = fdiv(q, cx, inv_x);
-        const int ix = q - iy * cx;
-        // the pair's two positions: variable v at a[v * sV] and b[v * sV]
-        const T* a = tile + base + iy * sY + ix * sX + it;
-        const T* b = a + doff;
-        T d = a[0] - b[0];
-        T s = d * d;
-#pragma unroll
-        for (int v = 1; v < (NV > 0 ? NV : 1); ++v) {
-          d = a[v * sV] - b[v * sV];
-          s = s + d * d;
-        }
-        if (NV == 0) {
-          for (int v = 1; v < nv; ++v) {
-            d = a[v * sV] - b[v * sV];
-            s = s + d * d;
-          }
-        }
-        bufA[e] = last ? weight(s, p) : s;
-      }
-    }
-    __syncthreads();
-    T* src = bufA;
-    T* dst = bufB;
-
-    // (2) separable patch sums: t, then y, then x; the last one weighs
-    if (pass_t) {
-      const int ct2 = ct - 2 * p.ft;
-      const bool last = !pass_y && !pass_x;
-      const float inv = 1.0f / ct2;
-      const int n2 = cy * cx * ct2;
-      for (int e = tid; e < n2; e += nth) {
-        const int row = fdiv(e, ct2, inv);
-        const T* s = src + row * ct + (e - row * ct2);
-        T acc_t = s[0];
-        for (int u = 1; u <= 2 * p.ft; ++u) acc_t = acc_t + s[u];
-        dst[e] = last ? weight(acc_t, p) : acc_t;
-      }
-      ct = ct2;
-      __syncthreads();
-      T* tmp = src; src = dst; dst = tmp;
-    }
-    if (pass_y) {
-      const int cy2 = cy - 2 * p.fy;
-      const int plane = cx * ct;
-      const bool last = !pass_x;
-      const int n2 = cy2 * plane;
-      for (int e = tid; e < n2; e += nth) {
-        const T* s = src + e;
-        T acc_y = s[0];
-        for (int u = 1; u <= 2 * p.fy; ++u) acc_y = acc_y + s[u * plane];
-        dst[e] = last ? weight(acc_y, p) : acc_y;
-      }
-      cy = cy2;
-      __syncthreads();
-      T* tmp = src; src = dst; dst = tmp;
-    }
-    if (pass_x) {
-      const int cx2 = cx - 2 * p.fx;
-      const int row_in = cx * ct, row_out = cx2 * ct;
-      const float inv = 1.0f / row_out;
-      const int n2 = cy * row_out;
-      for (int e = tid; e < n2; e += nth) {
-        const int iy = fdiv(e, row_out, inv);
-        const T* s = src + iy * row_in + (e - iy * row_out);
-        T acc_x = s[0];
-        for (int u = 1; u <= 2 * p.fx; ++u) acc_x = acc_x + s[u * ct];
-        dst[e] = weight(acc_x, p);
-      }
-      cx = cx2;
-      __syncthreads();
-      T* tmp = src; src = dst; dst = tmp;
-    }
-    const T* W = src;                // (ty+|dy|, tx+|dx|, tt+|dt|)
-
-    // (3) forward then backward terms at each of the thread's outputs
-    const int fwd0 = -((lo_y * cx + lo_x) * ct + lo_t);
-    const int bwd0 = fwd0 - ((dy * cx + dx) * ct + dt);
-#pragma unroll
-    for (int k = 0; k < kOut; ++k) {
-      if (opack[k] < 0) continue;
-      const int oy = opack[k] >> 16, ox = (opack[k] >> 8) & 255,
-                ot = opack[k] & 255;
-      const int wi = (oy * cx + ox) * ct + ot;
-      T* o = NV > 0 ? nullptr
-                    : out + (((long long)(y0 + oy) * p.nx + (x0 + ox)) *
-                                 p.nt + (t0 + ot)) * nv;
-#pragma unroll
-      for (int dir = 0; dir < 2; ++dir) {
-        const T w = W[wi + (dir == 0 ? fwd0 : bwd0)];
-        const T* val = tile + obase[k] + (dir == 0 ? doff : -doff);
-        wsum[k] = wsum[k] + w;
-        if (p.use_neff) {
-          wx[k] = wx[k] + w * w;
-        } else {
-          wx[k] = w > wx[k] ? w : wx[k];
-        }
-        if (NV > 0) {
-#pragma unroll
-          for (int v = 0; v < (NV > 0 ? NV : 1); ++v)
-            acc[k][v] = acc[k][v] + w * val[v * sV];
-        } else {
-          for (int v = 0; v < nv; ++v) o[v] = o[v] + w * val[v * sV];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // self-weight and normalisation
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    if (opack[k] < 0) continue;
-    const int oy = opack[k] >> 16, ox = (opack[k] >> 8) & 255,
-              ot = opack[k] & 255;
-    T w_self;
-    if (p.use_neff) {
-      const T n = p.n_eff;
-      const T disc = n * wsum[k] * wsum[k] - n * n * wx[k] + n * wx[k];
-      w_self = (wsum[k] + sqrt(disc)) / (n - T(1));
+  h.x0 = (b % nbx) * p.tx;
+  h.y0 = (b / nbx) * p.ty;
+  const int Py = p.ry + fy, Px = (32 - p.tx) / 2 + p.rx, Pt = p.rt + ft;
+  const int Ey = p.ty + 2 * Py, Ex = 32 + 2 * p.rx, Et = p.tt + 2 * Pt;
+  h.sY = Ex * nv;
+  h.sT = Ey * Ex * nv;
+  const int nrec = Ey * Ex * Et;
+  const float inv_t = 1.0f / Et, inv_x = 1.0f / Ex;
+  for (int e = threadIdx.x; e < nrec; e += blockDim.x) {
+    const int q = fdiv(e, Et, inv_t);
+    const int it = e - q * Et;
+    const int iy = fdiv(q, Ex, inv_x);
+    const int ix = q - iy * Ex;
+    const int gy = reflect_src(h.y0 - Py + iy, p.ny);
+    const int gx = reflect_src(h.x0 - Px + ix, p.nx);
+    const int gt = reflect_src(h.t0 - Pt + it, p.nt);
+    const T* src = in + (((long long)gy * p.nx + gx) * p.nt + gt) * nv;
+    T* dst = tile + it * h.sT + iy * h.sY + ix * nv;
+    if (NV * sizeof(T) == 16 && p.aligned16) {
+      cp_async16(dst, src);
     } else {
-      w_self = wx[k] == T(0) ? T(1) : wx[k];
+      for (int v = 0; v < nv; ++v) cp_async_elem(dst + v, src + v);
     }
-    const T total = wsum[k] + w_self;
-    const long long oi =
-        (((long long)(y0 + oy) * p.nx + (x0 + ox)) * p.nt + (t0 + ot)) * nv;
-    const T* center = tile + obase[k];
-    T* o = out + oi;
-    if (NV > 0) {
+  }
+  cp_async_commit();
+  wait_pending(0);
+  return h;
+}
+
+// one weighted term: wsum, wx (wsq for n_eff, else wmax) and acc; NE
+// fixes whether n_eff is in use (-1: p says)
+template <typename T, int NV, int NE>
+__device__ __forceinline__ void add_term(T w, const T (&val)[NV], T& wsum,
+                                         T& wx, T (&acc)[NV],
+                                         const Params<T>& p) {
+  wsum = wsum + w;
+  if (NE >= 0 ? NE == 1 : p.use_neff) {
+    wx = wx + w * w;
+  } else {
+    wx = w > wx ? w : wx;
+  }
 #pragma unroll
-      for (int v = 0; v < (NV > 0 ? NV : 1); ++v)
-        o[v] = (acc[k][v] + w_self * center[v * sV]) / total;
-    } else {
-      for (int v = 0; v < nv; ++v)
-        o[v] = (o[v] + w_self * center[v * sV]) / total;
-    }
+  for (int v = 0; v < NV; ++v) acc[v] = acc[v] + w * val[v];
+}
+
+// the self-weight and normalisation of one output: o = (acc + w_self
+// center) / (wsum + w_self), acc being the output row itself for NV == 0
+template <typename T, int NV>
+__device__ __forceinline__ void finish(T wsum, T wx, const T* acc,
+                                       const T* center, T* o,
+                                       const Params<T>& p) {
+  const int nv = NV > 0 ? NV : p.nv;
+  T w_self;
+  if (p.use_neff) {
+    const T n = p.n_eff;
+    const T disc = n * wsum * wsum - n * n * wx + n * wx;
+    w_self = (wsum + sqrt(disc)) / (n - T(1));
+  } else {
+    w_self = wx == T(0) ? T(1) : wx;
+  }
+  const T total = wsum + w_self;
+  if constexpr (NV == 4 && sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(o) =
+        make_float4((acc[0] + w_self * center[0]) / total,
+                    (acc[1] + w_self * center[1]) / total,
+                    (acc[2] + w_self * center[2]) / total,
+                    (acc[3] + w_self * center[3]) / total);
+  } else {
+    for (int v = 0; v < nv; ++v) o[v] = (acc[v] + w_self * center[v]) / total;
   }
 }
 
-template <typename T, int NV>
-int launch_nv(const T* src, T* dst, const Params<T>& p, long long blocks,
-              int threads, size_t smem, cudaStream_t s) {
+// Every window whose patch radii fit: each pair's two directions
+// evaluated at the thread's own outputs. NV > 0: nv == NV with register
+// accumulators; NV == 0: any nv, the output row is the accumulator. FY,
+// FX, FT >= 0 fix the patch radii; -1 takes them from p (fy, ft <= kFMax,
+// fx <= kFxMax); NE as add_term's. R x C outputs a thread: R along y, C
+// along t; the lanes fx .. 31 - fx are outputs (tx = 32 - 2fx).
+template <typename T, int NV, int FY, int FX, int FT, int R, int C, int NE>
+__global__ void __launch_bounds__(kMaxThreads)
+    nlmeans_ring(const T* __restrict__ in, T* __restrict__ out,
+                 Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  constexpr int FYM = FY >= 0 ? FY : kFMax;
+  constexpr int FTM = FT >= 0 ? FT : kFMax;
+  constexpr int NR = R + 2 * FYM;    // rows of a run and its patch halo
+  constexpr int NC = C + 2 * FTM;    // columns and their patch halo
+  constexpr int NA = NV > 0 ? NV : 1;
+  const int nv = NV > 0 ? NV : p.nv;
+  const int fy = FY >= 0 ? FY : p.fy;
+  const int fx = FX >= 0 ? FX : p.fx;
+  const int ft = FT >= 0 ? FT : p.ft;
+  const Halo h = load_halo<T, NV>(in, tile, p, fy, ft);
+  const int sY = h.sY, sT = h.sT;
+
+  // the thread: its lane along x, its warp's run (wy) and columns (wt)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwt = p.tt / C;
+  const int wy = warp / nwt, wt = warp - wy * nwt;
+  const int gx = h.x0 - fx + lane;
+  const int gy0 = h.y0 + wy * R, gt0 = h.t0 + wt * C;  // its first output
+  // the halo tile's element at (y, x, t) = (gy0 - fy, gx, gt0 - ft):
+  // row 0 and column 0 of the positions the thread evaluates
+  const int base = (wt * C + p.rt) * sT + (wy * R + p.ry) * sY +
+                   (p.rx + lane) * nv;
+  unsigned valid = 0;                // bit k * C + c: output (k, c) exists
+  if (lane >= fx && lane < 32 - fx && gx < p.nx) {
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (gy0 + k < p.ny && gt0 + c < p.nt) valid |= 1u << (k * C + c);
+  }
+
+  T acc[R][C][NA];
+  T wsum[R][C], wx[R][C];            // wx: wsq (n_eff) or wmax
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      wsum[k][c] = T(0);
+      wx[k][c] = T(0);
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[k][c][v] = T(0);
+      if (NV == 0 && (valid >> (k * C + c) & 1u)) {
+        T* o = out + (((long long)(gy0 + k) * p.nx + gx) * p.nt +
+                      (gt0 + c)) * nv;
+        for (int v = 0; v < nv; ++v) o[v] = T(0);
+      }
+    }
+  __syncthreads();
+
+  const int npairs =
+      ((2 * p.ry + 1) * (2 * p.rx + 1) * (2 * p.rt + 1) - 1) / 2;
+  int dy = 0, dx = 0, dt = 0;
+  for (int pi = 0; pi < npairs; ++pi) {
+    // the next offset after the last, row-major over (y, x, t)
+    if (++dt > p.rt) {
+      dt = -p.rt;
+      if (++dx > p.rx) {
+        dx = -p.rx;
+        ++dy;
+      }
+    }
+    const int doff = dt * sT + dy * sY + dx * nv;
+    T ptf[NR][C], ptb[NR][C];        // each row's t pass, both directions
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      if (j < R + 2 * fy) {
+        // (1) squared differences at row j, forward and backward
+        T sf[NC], sb[NC];
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          if (cc < C + 2 * ft) {
+            const T* a = tile + base + cc * sT + j * sY;
+            if constexpr (NV > 0) {
+              T ca[NV], fa[NV], ba[NV];
+              load_rec<T, NV>(a, ca);
+              load_rec<T, NV>(a + doff, fa);
+              load_rec<T, NV>(a - doff, ba);
+              sf[cc] = sqsum<T, NV>(ca, fa);
+              sb[cc] = sqsum<T, NV>(ca, ba);
+            } else {
+              T d = a[0] - a[doff];
+              T s = d * d;
+              T e = a[0] - a[-doff];
+              T u = e * e;
+              for (int v = 1; v < nv; ++v) {
+                d = a[v] - a[doff + v];
+                s = s + d * d;
+                e = a[v] - a[v - doff];
+                u = u + e * e;
+              }
+              sf[cc] = s;
+              sb[cc] = u;
+            }
+          }
+        }
+        // (2) the t pass over the row's columns
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          T af = sf[c], ab = sb[c];
+#pragma unroll
+          for (int u = 1; u <= 2 * FTM; ++u) {
+            if (u <= 2 * ft) {
+              af = af + sf[c + u];
+              ab = ab + sb[c + u];
+            }
+          }
+          ptf[j][c] = af;
+          ptb[j][c] = ab;
+        }
+      }
+      // the output row whose patch ends at row j (at the largest fy)
+      if (j >= 2 * FYM) {
+        const int k = j - 2 * FYM;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          // (3) the y pass over the rows, the x pass across the lanes
+          T yf = ptf[k][c], yb = ptb[k][c];
+#pragma unroll
+          for (int u = 1; u <= 2 * FYM; ++u) {
+            if (u <= 2 * fy) {
+              yf = yf + ptf[k + u][c];
+              yb = yb + ptb[k + u][c];
+            }
+          }
+          T xf = yf, xb = yb;
+          if (fx > 0) {
+            xf = __shfl_sync(kAll, yf, lane - fx);
+            xb = __shfl_sync(kAll, yb, lane - fx);
+            for (int u = 1; u <= 2 * fx; ++u) {
+              xf = xf + (u == fx ? yf : __shfl_sync(kAll, yf, lane - fx + u));
+              xb = xb + (u == fx ? yb : __shfl_sync(kAll, yb, lane - fx + u));
+            }
+          }
+          // (4) the weights, the forward then the backward term
+          const T w2[2] = {weight(xf, p), weight(xb, p)};
+          const T* ctr = tile + base + (c + ft) * sT + (k + fy) * sY;
+#pragma unroll
+          for (int dir = 0; dir < 2; ++dir) {
+            const T* vp = ctr + (dir == 0 ? doff : -doff);
+            if constexpr (NV > 0) {
+              T val[NV];
+              load_rec<T, NV>(vp, val);
+              add_term<T, NV, NE>(w2[dir], val, wsum[k][c], wx[k][c],
+                                  acc[k][c], p);
+            } else {
+              const T w = w2[dir];
+              wsum[k][c] = wsum[k][c] + w;
+              if (p.use_neff) {
+                wx[k][c] = wx[k][c] + w * w;
+              } else {
+                wx[k][c] = w > wx[k][c] ? w : wx[k][c];
+              }
+              if (valid >> (k * C + c) & 1u) {
+                T* o = out + (((long long)(gy0 + k) * p.nx + gx) * p.nt +
+                              (gt0 + c)) * nv;
+                for (int v = 0; v < nv; ++v) o[v] = o[v] + w * vp[v];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (!(valid >> (k * C + c) & 1u)) continue;
+      T* o = out + (((long long)(gy0 + k) * p.nx + gx) * p.nt + (gt0 + c)) *
+                       nv;
+      finish<T, NV>(wsum[k][c], wx[k][c], NV > 0 ? acc[k][c] : o,
+                    tile + base + (c + ft) * sT + (k + fy) * sY, o, p);
+    }
+}
+
+// One row of offsets (a fixed dy = DY) of the pair kernel: for each dx,
+// the weights of the pairs (q, q + D) at the R + DY positions q of the
+// thread's column that its outputs' two directions use, each once.
+template <int FY, int FX, int R, int NE, int DY>
+__device__ __forceinline__ void pair_row(const float* tile, int base, int sY,
+                                         int lane, const Params<float>& p,
+                                         float (&acc)[R][4], float (&wsum)[R],
+                                         float (&wx)[R]) {
+  constexpr int E = R + DY;          // weights: rows gy0 - DY .. gy0 + R - 1
+  constexpr int NS = E + 2 * FY;     // their patch rows
+  for (int dx = DY == 0 ? 1 : -p.rx; dx <= p.rx; ++dx) {
+    const int doff = DY * sY + dx * 4;
+    float S[NS], W[E], keep[R][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      // (1) the squared differences at row j: y = gy0 - DY - FY + j
+      const float* a = tile + base + (j - DY) * sY;
+      float ca[4], fa[4];
+      load_rec<float, 4>(a, ca);
+      load_rec<float, 4>(a + doff, fa);
+      S[j] = sqsum<float, 4>(ca, fa);
+      if (j >= DY + FY && j < DY + FY + R) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) keep[j - DY - FY][v] = fa[v];
+      }
+      if (j >= 2 * FY) {
+        // (2) the weight of row e = j - 2FY: the y pass, the x pass
+        const int e = j - 2 * FY;
+        float py = S[e];
+#pragma unroll
+        for (int u = 1; u <= 2 * FY; ++u) py = py + S[e + u];
+        float px = __shfl_sync(kAll, py, lane - FX);
+#pragma unroll
+        for (int u = 1; u <= 2 * FX; ++u)
+          px = px + (u == FX ? py : __shfl_sync(kAll, py, lane - FX + u));
+        W[e] = weight(px, p);
+        if (e >= DY) {
+          // (3) output k = e - DY: the forward term (its pair (o, o + D)),
+          //     then the backward one (the pair (o - D, o), weighed at
+          //     o - D by the lane dx to the left)
+          const int k = e - DY;
+          const float wb = __shfl_sync(kAll, W[k], lane - dx);
+          float vb[4];
+          load_rec<float, 4>(tile + base + (k + FY) * sY - doff, vb);
+          add_term<float, 4, NE>(W[e], keep[k], wsum[k], wx[k], acc[k], p);
+          add_term<float, 4, NE>(wb, vb, wsum[k], wx[k], acc[k], p);
+        }
+      }
+    }
+  }
+  if constexpr (DY < kPairRMax) {
+    if (DY < p.ry)
+      pair_row<FY, FX, R, NE, DY + 1>(tile, base, sY, lane, p, acc, wsum,
+                                      wx);
+  }
+}
+
+// Spatial windows (r2 = f2 = 0) of 4 float32 variables at the patch radii
+// FY, FX: each pair's weight evaluated once, at the pair's left position,
+// for both its directions. R outputs a thread along y at one t; the lanes
+// rx + fx .. 31 - rx - fx are outputs (tx = 32 - 2(rx + fx)), so that the
+// lane dx to the left of each holds a weight.
+template <int FY, int FX, int R, int NE>
+__global__ void __launch_bounds__(kMaxThreads)
+    nlmeans_ring_pairs(const float* __restrict__ in, float* __restrict__ out,
+                  Params<float> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tile = reinterpret_cast<float*>(smem_raw);
+  const Halo h = load_halo<float, 4>(in, tile, p, FY, 0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wy = warp / p.tt, wt = warp - wy * p.tt;
+  const int lx = p.rx + FX;          // lanes before the first output
+  const int gx = h.x0 - lx + lane;
+  const int gy0 = h.y0 + wy * R, gt = h.t0 + wt;
+  // the halo tile's element at (y, x, t) = (gy0 - FY, gx, gt)
+  const int base = wt * h.sT + (wy * R + p.ry) * h.sY + (p.rx + lane) * 4;
+  float acc[R][4], wsum[R], wx[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    wsum[k] = 0.0f;
+    wx[k] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[k][v] = 0.0f;
+  }
+  __syncthreads();
+  pair_row<FY, FX, R, NE, 0>(tile, base, h.sY, lane, p, acc, wsum, wx);
+  if (lane < lx || lane >= 32 - lx || gx >= p.nx || gt >= p.nt) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (gy0 + k >= p.ny) continue;
+    float* o = out + (((long long)(gy0 + k) * p.nx + gx) * p.nt + gt) * 4;
+    finish<float, 4>(wsum[k], wx[k], acc[k], tile + base + (k + FY) * h.sY,
+                     o, p);
+  }
+}
+
+template <typename T>
+int launch_with(void (*kernel)(const T*, T*, Params<T>), unsigned blocks,
+                int threads, size_t smem, cudaStream_t s, const T* src,
+                T* dst, const Params<T>& p) {
   int err = (int)cudaFuncSetAttribute(
-      nlmeans_tiled<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  nlmeans_tiled<T, NV><<<(unsigned)blocks, threads, smem, s>>>(src, dst, p);
+  kernel<<<blocks, threads, smem, s>>>(src, dst, p);
   return (int)cudaGetLastError();
+}
+
+// whether the pair kernel has a build for the shapes (pair_build in
+// ops/nlmeans_cuda.py)
+__host__ inline bool pair_build(int nv, int itemsize, int ry, int rx, int rt,
+                                int fy, int fx, int ft) {
+  return itemsize == 4 && nv == 4 && rt == 0 && ft == 0 && fy == fx &&
+         (fy == 1 || fy == 2) && ry >= 1 && ry <= kPairRMax &&
+         rx + fx <= kFxMax;
 }
 
 template <typename T>
@@ -368,16 +565,21 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
            int rx, int rt, int fy, int fx, int ft, int ty, int tx, int tt,
            double sigma, double h, double n_eff, void* stream) {
   if ((long long)ny * nx * nt == 0 || nv == 0) return 0;
-  // the packed output coordinates take 8 bits per axis
-  if (ty < 1 || tx < 1 || tt < 1 || ty > 255 || tx > 255 || tt > 255)
+  const bool pairs = pair_build(nv, sizeof(T), ry, rx, rt, fy, fx, ft);
+  // the patch reaches along t: runs of 4 y at 2 t, else of 8 y at one t
+  const bool deep = ft > 0;
+  const int R = deep ? 4 : 8, C = deep ? 2 : 1;
+  const int lx = pairs ? rx + fx : fx;   // lanes before the first output
+  if (ry < 0 || rx < 0 || rt < 0 || fy < 0 || fx < 0 || ft < 0 ||
+      fy > kFMax || ft > kFMax || fx > kFxMax || tx != 32 - 2 * lx ||
+      ty < R || tt < C || ty % R || tt % C)
     return (int)cudaErrorInvalidValue;
-  const int nout = ty * tx * tt;
-  const int threads = ((nout + kOut - 1) / kOut + 31) / 32 * 32;
-  if (threads > 512) return (int)cudaErrorInvalidValue;
-  long long tile_n, region_n;
-  tile_sizes(ty, tx, tt, ry, rx, rt, fy, fx, ft, nv, &tile_n, &region_n);
-  const size_t smem = (size_t)(tile_n + 2 * region_n) * sizeof(T);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * (ty / R) * (tt / C);
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const long long recs = (long long)(ty + 2 * (ry + fy)) * (32 + 2 * rx) *
+                         (tt + 2 * (rt + ft));
+  const long long smem = recs * nv * (long long)sizeof(T);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((ny + ty - 1) / ty) *
                            ((nx + tx - 1) / tx) * ((nt + tt - 1) / tt);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
@@ -390,16 +592,33 @@ int launch(const void* in, void* out, int ny, int nx, int nt, int nv, int ry,
   p.inv_h2 = T(1.0 / (h * h));
   p.n_eff = T(n_eff);
   p.use_neff = n_eff >= 0.0;
+  p.aligned16 = (reinterpret_cast<uintptr_t>(in) & 15) == 0;
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (nv) {
-    case 1: return launch_nv<T, 1>(src, dst, p, blocks, threads, smem, s);
-    case 2: return launch_nv<T, 2>(src, dst, p, blocks, threads, smem, s);
-    case 3: return launch_nv<T, 3>(src, dst, p, blocks, threads, smem, s);
-    case 4: return launch_nv<T, 4>(src, dst, p, blocks, threads, smem, s);
-    default: return launch_nv<T, 0>(src, dst, p, blocks, threads, smem, s);
+  const size_t sm = (size_t)smem;
+  const unsigned nb = (unsigned)blocks;
+  // the builds with every radius fixed, each with and without n_eff
+  const bool ne = p.use_neff;
+  if constexpr (sizeof(T) == 4) {
+    if (pairs && fy == 1)
+      return launch_with<T>(ne ? nlmeans_ring_pairs<1, 1, 8, 1>
+                               : nlmeans_ring_pairs<1, 1, 8, 0>,
+                            nb, threads, sm, s, src, dst, p);
+    if (pairs)
+      return launch_with<T>(ne ? nlmeans_ring_pairs<2, 2, 8, 1>
+                               : nlmeans_ring_pairs<2, 2, 8, 0>,
+                            nb, threads, sm, s, src, dst, p);
+    if (nv == 4 && ft == 1 && fy == 1 && fx == 1)
+      return launch_with<T>(ne ? nlmeans_ring<T, 4, 1, 1, 1, 4, 2, 1>
+                               : nlmeans_ring<T, 4, 1, 1, 1, 4, 2, 0>,
+                            nb, threads, sm, s, src, dst, p);
   }
+  if (deep)
+    return launch_with<T>(nlmeans_ring<T, 0, -1, -1, -1, 4, 2, -1>, nb,
+                          threads, sm, s, src, dst, p);
+  return launch_with<T>(nlmeans_ring<T, 0, -1, -1, 0, 8, 1, -1>, nb, threads,
+                        sm, s, src, dst, p);
 }
 
 }  // namespace

@@ -10,25 +10,37 @@ entry points.
     ``nlmeans_pallas`` (temporal and full 3-D windows).
 
 All three TPU variants share the body ``_kernel``; on the card one
-tiled kernel serves both entry points (the spatial one is its r2 = f2 =
-0 case) and keeps that body's algorithm: each unordered offset pair
-once, separable patch sums, one exp per D-extended position used for
-both directions. On the H100 it is bound by arithmetic and shared-memory
-traffic; one block per output tile holds its reflect-mapped halo tile in
-shared memory. ``_tile_plan`` picks the kernel and its tile from the
-shapes: windows whose halo tile of every variable fits no block (wide
-3-D windows) take the wide-window kernel, which pads the cube once into
-a scratch buffer, evaluates every offset of the window at its own
-outputs and keeps the padded rows of one dy of offsets in a ring in
-shared memory (``_wide_plan``). See the sources for the designs.
+route of two kernels serves both entry points (the spatial one is the
+r2 = f2 = 0 case) and keeps that body's arithmetic: each unordered
+offset pair once, separable patch sums over t, then y, then x, its
+forward then its backward term. On the H100 it is bound by instruction
+issue. One block per output tile holds its reflect-mapped halo tile in
+shared memory; each warp's lanes run along x, each thread owns a run of
+outputs along y (and two t where the patch reaches along t), and every
+offset pair is evaluated in registers: squared differences, the t and y
+passes, the x pass by warp shuffles, the weights, both terms. The
+'ring' route (``_ring_plan``): ``nlmeans_ring`` weighs each output's
+two directions at the output, ``nlmeans_ring_pairs`` (spatial windows
+of 4 float32 variables at f = 1 or 2, :func:`pair_build`) each pair
+once and hands the backward weight to the lane dx to the right.
+``_tile_plan`` picks the route and its tile from the shapes: windows
+whose halo tile of every variable fits no block, or whose patch radius
+passes ``RING_FMAX`` on y or t or ``RING_FXMAX`` on x, take the
+wide-window kernel, which pads the cube once into a scratch buffer,
+evaluates every offset of the window at its own outputs and keeps the
+padded rows of one dy of offsets in a ring in shared memory
+(``_wide_plan``). See the sources for the designs.
 
 Dtypes: float32 and float64 run as they are; float16 and bfloat16 are
 computed in float32 (the plain version does the same) and returned in
 their own dtype. Each entry point runs the kernel for a CUDA tensor and
 the plain version for a CPU tensor; for any other device, dtype or
 layout it raises. Launches are counted per kernel and entry point:
-``launches`` (spatial) and ``launches_3d`` count the tiled kernel,
-``launches_wide`` the wide-window kernel from either entry point.
+``launches`` (spatial) and ``launches_3d`` count the ring route,
+``launches_wide`` the wide-window kernel from either entry point. While
+a trace records, every CUDA call adds its y x t outputs to the
+``nlmeans.outputs`` counter of :mod:`nd_tpu_torch.tracing`, and a call
+on the ring route to ``nlmeans.outputs_ring`` too.
 """
 
 from __future__ import annotations
@@ -40,14 +52,15 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import count
 from .conv_cuda import LOW_PRECISION, _in_float32
 from .nlmeans import nlmeans_plain
 
 __all__ = ['nlmeans_spatial', 'nlmeans_spatial_plain', 'nlmeans_3d',
            'nlmeans_3d_plain', 'launches', 'launches_3d']
 
-launches = 0           # nlmeans_spatial: tiled kernel launches
-launches_3d = 0        # nlmeans_3d: tiled kernel launches
+launches = 0           # nlmeans_spatial: ring route launches
+launches_3d = 0        # nlmeans_3d: ring route launches
 launches_wide = 0      # either entry point: wide-window kernel launches
 
 
@@ -74,11 +87,16 @@ def _check(arr, r, f, name):
                              '(%d)' % (ri + fi, i, arr.shape[i]))
 
 
-OUTS_PER_THREAD = 2         # kOut in csrc/nlmeans.cu
 SMEM_MAX = 232448           # shared memory a block may use on the H100
 SMEM_BUDGET = 112 * 1024    # two blocks per SM
-_TILE_SIDES = (4, 8, 16, 32)
-_TILE_T = (1, 2, 4, 8, 16)
+RING_LANES = 32             # a warp's lanes along x
+RING_FMAX = 3               # kFMax in csrc/nlmeans.cu: fy and ft
+RING_FXMAX = 8              # kFxMax: fx
+RING_MAX_THREADS = 256      # kMaxThreads
+PAIR_RMAX = 2               # kPairRMax: ry of the pair kernel's builds
+_RING_WARPS = (1, 2, 4, 8)
+_RING_PAIR_COST = 120       # the plan's weights: a pair at an output
+_RING_LOAD_COST = 40        # against a halo position's copy
 WIDE_MAX_E = 8              # kMaxE in csrc/nlmeans_wide.cu
 WIDE_MAX_OUT = 2            # kMaxOut
 WIDE_MAX_THREADS = 512
@@ -90,18 +108,76 @@ _WIDE_T = (1, 2, 4, 8, 16)
 _WIDE_BLOCK_COST = 2048     # a block's fixed cost per offset (syncs, loop)
 
 
-def tile_smem(tile, r, f, nv, itemsize):
-    """Shared-memory bytes of a block of the tiled kernel (``tile_sizes``
-    in csrc/nlmeans.cu): the (ty + 2(ry+fy), tx + 2(rx+fx),
-    tt + 2(rt+ft)) halo tile of all ``nv`` variables and two scratch
-    planes of the largest D-extended patch region (T + r + 2f per
-    axis)."""
-    halo = 1
-    region = 1
-    for t, ri, fi in zip(tile, r, f):
-        halo *= t + 2 * (ri + fi)
-        region *= t + ri + 2 * fi
-    return (nv * halo + 2 * region) * itemsize
+def pair_build(shape, r, f, itemsize):
+    """Whether the ring route runs the pair kernel (``pair_build`` in
+    csrc/nlmeans.cu): spatial windows of 4 float32 variables with fy = fx
+    in (1, 2), 1 <= ry <= ``PAIR_RMAX`` and rx + fx <= ``RING_FXMAX``;
+    each pair's weight is then evaluated once for both directions."""
+    return (itemsize == 4 and int(shape[3]) == 4 and r[2] == f[2] == 0
+            and f[0] == f[1] and f[0] in (1, 2) and 1 <= r[0] <= PAIR_RMAX
+            and r[1] + f[1] <= RING_FXMAX)
+
+
+def ring_run(shape, r, f, itemsize):
+    """``(R, C, tx)``: the outputs a thread of the ring route owns along y
+    and along t, and a warp's outputs along x (the kernels' ``R``, ``C``
+    and ``tx``): 4 x 2 where the patch reaches along t, else 8 x 1; the
+    32 lanes less fx on each side (rx + fx for the pair kernel)."""
+    R, C = (4, 2) if f[2] > 0 else (8, 1)
+    lx = r[1] + f[1] if pair_build(shape, r, f, itemsize) else f[1]
+    return R, C, RING_LANES - 2 * lx
+
+
+def ring_smem(tile, r, f, nv, itemsize):
+    """Shared-memory bytes of a block of the ring route (``recs`` in
+    csrc/nlmeans.cu's ``launch``): the halo tile of all ``nv`` variables,
+    ty + 2(ry+fy) rows, the 32 lanes and rx on each side along x, and
+    tt + 2(rt+ft) along t."""
+    ty, _, tt = tile
+    return nv * itemsize * (ty + 2 * (r[0] + f[0])) \
+        * (RING_LANES + 2 * r[1]) * (tt + 2 * (r[2] + f[2]))
+
+
+def _ring_plan(shape, r, f, itemsize):
+    """The ring route's plan, or None where it takes no tile: a patch
+    radius past ``RING_FMAX`` on y or t or ``RING_FXMAX`` on x, or a
+    halo tile that fits no block. Among blocks of 1 to 8 runs of warps
+    along y and t (``RING_MAX_THREADS``) within ``SMEM_MAX``, those
+    within ``SMEM_BUDGET`` (two blocks per SM) first, then the least
+    work: every pair at each output the tiles cover (ragged arrays
+    included) and each block's halo load; ties take the smaller shared
+    memory. Returns ``dict(route='ring', pairs, tile, threads, smem,
+    blocks)``: ``pairs`` for the pair kernel (:func:`pair_build`), ty a
+    multiple of R, tt of C and tx as :func:`ring_run` gives them, one
+    warp per run of a lane's outputs."""
+    if f[0] > RING_FMAX or f[2] > RING_FMAX or f[1] > RING_FXMAX:
+        return None
+    dims = tuple(int(v) for v in shape[:3])
+    nv = int(shape[3])
+    R, C, tx = ring_run(shape, r, f, itemsize)
+    pairs = max((np.prod([2 * ri + 1 for ri in r]) - 1) // 2, 1)
+    best = None
+    for wy, wt in itertools.product(_RING_WARPS, _RING_WARPS):
+        if RING_LANES * wy * wt > RING_MAX_THREADS:
+            continue
+        tile = (R * wy, tx, C * wt)
+        smem = ring_smem(tile, r, f, nv, itemsize)
+        if smem > SMEM_MAX:
+            continue
+        blocks = np.prod([-(-n // t) for n, t in zip(dims, tile)])
+        cost = blocks * (np.prod(tile) * pairs * _RING_PAIR_COST
+                         + smem // (nv * itemsize) * _RING_LOAD_COST)
+        key = (smem > SMEM_BUDGET, cost, smem)
+        if best is None or key < best[0]:
+            best = (key, tile)
+    if best is None:
+        return None
+    _, tile = best
+    return dict(route='ring', pairs=pair_build(shape, r, f, itemsize),
+                tile=tile,
+                threads=RING_LANES * (tile[0] // R) * (tile[2] // C),
+                smem=ring_smem(tile, r, f, nv, itemsize),
+                blocks=int(np.prod([-(-n // t) for n, t in zip(dims, tile)])))
 
 
 def ring_row(sx, st):
@@ -253,58 +329,30 @@ def wide_plan_of(shape, r, f, itemsize, tile, ring, fused=None):
 
 @functools.lru_cache(maxsize=256)
 def _tile_plan(shape, r, f, itemsize):
-    """The kernel and its block, chosen from the shapes. The tiled kernel
-    ('staged': the halo tile of every variable in shared memory) where a
-    tile fits: the least work per output — the D-extended region a pair
-    evaluates, averaged over the pairs, times the share of outputs that
-    fall outside a ragged array — among tiles of 128 to 1024 outputs (64
-    to 512 threads, ``OUTS_PER_THREAD`` each) within ``SMEM_BUDGET`` (two
-    blocks per SM), else the smallest such tile within ``SMEM_MAX``. Ties
-    take the smaller shared memory. Returns ``dict(route='staged', tile,
-    threads, smem, blocks)``. Where no tile fits (wide windows), the
-    wide-window kernel's plan (:func:`_wide_plan`); raises ValueError
-    when that fits no tile either. Cached per call signature: the search
-    costs milliseconds of host time, more than a spatial launch."""
-    dims = tuple(int(v) for v in shape[:3])
-    nv = int(shape[3])
+    """The kernel and its block, chosen from the shapes: the ring kernel
+    where it takes the shape (:func:`_ring_plan`: ``dict(route='ring',
+    tile, threads, smem, blocks)``), else the wide-window kernel's plan
+    (:func:`_wide_plan`); raises ValueError when that fits no tile
+    either. Cached per call signature: the search costs a millisecond of
+    host time, more than a spatial launch."""
     r = tuple(int(v) for v in r)
     f = tuple(int(v) for v in f)
-    pairs = [d for d in itertools.product(*[range(-ri, ri + 1) for ri in r])
-             if d > (0, 0, 0)] or [(0, 0, 0)]
-    best = None
-    for tile in itertools.product(_TILE_SIDES, _TILE_SIDES, _TILE_T):
-        outs = tile[0] * tile[1] * tile[2]
-        if not 128 <= outs <= 512 * OUTS_PER_THREAD:
-            continue
-        smem = tile_smem(tile, r, f, nv, itemsize)
-        if smem > SMEM_MAX:
-            continue
-        work = sum(np.prod([t + abs(di) + 2 * fi for t, di, fi
-                            in zip(tile, d, f)]) for d in pairs)
-        covered = np.prod([-(-n // t) * t for n, t in zip(dims, tile)])
-        cost = work / len(pairs) / outs * covered / np.prod(dims)
-        key = (smem > SMEM_BUDGET, cost if smem <= SMEM_BUDGET else smem,
-               smem)
-        if best is None or key < best[0]:
-            best = (key, tile, smem)
-    if best is None:
+    plan = _ring_plan(tuple(shape), r, f, itemsize)
+    if plan is None:
         return _wide_plan(tuple(shape), r, f, itemsize)
-    _, tile, smem = best
-    outs = tile[0] * tile[1] * tile[2]
-    blocks = int(np.prod([-(-n // t) for n, t in zip(dims, tile)]))
-    return dict(route='staged', tile=tile, threads=outs // OUTS_PER_THREAD,
-                smem=smem, blocks=blocks)
+    return plan
 
 
 def _launch(arr, r, f, sigma, h, n_eff, counter, plan=None):
     """One launch over a checked CUDA tensor; r and f are (r0, r1, r2) and
     (f0, f1, f2). The plan (``_tile_plan``'s unless given) picks the
-    kernel; ``counter`` is the entry point's count of the tiled kernel."""
+    kernel; ``counter`` is the entry point's count of the ring route."""
     ny, nx, nt, nv = arr.shape
     if plan is None:
         plan = _tile_plan(tuple(arr.shape), tuple(r), tuple(f),
                           arr.element_size())
     out = torch.empty_like(arr)
+    count('nlmeans.outputs', ny * nx * nt)
     with torch.cuda.device(arr.device):
         stream = torch.cuda.current_stream(arr.device).cuda_stream
         if plan['route'] == 'wide':
@@ -326,6 +374,7 @@ def _launch(arr, r, f, sigma, h, n_eff, counter, plan=None):
                      *r, *f, *plan['tile'], float(sigma), float(h),
                      float(n_eff), stream)
             _build.bump(globals(), counter)
+            count('nlmeans.outputs_ring', ny * nx * nt)
     _build.check(name, err)
     return out
 

@@ -9,7 +9,7 @@ PyTorch is installed:
 Tolerances: sepconv (two and three axes) max abs diff <= 1e-6 max|x|
 (1e-13 in float64), and 0 for the tiled kernel against its plain version
 (the same operations in the same order), long taps included; NLMeans
-(spatial and 3-D windows, the tiled and the wide-window kernel) rtol
+(spatial and 3-D windows, the ring and the wide-window kernel) rtol
 1e-5, atol 1e-6 (float64:
 rtol 1e-12; float16 in and out: rtol 1e-3, atol 1e-3, one float16
 rounding of results that agree in float32); the round kernel's flags
@@ -211,7 +211,9 @@ def test_sepconv3_kernel_matches_plain(cuda, mode, dtype, shape):
 @pytest.mark.parametrize('nv', [1, 4, 6])
 @pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),
                                  ((0, 0, 2), (1, 1, 0)),
-                                 ((1, 0, 1), (0, 1, 1))])
+                                 ((1, 0, 1), (0, 1, 1)),
+                                 ((1, 1, 1), (3, 8, 3)),    # the ring's
+                                 ((2, 3, 2), (3, 2, 3))])   # largest f
 def test_nlmeans_3d_kernel_matches_plain(cuda, nv, r, f):
     a = _data((15, 19, 6, nv), seed=12).to(cuda, torch.float32)
     before = nlmeans_cuda.launches_3d
@@ -374,29 +376,79 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             (1, 1, 1), (1, 1, 1), 1.0, 1.0)
 
 
-# ---- the tiled NLMeans and sepconv kernels ---------------------------------
+# ---- the ring NLMeans and the tiled sepconv kernels -----------------------
 
-@pytest.mark.parametrize('nv', [1, 2, 3, 4, 5])
+# the windows of the ring kernel's builds: spatial r=2/f=1, r=1/f=1,
+# r=2/f=2 (float32, nv = 4: radii fixed at compile time), (y, x, t), and
+# the generic build's (time,) and (x, time) windows
+RING_WINDOWS = {'spatial': ((2, 2, 0), (1, 1, 0)),
+                'spatial_r1': ((1, 1, 0), (1, 1, 0)),
+                'spatial_f2': ((2, 2, 0), (2, 2, 0)),
+                '3d': ((2, 2, 1), (1, 1, 1)),
+                'time': ((0, 0, 2), (0, 0, 1)),
+                'x_time': ((0, 2, 1), (0, 1, 1))}
+
+
+@pytest.mark.parametrize('nv', [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('window', ['spatial', '3d'])
+@pytest.mark.parametrize('window', list(RING_WINDOWS))
 def test_tiled_nlmeans_matches_plain(cuda, nv, dtype, window):
     # ragged tiles: 37 x 53 fits no tile shape
     a = _data((37, 53, 5, nv), seed=20 + nv).to(cuda, dtype)
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
         else dict(rtol=1e-12, atol=1e-13)
+    r, f = RING_WINDOWS[window]
+    assert nlmeans_cuda._tile_plan(a.shape, r, f, a.element_size())[
+        'route'] == 'ring'
     for n_eff in (-1.0, 4.0):
-        if window == 'spatial':
-            got = nlmeans_cuda.nlmeans_spatial(a, (2, 2), (1, 1), 0.3, 0.4,
+        if r[2] == f[2] == 0:
+            got = nlmeans_cuda.nlmeans_spatial(a, r[:2], f[:2], 0.3, 0.4,
                                                n_eff)
-            ref = nlmeans_cuda.nlmeans_spatial_plain(a, (2, 2), (1, 1), 0.3,
+            ref = nlmeans_cuda.nlmeans_spatial_plain(a, r[:2], f[:2], 0.3,
                                                      0.4, n_eff)
         else:
-            got = nlmeans_cuda.nlmeans_3d(a, (2, 2, 1), (1, 1, 1), 0.3, 0.4,
-                                          n_eff)
-            ref = nlmeans_cuda.nlmeans_3d_plain(a, (2, 2, 1), (1, 1, 1), 0.3,
-                                                0.4, n_eff)
+            got = nlmeans_cuda.nlmeans_3d(a, r, f, 0.3, 0.4, n_eff)
+            ref = nlmeans_cuda.nlmeans_3d_plain(a, r, f, 0.3, 0.4, n_eff)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, equal_nan=True, **tol)
+
+
+RING_COUNT_CHILD = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from nd_tpu_torch import tracing
+from nd_tpu_torch.ops import nlmeans_cuda
+shape, r, f = json.loads(sys.argv[2])
+a = torch.rand(shape, device='cuda')
+run = nlmeans_cuda.nlmeans_spatial if len(r) == 2 else nlmeans_cuda.nlmeans_3d
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+    out = run(a, r, f, 2.0, 3.0)
+    torch.cuda.synchronize()
+    counts = tracing.counters()
+print(json.dumps(dict(counts, finite=bool(torch.isfinite(out).all()))))
+"""
+
+
+@pytest.mark.parametrize('shape,r,f', [((4096, 4096, 12, 4), (2, 2), (1, 1)),
+                                       ((1024, 1024, 56, 4), (2, 2, 1),
+                                        (1, 1, 1))])
+def test_nlmeans_chain_shapes_take_the_ring_route(cuda, shape, r, f):
+    # the two chains' tiles: every output on the ring route, counted while
+    # a profiler records (in a process of its own: earlier profiler
+    # windows of a process can lose later kernel events)
+    import json
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, '-c', RING_COUNT_CHILD, root,
+                           json.dumps([shape, r, f])],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert counts['nlmeans.outputs'] == shape[0] * shape[1] * shape[2]
+    assert counts['nlmeans.outputs_ring'] == counts['nlmeans.outputs']
+    assert counts['finite']
 
 
 @pytest.mark.parametrize('r,f', [((2, 2, 1), (1, 1, 1)),
@@ -1876,7 +1928,8 @@ def test_every_copy_of_the_chain_is_launched_in_a_data_span(cuda, tmp_path):
     (``CatArrayBatchedCopy``, ``direct_copy``) was launched inside a
     ``data.*`` range and every kernel launched inside one is a copy;
     ``report()`` has the device time of each ``data.*`` span and of
-    ``omnibus.unpack``, and the rescan's count in the counters."""
+    ``omnibus.unpack``, and the rescan's count and NLMeans's outputs (all
+    on the ring route) in the counters."""
     import json
     from torch.profiler import ProfilerActivity, profile
     from nd_tpu_torch import tracing
@@ -1926,7 +1979,9 @@ def test_every_copy_of_the_chain_is_launched_in_a_data_span(cuda, tmp_path):
                      ('C11', 'C12__re', 'C12__im', 'C22')], -1),
         0.01, n=9, return_count=True)
     assert tracing.counters() == {'omnibus.pixels': 96 * 80,
-                                  'omnibus.rescanned': suspects}
+                                  'omnibus.rescanned': suspects,
+                                  'nlmeans.outputs': 96 * 80 * 12,
+                                  'nlmeans.outputs_ring': 96 * 80 * 12}
 
 
 @pytest.mark.parametrize('case', ['percentiles', 'limits', 'count', 'nan'])

@@ -165,10 +165,10 @@ def test_low_precision_is_filtered_in_float32():
 
 WIDE_PLANS = [((1024, 1024, 56, 4), (10, 10, 3), (3, 3, 3), 4, 'wide'),
               ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 8, 'wide'),
-              ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 4, 'staged'),
+              ((1024, 1024, 56, 4), (5, 5, 5), (2, 2, 2), 4, 'ring'),
               ((1024, 1024, 56, 8), (5, 5, 5), (2, 2, 2), 4, 'wide'),
               ((1024, 1024, 56, 4), (4, 4, 4), (3, 3, 3), 8, 'wide'),
-              ((1024, 1024, 56, 4), (2, 2, 1), (1, 1, 1), 4, 'staged')]
+              ((1024, 1024, 56, 4), (2, 2, 1), (1, 1, 1), 4, 'ring')]
 
 
 @pytest.mark.parametrize('shape,r,f,itemsize,route', WIDE_PLANS)
@@ -177,22 +177,22 @@ def test_tile_plan_chooses_the_route_from_the_shapes(shape, r, f, itemsize,
     plan = nlmeans_cuda._tile_plan(shape, r, f, itemsize)
     assert plan['route'] == route
     nv = shape[3]
-    halo = [t + 2 * (ri + fi) for t, ri, fi in zip(plan['tile'], r, f)]
-    region = [t + ri + 2 * fi for t, ri, fi in zip(plan['tile'], r, f)]
-    staged = (nv * np.prod(halo) + 2 * np.prod(region)) * itemsize
-    assert plan['smem'] == (staged if route == 'staged' else
-                            nlmeans_cuda.wide_smem(plan['tile'], r, f, nv,
-                                                   itemsize, plan['ring'],
-                                                   plan['fused']))
+    ty, tx, tt = plan['tile']
+    halo = (ty + 2 * (r[0] + f[0])) * (32 + 2 * r[1]) \
+        * (tt + 2 * (r[2] + f[2]))
+    assert plan['smem'] == (nv * halo * itemsize if route == 'ring'
+                            else nlmeans_cuda.wide_smem(
+                                plan['tile'], r, f, nv, itemsize,
+                                plan['ring'], plan['fused']))
     assert plan['smem'] <= nlmeans_cuda.SMEM_MAX
     if route == 'wide':
         # the partner rows of one dy in the block's ring
         assert plan['ring']
-        # no tile of 128 outputs or more holds the staged halo
-        for tile in ((4, 4, 8), (4, 8, 4), (8, 4, 4), (8, 8, 2),
-                     (16, 8, 1), (8, 16, 1)):
-            assert nlmeans_cuda.tile_smem(tile, r, f, nv, itemsize) \
-                > nlmeans_cuda.SMEM_MAX
+        # no tile of the ring route holds the halo
+        assert nlmeans_cuda._ring_plan(shape, r, f, itemsize) is None
+        R, C, tx_run = nlmeans_cuda.ring_run(shape, r, f, itemsize)
+        assert nlmeans_cuda.ring_smem((R, tx_run, C), r, f, nv,
+                                      itemsize) > nlmeans_cuda.SMEM_MAX
     # every output in exactly one block
     ty, tx, tt = plan['tile']
     assert plan['blocks'] == np.prod([-(-n // t) for n, t in
